@@ -1,0 +1,62 @@
+"""NeuralMarionette: detector + dynamics composition.
+
+Counterpart of ``neural_marionette_tpu/models/marionette.py``: the phase
+flags are call arguments, and the boundary between detector and dynamics
+detaches the keypoints.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn as nn
+
+from ..config import MarionetteConfig
+from .detector import KyptDetector
+from .dynamics import HSVRNNBVH, SkeletonArrays
+
+
+class NeuralMarionette(nn.Module):
+    def __init__(self, cfg: MarionetteConfig, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.kypt_detector = KyptDetector(cfg, dtype, device)
+        self.dyna_module = HSVRNNBVH(cfg, device)
+
+    def forward(self, vox_seq, detector_active: bool = True,
+                learner_active: bool = False, affinity_active: bool = True,
+                skeleton: Optional[SkeletonArrays] = None,
+                sample_num: int = 10, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> dict[str, Any]:
+        """vox_seq: (B, T, G, G, G, 1). A frozen detector (learner only)
+        returns detached outputs."""
+        log: dict[str, Any] = {}
+        if detector_active or learner_active:
+            det = self.kypt_detector(vox_seq, affinity_active=affinity_active)
+            if not detector_active:
+                det = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                       for k, v in det.items()}
+            log.update(det)
+        if learner_active:
+            if skeleton is None:
+                raise ValueError("the learner path needs a SkeletonArrays")
+            log.update(self.dyna_module.encode(
+                log["keypoints"].detach(), skeleton, sample_num=sample_num,
+                eps=eps, generator=generator))
+        return log
+
+    def encode_only(self, vox_seq, skeleton: SkeletonArrays,
+                    affinity_active: bool = True, sample_num: int = 10,
+                    eps: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> dict[str, Any]:
+        """Detector + dynamics encode for inference: keypoints, per-frame
+        global rotations R, affinity, recon and the loss scalars."""
+        det = self.kypt_detector(vox_seq, affinity_active=affinity_active)
+        det.update(self.dyna_module.encode(
+            det["keypoints"].detach(), skeleton, sample_num=sample_num,
+            eps=eps, generator=generator))
+        return det

@@ -1,0 +1,261 @@
+"""Detector / graph loss functions; carries kernel K2.
+
+Counterpart of ``neural_marionette_tpu/ops/losses.py``. Layouts are the JAX
+package's, channels-last:
+
+* ``seq``:        (B, T, G, G, G, 1)
+* ``heatmaps``:   (B, T, g, g, g, K)
+* ``keypoints``:  (B, T, K, D+1)
+* ``affinity``:   (nneighbor, K, K, 1)
+
+The chamfer numerator of :func:`volume_fitting_loss` goes through
+:func:`chamfer_num`: kernel ``csrc/chamfer.cu`` for a CUDA tensor,
+:func:`chamfer_num_plain` for a CPU tensor. The denominator stays outside.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .coords import coord_maps
+
+_LOG_CLAMP = -100.0  # torch.nn.BCELoss clamps log() at -100
+
+launches = 0  # kernel launches of :func:`chamfer_num`
+
+
+def bce_recon_loss(recon: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-(B, T) mean binary cross entropy over channel+spatial dims."""
+    log_p = torch.clamp(torch.log(recon), min=_LOG_CLAMP)
+    log_1p = torch.clamp(torch.log1p(-recon), min=_LOG_CLAMP)
+    nll = -(target * log_p + (1.0 - target) * log_1p)
+    return nll.mean(dim=tuple(range(2, nll.ndim)))
+
+
+def keypoint_sparsity_loss(heatmaps: torch.Tensor) -> torch.Tensor:
+    """L1 of spatial-mean heatmap activations, mean over K -> (B, T)."""
+    spatial_axes = tuple(range(2, heatmaps.ndim - 1))
+    heatmap_mean = heatmaps.mean(dim=spatial_axes)  # (B, T, K)
+    return heatmap_mean.abs().mean(dim=2)
+
+
+def temporal_separation_loss(keypoints: torch.Tensor,
+                             sep_sigma: float) -> torch.Tensor:
+    """Gaussian penalty on similar displacement trajectories -> (B,)."""
+    coords = keypoints[..., :-1]  # (B, T, K, D)
+    K = coords.shape[2]
+    displacement = coords - coords.mean(dim=1, keepdim=True)
+    diff = ((displacement[:, :, :, None] - displacement[:, :, None]) ** 2
+            ).sum(dim=-1)  # (B, T, K, K)
+    diff = diff.mean(dim=1)
+    loss = torch.exp(-diff / (2.0 * sep_sigma ** 2.0))
+    loss = loss.sum(dim=(1, 2)) - K
+    return loss / (K * (K - 1))
+
+
+# ------------------------------------------------------------ kernel K2
+def _linspace(G: int, device) -> torch.Tensor:
+    """Per-axis voxel-centre coordinates, exactly ``ops/coords``' grid."""
+    return coord_maps((G,), device=device)[:, 0]
+
+
+def _check_chamfer(kp: torch.Tensor, occ_flat: torch.Tensor, grid_size: int):
+    if kp.dtype != torch.float32:
+        raise TypeError(f"chamfer_num: kp must be float32, got {kp.dtype}")
+    if occ_flat.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"chamfer_num: occupancy must be float32 or "
+                        f"bfloat16, got {occ_flat.dtype}")
+    if kp.ndim != 3 or kp.shape[-1] != 3:
+        raise ValueError(f"chamfer_num: kp must be (M, K, 3), got "
+                         f"{tuple(kp.shape)}")
+    if occ_flat.shape != (kp.shape[0], grid_size ** 3):
+        raise ValueError(f"chamfer_num: occupancy must be (M, G^3) = "
+                         f"{(kp.shape[0], grid_size ** 3)}, got "
+                         f"{tuple(occ_flat.shape)}")
+    if kp.device != occ_flat.device:
+        raise ValueError("chamfer_num: kp and occupancy on different devices")
+
+
+def chamfer_num_plain(kp: torch.Tensor, occ_flat: torch.Tensor,
+                      grid_size: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: kp (M, K, 3) float32, occ_flat
+    (M, G^3) float32 or bfloat16 -> num (M,) float32 with
+    ``num[m] = sum_v occ[m, v] * relu(|v|^2 + min_k(|c_k|^2 - 2 v.c_k))``.
+    One frame at a time, so the (G^3, K) dot tensor stays small."""
+    _check_chamfer(kp, occ_flat, grid_size)
+    V = coord_maps((grid_size,) * 3, device=kp.device).reshape(-1, 3)
+    v2 = (V * V).sum(dim=-1)
+    out = []
+    for m in range(kp.shape[0]):
+        c = kp[m]                                       # (K, 3)
+        dots = V @ c.T                                  # (G^3, K)
+        c2 = (c * c).sum(dim=-1)
+        dmin = v2 + (c2[None] - 2.0 * dots).amin(dim=-1)
+        out.append((torch.clamp(dmin, min=0.0)
+                    * occ_flat[m].float()).sum())
+    if not out:
+        return torch.zeros(0, dtype=torch.float32, device=kp.device)
+    return torch.stack(out)
+
+
+class _ChamferNum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kp, occ_flat, grid_size):
+        return _chamfer_num_cuda(kp, occ_flat, grid_size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "chamfer_num backward: training slice (not ported yet)")
+
+
+def _chamfer_num_cuda(kp, occ_flat, grid_size):
+    global launches
+    for name, t in (("kp", kp), ("occupancy", occ_flat)):
+        if not t.is_contiguous():
+            raise ValueError(f"chamfer_num: {name} must be contiguous")
+    M, K = kp.shape[:2]
+    lib = kernels.library("chamfer")
+    if not 1 <= K <= lib.nm_chamfer_max_k():
+        raise ValueError(f"chamfer_num: K={K} outside [1, "
+                         f"{lib.nm_chamfer_max_k()}]")
+    tile = lib.nm_chamfer_tile_voxels()
+    n_tiles = -(-grid_size ** 3 // tile)
+    dev = kp.device
+    partial = torch.empty((M, n_tiles), dtype=torch.float32, device=dev)
+    num = torch.empty((M,), dtype=torch.float32, device=dev)
+    lin = _linspace(grid_size, dev)
+    code = lib.nm_chamfer_fwd(
+        kernels.ptr(kp), kernels.ptr(occ_flat),
+        int(occ_flat.dtype == torch.bfloat16), kernels.ptr(lin),
+        kernels.ptr(partial), kernels.ptr(num), M, K, grid_size, n_tiles,
+        dev.index, kernels.stream_handle(dev))
+    kernels.check(lib, code, "chamfer kernel")
+    launches += 1
+    return num
+
+
+def chamfer_num(kp: torch.Tensor, occ_flat: torch.Tensor,
+                grid_size: int) -> torch.Tensor:
+    """kp (M, K, 3) float32, occ_flat (M, G^3) float32/bfloat16 -> (M,)
+    float32. CUDA tensors run kernel K2 (forward only; its backward comes
+    with training), CPU tensors the plain version."""
+    if kp.device.type == "cpu":
+        return chamfer_num_plain(kp, occ_flat, grid_size)
+    if kp.device.type != "cuda":
+        raise ValueError(f"chamfer_num: unsupported device {kp.device}")
+    _check_chamfer(kp, occ_flat, grid_size)
+    return _ChamferNum.apply(kp, occ_flat, grid_size)
+
+
+def volume_fitting_loss(seq: torch.Tensor, keypoints: torch.Tensor,
+                        sigmas, vol_fit_type: str) -> torch.Tensor:
+    """Occupancy-weighted fit of keypoints to the voxel volume -> (B, T).
+
+    Only ``chamfer`` (the shipped default) and ``none`` are ported: per-voxel
+    min squared distance to the nearest keypoint, averaged over occupied
+    voxels."""
+    B, T = seq.shape[:2]
+    spatial = seq.shape[2:-1]
+    if vol_fit_type == "none":
+        return torch.zeros((B, T), dtype=seq.dtype, device=seq.device)
+    if vol_fit_type != "chamfer":
+        raise NotImplementedError(f"vol_fit_type={vol_fit_type!r} is not "
+                                  "ported (only 'chamfer')")
+    if len(set(spatial)) != 1:
+        raise ValueError(f"volume_fitting_loss: grid must be cubic, got "
+                         f"{tuple(spatial)}")
+    G = spatial[0]
+    M = B * T
+    occ = seq[..., 0].reshape(M, G ** 3)
+    kp = keypoints[..., :3].float().reshape(M, -1, 3).contiguous()
+    num = chamfer_num(kp, occ, G).reshape(B, T).to(seq.dtype)
+    den = occ.reshape(B, T, -1).sum(dim=-1)
+    return num / torch.clamp(den, min=1.0)
+
+
+def graph_consistency_losses(keypoints: torch.Tensor, affinity: torch.Tensor,
+                             local_const: bool = True, time_const: bool = True,
+                             sparsity_const: bool = True, ver: int = 0):
+    """(local, time, sparsity, intensity) graph losses; ``intensity`` is
+    hard-zero upstream and kept so here."""
+    dtype, dev = keypoints.dtype, keypoints.device
+    zero = torch.zeros((1, 1), dtype=dtype, device=dev)
+
+    influence = affinity.amax(dim=0)  # (K, K, 1)
+    if ver == 2:
+        influence = influence + influence.transpose(0, 1)
+    positions = keypoints[..., :3]
+    infl = influence[None, None]  # (1, 1, K, K, 1)
+    intensities = keypoints[..., -1][..., None, None]  # (B, T, K, 1, 1)
+    dist = ((positions[:, :, :, None] - positions[:, :, None]) ** 2).sum(
+        dim=-1, keepdim=True)  # (B, T, K, K, 1)
+
+    if local_const:
+        lc = dist * infl * intensities if ver in (0, 2) else dist * infl
+        local_loss = lc.mean(dim=(2, 3, 4))
+    else:
+        local_loss = zero
+
+    if time_const:
+        dev_ = (dist - dist.mean(dim=1, keepdim=True)).abs()
+        tc = dev_ * infl * intensities if ver in (0, 2) else dev_ * infl
+        time_loss = tc.mean(dim=(2, 3, 4))
+    else:
+        time_loss = zero
+
+    if sparsity_const:
+        aff = affinity[..., 0]  # (n, K, K)
+        a_self = aff[:, None]
+        a_other = aff[None]
+        sp = ((a_self * a_other) ** 2).sum(dim=1, keepdim=True)
+        sp = sp - a_self ** 4
+        sp = sp.sum(dim=(0, 1))  # (K, K)
+        sparsity_loss = sp.mean()[None, None]
+    else:
+        sparsity_loss = zero
+
+    return local_loss, time_loss, sparsity_loss, zero
+
+
+def _cosine_similarity(x, y, eps=1e-6):
+    """torch CosineSimilarity semantics: each norm clamped at eps."""
+    w12 = (x * y).sum(dim=-1)
+    nx = torch.sqrt(torch.clamp((x * x).sum(dim=-1), min=eps * eps))
+    ny = torch.sqrt(torch.clamp((y * y).sum(dim=-1), min=eps * eps))
+    return w12 / (nx * ny)
+
+
+def graph_trajectory_loss(keypoints: torch.Tensor, affinity: torch.Tensor,
+                          ver: int = 0) -> torch.Tensor:
+    """Velocity/acceleration cosine-dissimilarity weighted by influence
+    -> (1, 1)."""
+    influence = affinity[..., 0].amax(dim=0)  # (K, K)
+    if ver == 2:
+        influence = influence + influence.T
+    infl = influence[None, None]
+
+    vel = keypoints[:, 1:, :, :3] - keypoints[:, :-1, :, :3]
+    acc = vel[:, 1:] - vel[:, :-1]
+    vel_cos = (1.0 - _cosine_similarity(vel[:, :, :, None],
+                                        vel[:, :, None])) / 2.0
+    acc_cos = (1.0 - _cosine_similarity(acc[:, :, :, None],
+                                        acc[:, :, None])) / 2.0
+
+    if ver in (0, 2):
+        inten = keypoints[..., -1][..., None]
+        inten_v = (inten[:, 1:] + inten[:, :-1]) / 2.0
+        inten_a = (inten_v[:, 1:] + inten_v[:, :-1]) / 2.0
+        vel_term = (vel_cos * infl * inten_v).mean(dim=(0, 1))
+        acc_term = (acc_cos * infl * inten_a).mean(dim=(0, 1))
+    else:
+        vel_term = (vel_cos * infl).mean(dim=(0, 1))
+        acc_term = (acc_cos * infl).mean(dim=(0, 1))
+    return (vel_term + acc_term).mean()[None, None]
+
+
+def gaussian_kl(mean_q, std_q, mean_p, std_p):
+    """KL(N(mean_q, std_q) || N(mean_p, std_p)), element-wise diagonal."""
+    var_ratio = (std_q / std_p) ** 2
+    t1 = ((mean_q - mean_p) / std_p) ** 2
+    return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
