@@ -15,21 +15,37 @@ Phases, each of which fails the run (nonzero exit, no result line):
 4. K2 (chamfer numerator, forward) against its plain version on the card at
    M=40, K=24, G=64, occupancy float32 and bfloat16: rtol 1e-5, and two
    kernel runs equal to the bit;
-5. the serving path at the full AIST width with weights from a seed: a
+5. K2 backward against its plain version on the card at M=40, K=24, G=64,
+   occupancy float32 and bfloat16, with and without the occupancy
+   gradient: dkp rtol 1e-5 / atol 1e-4, docc atol 4e-6 max|g|, bitwise
+   repeatable; and a G=5 case of exact ties and relu at exactly 0, equal on
+   the card and on the CPU;
+6. the serving path at the full AIST width with weights from a seed: a
    bfloat16 stream of (4, 10, 4096, 3) windows, outputs finite and of the
    expected shapes, and the launch counters showing K1 and K2 on every
    window;
-6. one B=1 window in float32 (TF32 off) on the card and on the CPU (plain
+7. one B=1 window in float32 (TF32 off) on the card and on the CPU (plain
    versions), compared within stated tolerances;
-7. each kernel's time against its plain version, a PyTorch library call
-   and its bound, at the serving path's shapes;
-8. where a serving window's time goes: per-layer times of one window and,
-   under ``torch.profiler``, the device's busy share and its top kernels.
+8. the training path at the full AIST width: ``Trainer`` on (4, 10, 4096,
+   3) point batches in bfloat16, a detector-phase epoch, a learner-phase
+   epoch (detector frozen, skeleton extracted from the trained affinity)
+   and a grad_accum=2 step: finite losses and grad_norm, frozen parameters
+   unchanged to the bit, K1 and K2 forward on every microbatch, K2
+   backward on every detector-phase microbatch and never in the learner
+   phase; step times, the device busy share of two profiled steps and the
+   peak memory per phase;
+9. one float32 training step (TF32 off) at B=1, T=10 on the card and on
+   the CPU: metrics, gradients and updated parameters within stated
+   tolerances;
+10. each kernel's time against its plain version, a PyTorch library call
+    and its bound, at the serving and training paths' shapes;
+11. where a serving window's time goes: per-layer times of one window and,
+    under ``torch.profiler``, the device's busy share and its top kernels.
 
 It prints a ``{"kernels": [...]}`` line, a ``{"stream": ...}`` line, a
-``{"profile": ...}`` line, the card's line, and last ``{"ok": true,
-"device": {...}}``. Without a card, or without the package beside it, it
-exits nonzero before printing a result.
+``{"profile": ...}`` line, a ``{"train": ...}`` line, the card's line, and
+last ``{"ok": true, "device": {...}}``. Without a card, or without the
+package beside it, it exits nonzero before printing a result.
 """
 from __future__ import annotations
 
@@ -225,6 +241,131 @@ def phase_k2(device, G, M, K):
                 f"bitwise repeatable")
 
 
+def _dkp_scale(g, kp, occ, G):
+    """(scale (M, K, 1), reach (M,)): per (m, k) the sum of the magnitudes
+    of the terms of dkp_k = 2 c_k S_k - 2 P_k, 2 |c_k| sum_v |W_k(v)| + 2
+    sum_v |W_k(v)| |v| with the plain version's weights
+    (``losses._frame_bwd_weights``; a float32 sum of n terms errs by up
+    to about n 2^-24 of it); and per frame the most that moving one voxel's
+    weight from one nearest keypoint to another changes a dkp entry,
+    2 |g_m| max_v sqrt(relu(dmin(v))) over the occupied voxels."""
+    import torch
+    from neural_marionette_tpu_torch.ops.coords import coord_maps
+    from neural_marionette_tpu_torch.ops.losses import _frame_bwd_weights
+    V = coord_maps((G,) * 3, device=kp.device).reshape(-1, 3)
+    v2 = (V * V).sum(-1)
+    out, reach = [], []
+    for m in range(kp.shape[0]):
+        c = kp[m]
+        W, dmin = _frame_bwd_weights(V, v2, c, occ[m], g[m])
+        W = W.abs()
+        out.append(2.0 * c.abs() * W.sum(0)[:, None] + 2.0 * (W.T @ V.abs()))
+        far = torch.where(occ[m] != 0, dmin.clamp(min=0.0), 0.0).max()
+        reach.append(2.0 * g[m].abs() * far.sqrt())
+    return torch.stack(out), torch.stack(reach)
+
+
+def phase_k2_bwd(device, G, M, K):
+    """K2 backward against its plain version on the card. dkp within rtol
+    1e-5 plus 2e-5 of the magnitude of its summed terms (``_dkp_scale``):
+    dkp_k = 2 c_k S_k - 2 P_k cancels two sums of up to ~10^3 at G=64, and
+    the kernel adds a frame's terms in about 300 sequential steps (tiles,
+    then warps), the plain version in a matmul's order; 2e-5 is 300 * 2^-24.
+    (At tests/test_pallas.py's G=32 this is near its atol 1e-4.) Beyond
+    that, at most 1 % of the (m, k) entries may differ by up to one
+    voxel's weight moved between two keypoints (``_dkp_scale``'s reach): a
+    voxel within an ulp of a tie can have another nearest keypoint under
+    the kernel's FMA rounding of v.c than under the plain matmul's. docc
+    within atol 4e-6 * max|g| (float32) and, in bfloat16, one bfloat16
+    rounding of g * relu(dmin) (rtol 8e-3): the kernel's FMAs round v.c
+    otherwise than the plain matmul, and one ulp of dmin moves
+    g * relu(dmin) by ~1e-6 (tests/test_pallas.py:167-173).
+    Both modes (with and without docc) give the same dkp to the bit, two
+    runs agree to the bit, and on a G=5 grid, whose voxel centres are exact
+    in float32, ties and dmin == 0 give equal results on the card, in the
+    plain version on the card and on the CPU. Returns the max abs dkp
+    error at the training shape, bfloat16 occupancy."""
+    import torch
+    from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops import voxelize as V
+    g = np.random.default_rng(6)
+    kp = torch.from_numpy(g.uniform(-0.9, 0.9, (M, K, 3)).astype(
+        np.float32)).to(device)
+    gr = torch.from_numpy(g.uniform(-2.0, 2.0, M).astype(np.float32)).to(
+        device)
+    pts = serving_points(1, M, SERVE_N, seed=13).reshape(M, SERVE_N, 3)
+    path_occ = V.voxelize(torch.from_numpy(pts).to(device), G).reshape(M, -1)
+    dense_occ = torch.from_numpy(
+        (g.random((M, G ** 3)) < 0.3).astype(np.float32)).to(device)
+    gmax = float(gr.abs().max())
+    err_train = None
+    for occ_name, occ in (("path", path_occ), ("dense", dense_occ)):
+        for dtype in (torch.float32, torch.bfloat16):
+            o = occ.to(dtype).contiguous()
+            dkp0, none = L._chamfer_bwd_cuda(gr, kp, o, G, False)
+            dkp, docc = L._chamfer_bwd_cuda(gr, kp, o, G, True)
+            dkp2, docc2 = L._chamfer_bwd_cuda(gr, kp, o, G, True)
+            pk, po = L.chamfer_num_bwd_plain(gr, kp, o, G)
+            if none is not None or docc.dtype != dtype or \
+                    dkp.shape != (M, K, 3):
+                raise AssertionError(f"K2 bwd: {docc.dtype} {dkp.shape}")
+            if not (torch.equal(dkp, dkp2) and torch.equal(docc, docc2)):
+                raise AssertionError(f"K2 bwd {occ_name} {dtype}: two runs "
+                                     f"differ")
+            if not torch.equal(dkp0, dkp):
+                raise AssertionError(f"K2 bwd {occ_name} {dtype}: dkp with "
+                                     f"and without docc differ")
+            scale, reach = _dkp_scale(gr, kp, o, G)
+            diff = (dkp - pk).abs()
+            ek = float(diff.max())
+            over = diff > 1e-5 * pk.abs() + 2e-5 * scale
+            n_over = int(over.any(dim=-1).sum())
+            moved = bool((diff <= reach[:, None, None]).all())
+            if n_over > M * K // 100 or not moved:
+                raise AssertionError(f"K2 bwd {occ_name} {dtype}: dkp max "
+                                     f"abs err {ek:.3e}; {n_over} of "
+                                     f"{M * K} entries over the rounding "
+                                     f"bound, within one moved voxel: "
+                                     f"{moved}")
+            er = float((torch.where(over, 0.0, diff)
+                        / scale.clamp(min=1e-30)).max())
+            rtol = 8e-3 if dtype == torch.bfloat16 else 0.0
+            eo = float((docc.float() - po.float()).abs().max())
+            if not torch.allclose(docc.float(), po.float(), rtol=rtol,
+                                  atol=4e-6 * gmax):
+                raise AssertionError(f"K2 bwd {occ_name} {dtype}: docc max "
+                                     f"abs err {eo:.3e}")
+            if occ_name == "path" and dtype == torch.bfloat16:
+                err_train = ek
+            log(f"[K2 bwd] {occ_name} occupancy {dtype}: dkp max abs err "
+                f"{ek:.3e} (max |dkp| {float(pk.abs().max()):.3e}, "
+                f"{er:.3e} of the terms' magnitude, {n_over} of {M * K} "
+                f"entries with a near-tie voxel moved), docc {eo:.3e}; "
+                f"bitwise repeatable")
+    # exact conventions: duplicate keypoints, keypoints on voxel centres
+    Gc = 5
+    kpc = torch.tensor([[[0.5, 0.5, 0.5], [0.5, 0.5, 0.5], [-1.0, 0.0, 0.5],
+                         [0.25, -0.5, 0.0], [0.75, -0.5, 0.0]],
+                        [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 0.0, 0.0],
+                         [-0.25, 0.5, -1.0], [-0.75, 0.5, -1.0]]])
+    occc = torch.from_numpy((np.random.default_rng(9).random((2, Gc ** 3))
+                             < 0.6).astype(np.float32))
+    occc[:, [31, 62, 93, 112]] = 1.0
+    gc = torch.tensor([1.5, -0.75])
+    want = L.chamfer_num_bwd_plain(gc, kpc, occc, Gc)
+    on_card = [t.to(device) for t in (gc, kpc, occc)]
+    for name, got in (("kernel", L._chamfer_bwd_cuda(*on_card, Gc, True)),
+                      ("plain on the card",
+                       L.chamfer_num_bwd_plain(*on_card, Gc))):
+        for a, b in zip(got, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"K2 bwd G=5 conventions: {name} "
+                                     f"differs from the CPU")
+    log("[K2 bwd] G=5 ties and dmin == 0: kernel, plain on the card and "
+        "CPU equal")
+    return err_train
+
+
 def _window_outputs(cfg, B, T):
     K, G = cfg.nkeypoints, cfg.grid_size
     return {"keypoints": (B, T, K, 4), "kypt_recon": (B, T, K, 4),
@@ -339,6 +480,308 @@ def phase_reference(cfg, seed, card_device):
     return errs
 
 
+def _timed(batches, stamps):
+    """Yield ``batches``, synchronising the card and stamping the host
+    clock before each one and after the last: gap i is step i's time."""
+    import torch
+    for b in batches:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        yield b
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+
+
+def _busy(prof, wall_us):
+    """(device busy ms, busy share, {port kernel: device ms}, {device
+    operation: [us, calls]}): the union of the profiler's device intervals
+    over the wall time, the device time of the port's own kernels (by their
+    ``__global__`` names), and every device operation's time and calls."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler recorded no device operation")
+    busy, end = 0.0, -np.inf
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    ours = defaultdict(float)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+        if "voxelize_kernel" in e.name or "chamfer_" in e.name:
+            ours[e.name.split("(")[0].split("<")[0].split()[-1]] += \
+                e.time_range.elapsed_us() / 1e3
+    return busy / 1e3, busy / wall_us, dict(ours), dict(by_name)
+
+
+def _top_kernels(by_name, n, per, k=12):
+    """The ``k`` device operations that take the most time, per ``per``
+    (window or step) over ``n`` of them."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:k]
+    return [{"name": name[:90], f"ms_per_{per}": us / n / 1e3,
+             f"calls_per_{per}": calls / n} for name, (us, calls) in top]
+
+
+def _train_epoch(trainer, epoch, n_steps, seed, counts):
+    """One epoch of ``n_steps`` AIST-width point batches through
+    ``Trainer.train_epoch``, the launch counters set to 0 just before it
+    and read just after; returns (record, per-step ms, peak GiB)."""
+    import torch
+    from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops import voxelize as V
+    batches = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=seed + i)
+               for i in range(n_steps)]
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    V.launches = L.launches = L.bwd_launches = 0
+    record = trainer.train_epoch(epoch, _timed(batches, stamps))
+    counts.update(voxelize=V.launches, chamfer_fwd=L.launches,
+                  chamfer_bwd=L.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return record, np.diff(stamps) * 1e3, peak
+
+
+def phase_train(cfg, device, card, n_steps=12, n_profiled=2):
+    """The training path at the full AIST width: ``Trainer`` on (4, 10,
+    4096, 3) point batches in bfloat16 with weights from a seed. Epoch 0
+    is the detector phase, epoch 1 the learner phase (the detector frozen,
+    the skeleton extracted from the trained affinity as the learner turns
+    on), then one step with grad_accum=2. Checks finite losses and
+    grad_norm, frozen parameters unchanged to the bit, and the launch
+    counters: K1 and K2 forward once per microbatch, K2 backward once per
+    detector-phase microbatch and never in the learner phase. Returns
+    (the ``train`` record, the launches of the detector phase)."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neural_marionette_tpu_torch.train import Trainer
+    cfg = dataclasses.replace(cfg, detector_start=0, detector_end=1,
+                              learner_start=1, affinity_anneal=0)
+    trainer = Trainer(cfg, device=device, dtype="bfloat16")
+    params = dict(trainer.model.named_parameters())
+    offset = params["dyna_module.offset_param"].detach().clone()
+    phases, det_launches = {}, None
+    for epoch, name in ((0, "detector"), (1, "learner")):
+        det_before = {k: v.detach().clone() for k, v in params.items()
+                      if k.startswith("kypt_detector.")}
+        counts = {}
+        record, ms, peak = _train_epoch(trainer, epoch, n_steps,
+                                        1000 + 100 * epoch, counts)
+        want = {"voxelize": n_steps, "chamfer_fwd": n_steps,
+                "chamfer_bwd": n_steps if name == "detector" else 0}
+        if counts != want:
+            raise AssertionError(f"{name} phase launches {counts}, want "
+                                 f"{want}")
+        expect = {"detector": (True, False), "learner": (False, True)}[name]
+        if (record["phase"]["detector"], record["phase"]["learner"]) != \
+                expect:
+            raise AssertionError(f"epoch {epoch}: phase {record['phase']}")
+        bad = {k: v for k, v in record["train"].items()
+               if not np.isfinite(v)}
+        if bad or not record["train"]["grad_norm"] > 0:
+            raise AssertionError(f"{name} phase metrics {record['train']}")
+        if name == "learner":
+            if trainer.skeleton is None:
+                raise AssertionError("no skeleton at learner start")
+            for k, v in det_before.items():
+                if not torch.equal(params[k].detach(), v):
+                    raise AssertionError(f"frozen detector moved: {k}")
+        else:
+            det_launches = counts
+        if not torch.equal(params["dyna_module.offset_param"].detach(),
+                           offset):
+            raise AssertionError("offset_param moved")
+        # two more steps of the phase under the profiler
+        pts = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=5000 + i)
+               for i in range(n_profiled)]
+        step = trainer.phase_step()
+        sk = trainer.phase_skeleton()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for p in pts:
+                step(trainer.state, torch.from_numpy(p).to(device), sk)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_ms, share, ours, by_name = _busy(prof, wall_us)
+        top = _top_kernels(by_name, n_profiled, "step")
+        timed = ms[1:]   # the first step is warm-up
+        phases[name] = {
+            "steps": n_steps, "timed_steps": len(timed),
+            "mean_ms_per_step": float(timed.mean()),
+            "p50_ms_per_step": float(np.percentile(timed, 50)),
+            "step_ms": [float(x) for x in ms],
+            "profiled_steps": n_profiled,
+            "device_busy_ms_per_step": busy_ms / n_profiled,
+            "device_busy_share": share,
+            "port_kernel_ms_per_step": {k: v / n_profiled
+                                        for k, v in ours.items()},
+            "top_kernels": top,
+            "peak_device_memory_gib": peak, "launches": counts,
+            "total_loss": record["train"]["total_loss"],
+            "grad_norm": record["train"]["grad_norm"]}
+        log(f"[train] {name} phase: {n_steps} steps of "
+            f"{SERVE_B}x{SERVE_T}x{SERVE_N}x3 bf16, ms per step "
+            f"{[round(float(x), 1) for x in ms]}; busy share {share:.3f}, "
+            f"peak {peak:.2f} GiB, launches {counts}, total_loss "
+            f"{record['train']['total_loss']:.4f}, grad_norm "
+            f"{record['train']['grad_norm']:.4f}")
+        log(f"[train] {name} phase, port kernels' device ms per step: "
+            + ", ".join(f"{k} {v / n_profiled:.4f}" for k, v in ours.items()))
+        for k in top:
+            log(f"[train] {name} phase {k['ms_per_step']:8.3f} ms "
+                f"{k['calls_per_step']:6.1f} per step: {k['name']}")
+
+    # one detector-phase step with grad_accum=2: two microbatches of 2
+    acc = Trainer(dataclasses.replace(cfg, grad_accum=2), device=device,
+                  dtype="bfloat16")
+    counts = {}
+    record, ms, peak = _train_epoch(acc, 0, 1, 3000, counts)
+    if counts != {"voxelize": 2, "chamfer_fwd": 2, "chamfer_bwd": 2}:
+        raise AssertionError(f"grad_accum=2 launches {counts}")
+    if not all(np.isfinite(v) for v in record["train"].values()):
+        raise AssertionError(f"grad_accum=2 metrics {record['train']}")
+    phases["grad_accum_2"] = {"steps": 1, "step_ms": [float(ms[0])],
+                              "peak_device_memory_gib": peak,
+                              "launches": counts,
+                              "total_loss": record["train"]["total_loss"],
+                              "grad_norm": record["train"]["grad_norm"]}
+    log(f"[train] grad_accum=2 step: {ms[0]:.1f} ms (first, unwarmed), peak "
+        f"{peak:.2f} GiB, launches {counts}")
+    return ({"B": SERVE_B, "T": SERVE_T, "N": SERVE_N, "dtype": "bfloat16",
+             "phases": phases, "card": card}, det_launches)
+
+
+def _informative_weights(net, seed):
+    """Seeded weights whose keypoints follow the points, as the CPU tests'
+    ``tests/_torch_port.randomize`` makes them: conv kernels N(0, 1/fan_in),
+    conv biases N(0, 0.05), the heatmap fusion kernel N(0, 0.7), GroupNorm
+    scales 1 + N(0, 0.1), affinity parameters N(0, 1); the dynamics keep
+    ``init_weights``' draws. (With the JAX package's initial distributions
+    the block convs are N(0, 0.001) and a frame's keypoints move by ~1e-6,
+    a few float32 ulps, so the trajectory loss's velocity cosines are
+    rounding noise.)"""
+    import torch
+    from neural_marionette_tpu_torch.weights import init_weights
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(net, gen)
+    det = net.kypt_detector
+    fusion = det.vox_to_kypt.propagate_heatmaps[0]
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
+                w = m.weight
+                out_ch = w.shape[1 if isinstance(
+                    m, torch.nn.ConvTranspose3d) else 0]
+                sd = 0.7 if m is fusion else (w.numel() / out_ch) ** -0.5
+                w.copy_(torch.randn(w.shape, generator=gen) * sd)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.05)
+            elif isinstance(m, torch.nn.GroupNorm):
+                m.weight.copy_(1 + torch.randn(m.weight.shape,
+                                               generator=gen) * 0.1)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.05)
+        det.affinity_params.copy_(torch.randn(det.affinity_params.shape,
+                                              generator=gen))
+
+
+def phase_train_reference(cfg, seed, card_device, B=1):
+    """One float32 detector-phase step (TF32 off) on the card (kernels) and
+    on the CPU (plain versions), same weights and points, at the AIST width
+    and T with B=1 (the CPU runs the full-width float32 backward), with
+    ``_informative_weights`` from a seed. Every comparison is logged before
+    any failure is raised. Tolerances: loss
+    scalars 2e-3 relative or 1e-6 absolute; grad_norm 1e-3; gradients, as
+    Adam's first moment (1 - b1) * clip(g), per tensor 5e-3 of the tensor's
+    largest entry and 1e-3 relative in L2 over all (the float32 gradients
+    of the conv stacks are ill-conditioned: at the CPU tests' size the JAX
+    package's own float32 gradient lies up to 4.8e-3 per tensor and 3.8e-4
+    in L2 from its float64 one); parameters: Adam's first step moves an
+    element by about lr * sign(g), so every element within 2 lr and all but
+    1/1000 within 5e-5 + 1e-2 |p|."""
+    import torch
+    from neural_marionette_tpu_torch.models import NeuralMarionette
+    from neural_marionette_tpu_torch.ops.voxelize import voxelize
+    from neural_marionette_tpu_torch.train import (LossScheduler,
+                                                   create_train_state,
+                                                   make_train_step)
+    sched = LossScheduler(cfg)
+    sched.anneal(0)
+    pts = serving_points(B, cfg.Ttot, SERVE_N, seed=61)
+    out = []
+    for dev in (card_device, torch.device("cpu")):
+        net = NeuralMarionette(cfg, device=dev)
+        _informative_weights(net, seed)
+        p = torch.from_numpy(pts).to(dev)
+        with torch.no_grad():
+            kp = net.kypt_detector.vox_to_kypt(voxelize(p, cfg.grid_size))[1]
+        vel = kp[:, 1:, :, :3] - kp[:, :-1, :, :3]
+        acc = vel[:, 1:] - vel[:, :-1]
+        log(f"[train reference] keypoints on {dev.type}: mean |velocity| "
+            f"{float(vel.norm(dim=-1).mean()):.3e}, mean |acceleration| "
+            f"{float(acc.norm(dim=-1).mean()):.3e}")
+        state = create_train_state(cfg, net, torch.Generator(dev))
+        step = make_train_step(net, cfg, sched.active_weights(), True, False,
+                               sched.affinity_active)
+        t0 = time.perf_counter()
+        m = step(state, p)
+        m = {k: float(v) for k, v in m.items()}
+        log(f"[train reference] float32 step on {dev.type}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        out.append((m, {n: q.detach().cpu() for n, q in
+                        net.named_parameters()},
+                    [t.cpu() for t in state.optimizer.mu],
+                    state.optimizer.names))
+    (mc, pc, muc, names), (mh, ph, muh, _) = out
+    failed, errs = [], {}
+    for k, v in mh.items():
+        err = abs(mc[k] - v)
+        tol = 1e-3 * abs(v) if k == "grad_norm" else 2e-3 * abs(v) + 1e-6
+        if not err <= tol:
+            failed.append(f"{k}: card {mc[k]!r} vs CPU {v!r}")
+        errs[k] = err
+    log("[train reference] metrics card vs CPU: " + ", ".join(
+        f"{k} {mc[k]:.6g}/{mh[k]:.6g}" for k in sorted(mh)))
+    err2 = ref2 = 0.0
+    rel = {}
+    for n, a, b in zip(names, muc, muh):
+        scale = float(b.abs().max())
+        rel[n] = float((a - b).abs().max()) / scale if scale else 0.0
+        if not rel[n] <= 5e-3:
+            failed.append(f"gradient {n}: max abs err {rel[n]:.3e} of its "
+                          f"largest entry")
+        err2 += float(((a - b).double() ** 2).sum())
+        ref2 += float((b.double() ** 2).sum())
+    l2 = (err2 / ref2) ** 0.5
+    if not l2 < 1e-3:
+        failed.append(f"gradients: relative L2 error {l2:.3e}")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+    lr = cfg.lrate
+    total = loose = 0
+    pmax = 0.0
+    for n in names:
+        d = (pc[n] - ph[n]).abs()
+        pmax = max(pmax, float(d.max()))
+        loose += int((d > 5e-5 + 1e-2 * ph[n].abs()).sum())
+        total += d.numel()
+    if not (pmax <= 2 * lr + 1e-6 and loose <= total // 1000):
+        failed.append(f"parameters: max diff {pmax:.3e}, {loose} of {total} "
+                      f"outside 5e-5 + 1e-2 |p|")
+    log(f"[train reference] gradients: relative L2 {l2:.3e}, worst tensors "
+        + ", ".join(f"{n} {v:.3e}" for n, v in worst)
+        + f"; parameters: max diff {pmax:.3e} (lr {lr}), {loose} of {total} "
+        f"outside 5e-5 + 1e-2 |p|")
+    if failed:
+        raise AssertionError("train reference: " + "; ".join(failed))
+    errs.update(grad_worst_tensor=worst[0][1], grad_l2=l2, param_max=pmax,
+                param_loose=loose)
+    return errs
+
+
 def phase_timing(device, G, K, launches, errs):
     """Kernel, plain and library times at the serving shapes; returns the
     ``kernels`` records."""
@@ -398,6 +841,40 @@ def phase_timing(device, G, K, launches, errs):
         cuda_ms(lambda: L.chamfer_num_plain(kp, occ, G), iters=5),
         cuda_ms(library_k2, iters=5),
         k2_bytes, k2_ops))
+
+    # K2 backward, as the training step calls it: g (40,), kp (40, 24, 3),
+    # bfloat16 occupancy, no occupancy gradient -> dkp (40, 24, 3). Only
+    # occupied voxels add to dkp: per occupied voxel the min and tie count
+    # over k (K * 9 + 8 operations, as the forward) and, per keypoint, the
+    # tie test and the four sums (K * 9 more); against one read of the
+    # grid, g and kp, and one write of dkp.
+    gr = torch.from_numpy(g.uniform(-2.0, 2.0, F).astype(np.float32)).to(
+        device)
+    kp_lib = kp.clone().requires_grad_(True)
+    d = torch.cdist(vox, kp_lib).square().amin(dim=-1)
+    lib_out = ((d * occ).sum(dim=-1) * gr).sum()
+
+    def library_k2_bwd():
+        return torch.autograd.grad(lib_out, kp_lib, retain_graph=True)
+
+    k2b_bytes = gr.numel() * 4 + kp.numel() * 4 * 2 + occ.numel() * 2
+    k2b_ops = occupied * (K * 18 + 8)
+    records.append(_record(
+        "chamfer_bwd", "neural_marionette_tpu_torch/csrc/chamfer.cu",
+        "neural_marionette_tpu/ops/pallas/chamfer_kernel.py:218",
+        launches["chamfer_bwd"], errs["chamfer_bwd"],
+        cuda_ms(lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, False)),
+        cuda_ms(lambda: L.chamfer_num_bwd_plain(gr, kp, occ, G), iters=5),
+        cuda_ms(library_k2_bwd, iters=5),
+        k2b_bytes, k2b_ops))
+    # with the occupancy gradient (not on the training path): dmin at every
+    # voxel and a write of the grid
+    docc_ms = cuda_ms(lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, True))
+    docc_bytes = k2b_bytes + occ.numel() * 2
+    docc_ops = F * G ** 3 * (K * 9 + 8) + occupied * K * 9
+    log(f"[time] chamfer_bwd with docc: kernel {docc_ms:.4f} ms, bound "
+        f"{max(docc_bytes / PEAK_BYTES_PER_S, docc_ops / PEAK_FP32_OPS_PER_S) * 1e3:.4f} ms "
+        f"({docc_bytes} bytes, {docc_ops} ops)")
     return records
 
 
@@ -460,7 +937,6 @@ def phase_profile(marionette, n_windows=4):
     per window, the kernels that take the most device time, and the device
     time per call of the port's own kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from neural_marionette_tpu_torch.models import SkeletonArrays
     cfg = marionette.cfg
@@ -482,30 +958,17 @@ def phase_profile(marionette, n_windows=4):
             pass
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise AssertionError("the profiler recorded no device operation")
-    busy, end = 0.0, -np.inf
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in dev:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
+    busy_ms, share, _, by_name = _busy(prof, wall_us)
     n = n_windows
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     # the port's own kernels, by the names of their __global__s in csrc/
     ours = {k: v for k, v in by_name.items()
             if "voxelize_kernel" in k or "chamfer_" in k}
     out = {"windows": n, "layers_ms": layers,
            "wall_ms_per_window": wall_us / n / 1e3,
-           "device_busy_ms_per_window": busy / n / 1e3,
-           "device_busy_share": busy / wall_us,
-           "device_ops_per_window": len(dev) / n,
-           "top_kernels": [{"name": k[:90], "ms_per_window": v[0] / n / 1e3,
-                            "calls_per_window": v[1] / n} for k, v in top],
+           "device_busy_ms_per_window": busy_ms / n,
+           "device_busy_share": share,
+           "device_ops_per_window": sum(c for _, c in by_name.values()) / n,
+           "top_kernels": _top_kernels(by_name, n, "window"),
            "port_kernels": [{"name": k[:90],
                              "device_ms_per_call": v[0] / v[1] / 1e3,
                              "calls_per_window": v[1] / n}
@@ -557,6 +1020,7 @@ def main() -> int:
 
     errs = {"voxelize": phase_k1(device, G)}
     phase_k2(device, G, SERVE_B * SERVE_T, K)
+    errs["chamfer_bwd"] = phase_k2_bwd(device, G, SERVE_B * SERVE_T, K)
 
     marionette = Marionette.from_config(cfg, seed=0, device=device)
     torch.cuda.reset_peak_memory_stats()
@@ -575,6 +1039,10 @@ def main() -> int:
                                  - L.chamfer_num_plain(kp, occ, G)).abs().max())
 
     phase_reference(cfg, seed=0, card_device=device)
+    train, det_launches = phase_train(cfg, device, card)
+    launches["chamfer_bwd"] = det_launches["chamfer_bwd"]
+    torch.cuda.empty_cache()
+    phase_train_reference(cfg, seed=0, card_device=device)
     records = phase_timing(device, G, K, launches, errs)
     profile = phase_profile(marionette)
 
@@ -591,6 +1059,7 @@ def main() -> int:
     print(json.dumps({"kernels": records}))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"profile": profile}))
+    print(json.dumps({"train": train}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ detaches the keypoints.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
@@ -32,14 +33,15 @@ class NeuralMarionette(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> dict[str, Any]:
         """vox_seq: (B, T, G, G, G, 1). A frozen detector (learner only)
-        returns detached outputs."""
+        runs under ``torch.no_grad()``: the JAX package's ``stop_gradient``
+        on its outputs, without a detector-sized autograd graph."""
         log: dict[str, Any] = {}
         if detector_active or learner_active:
-            det = self.kypt_detector(vox_seq, affinity_active=affinity_active)
-            if not detector_active:
-                det = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                       for k, v in det.items()}
-            log.update(det)
+            frozen = (contextlib.nullcontext() if detector_active
+                      else torch.no_grad())
+            with frozen:
+                log.update(self.kypt_detector(
+                    vox_seq, affinity_active=affinity_active))
         if learner_active:
             if skeleton is None:
                 raise ValueError("the learner path needs a SkeletonArrays")

@@ -9,8 +9,10 @@ package's, channels-last:
 * ``affinity``:   (nneighbor, K, K, 1)
 
 The chamfer numerator of :func:`volume_fitting_loss` goes through
-:func:`chamfer_num`: kernel ``csrc/chamfer.cu`` for a CUDA tensor,
-:func:`chamfer_num_plain` for a CPU tensor. The denominator stays outside.
+:func:`chamfer_num`, an autograd function: kernel ``csrc/chamfer.cu``
+forward and backward for a CUDA tensor, :func:`chamfer_num_plain` and
+:func:`chamfer_num_bwd_plain` for a CPU tensor. The denominator stays
+outside.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from .coords import coord_maps
 
 _LOG_CLAMP = -100.0  # torch.nn.BCELoss clamps log() at -100
 
-launches = 0  # kernel launches of :func:`chamfer_num`
+launches = 0      # forward kernel launches of :func:`chamfer_num`
+bwd_launches = 0  # backward kernel launches of :func:`chamfer_num`
 
 
 def bce_recon_loss(recon: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -76,6 +79,11 @@ def _check_chamfer(kp: torch.Tensor, occ_flat: torch.Tensor, grid_size: int):
         raise ValueError("chamfer_num: kp and occupancy on different devices")
 
 
+def _frame_vals(V: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``val[v, k] = |c_k|^2 - 2 v.c_k`` of one frame: (G^3, K)."""
+    return (c * c).sum(dim=-1)[None] - 2.0 * (V @ c.T)
+
+
 def chamfer_num_plain(kp: torch.Tensor, occ_flat: torch.Tensor,
                       grid_size: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: kp (M, K, 3) float32, occ_flat
@@ -87,10 +95,7 @@ def chamfer_num_plain(kp: torch.Tensor, occ_flat: torch.Tensor,
     v2 = (V * V).sum(dim=-1)
     out = []
     for m in range(kp.shape[0]):
-        c = kp[m]                                       # (K, 3)
-        dots = V @ c.T                                  # (G^3, K)
-        c2 = (c * c).sum(dim=-1)
-        dmin = v2 + (c2[None] - 2.0 * dots).amin(dim=-1)
+        dmin = v2 + _frame_vals(V, kp[m]).amin(dim=-1)
         out.append((torch.clamp(dmin, min=0.0)
                     * occ_flat[m].float()).sum())
     if not out:
@@ -98,29 +103,96 @@ def chamfer_num_plain(kp: torch.Tensor, occ_flat: torch.Tensor,
     return torch.stack(out)
 
 
+def _frame_bwd_weights(V: torch.Tensor, v2: torch.Tensor, c: torch.Tensor,
+                       occ: torch.Tensor, g: torch.Tensor):
+    """One frame's backward weights with JAX's VJP conventions (see
+    :func:`chamfer_num_bwd_plain`): voxel centres ``V`` (G^3, 3) and their
+    ``v2 = |v|^2``, keypoints ``c`` (K, 3), occupancy ``occ`` (G^3,) and the
+    frame's output gradient ``g`` -> ``(W (G^3, K), dmin (G^3,))`` with
+    ``W_k(v) = g occ(v) relu'(dmin(v)) [val_k(v) = min] / ties(v)``."""
+    vals = _frame_vals(V, c)                            # (G^3, K)
+    minval = vals.amin(dim=-1, keepdim=True)
+    tied = (vals == minval).float()
+    dmin = v2 + minval[:, 0]
+    relu_w = torch.where(dmin > 0, 1.0, torch.where(dmin == 0, 0.5, 0.0))
+    w = (g * occ.float() * relu_w) / tied.sum(dim=-1)   # (G^3,)
+    return tied * w[:, None], dmin
+
+
+def chamfer_num_bwd_plain(g: torch.Tensor, kp: torch.Tensor,
+                          occ_flat: torch.Tensor, grid_size: int):
+    """Plain PyTorch version of the backward kernel: the gradients of
+    ``sum_m g[m] * num[m]`` -> (dkp (M, K, 3) float32, docc (M, G^3) in the
+    occupancy's dtype), with JAX's VJP conventions written out:
+
+    * relu' is 1 above 0, 1/2 at exactly 0 and 0 below (``jnp.maximum``);
+    * the min over k gives each of the tied minima ``1 / ties`` of the
+      gradient (``jnp.min``);
+
+    so ``W_k(v) = g occ(v) relu'(dmin(v)) [val_k(v) = min] / ties(v)``,
+    ``dkp_k = 2 c_k sum_v W_k(v) - 2 sum_v W_k(v) v`` and
+    ``docc(v) = g relu(dmin(v))``. One frame at a time."""
+    _check_chamfer(kp, occ_flat, grid_size)
+    g = g.reshape(-1).float()
+    V = coord_maps((grid_size,) * 3, device=kp.device).reshape(-1, 3)
+    v2 = (V * V).sum(dim=-1)
+    dkp, docc = [], []
+    for m in range(kp.shape[0]):
+        c = kp[m]                                       # (K, 3)
+        W, dmin = _frame_bwd_weights(V, v2, c, occ_flat[m], g[m])
+        S = W.sum(dim=0)                                # (K,)
+        P = W.T @ V                                     # (K, 3)
+        dkp.append(2.0 * c * S[:, None] - 2.0 * P)
+        docc.append((g[m] * torch.clamp(dmin, min=0.0)).to(occ_flat.dtype))
+    if not dkp:
+        return torch.zeros_like(kp), torch.zeros_like(occ_flat)
+    return torch.stack(dkp), torch.stack(docc)
+
+
 class _ChamferNum(torch.autograd.Function):
+    """K2 with its backward: the kernels for CUDA tensors, the plain
+    versions for CPU tensors."""
+
     @staticmethod
     def forward(ctx, kp, occ_flat, grid_size):
+        ctx.save_for_backward(kp, occ_flat)
+        ctx.grid_size = grid_size
+        if kp.device.type == "cpu":
+            return chamfer_num_plain(kp, occ_flat, grid_size)
         return _chamfer_num_cuda(kp, occ_flat, grid_size)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "chamfer_num backward: training slice (not ported yet)")
+        kp, occ_flat = ctx.saved_tensors
+        want_docc = ctx.needs_input_grad[1]
+        grad = grad.float().contiguous()
+        if kp.device.type == "cpu":
+            dkp, docc = chamfer_num_bwd_plain(grad, kp, occ_flat,
+                                              ctx.grid_size)
+        else:
+            dkp, docc = _chamfer_bwd_cuda(grad, kp, occ_flat, ctx.grid_size,
+                                          want_docc)
+        return dkp, (docc if want_docc else None), None
 
 
-def _chamfer_num_cuda(kp, occ_flat, grid_size):
-    global launches
+def _chamfer_setup(kp, occ_flat, grid_size):
+    """The loaded library and the tile count, after the kernel's checks."""
     for name, t in (("kp", kp), ("occupancy", occ_flat)):
         if not t.is_contiguous():
             raise ValueError(f"chamfer_num: {name} must be contiguous")
-    M, K = kp.shape[:2]
+    K = kp.shape[1]
     lib = kernels.library("chamfer")
     if not 1 <= K <= lib.nm_chamfer_max_k():
         raise ValueError(f"chamfer_num: K={K} outside [1, "
                          f"{lib.nm_chamfer_max_k()}]")
     tile = lib.nm_chamfer_tile_voxels()
-    n_tiles = -(-grid_size ** 3 // tile)
+    return lib, -(-grid_size ** 3 // tile)
+
+
+def _chamfer_num_cuda(kp, occ_flat, grid_size):
+    global launches
+    lib, n_tiles = _chamfer_setup(kp, occ_flat, grid_size)
+    M, K = kp.shape[:2]
     dev = kp.device
     partial = torch.empty((M, n_tiles), dtype=torch.float32, device=dev)
     num = torch.empty((M,), dtype=torch.float32, device=dev)
@@ -135,14 +207,37 @@ def _chamfer_num_cuda(kp, occ_flat, grid_size):
     return num
 
 
+def _chamfer_bwd_cuda(g, kp, occ_flat, grid_size, want_docc):
+    """The backward kernel: (dkp, docc or None)."""
+    global bwd_launches
+    lib, n_tiles = _chamfer_setup(kp, occ_flat, grid_size)
+    M, K = kp.shape[:2]
+    dev = kp.device
+    if g.shape != (M,) or g.device != dev:
+        raise ValueError(f"chamfer_num backward: gradient must be ({M},) on "
+                         f"{dev}, got {tuple(g.shape)} on {g.device}")
+    partial = torch.empty((M, n_tiles, K, 4), dtype=torch.float32,
+                          device=dev)
+    dkp = torch.empty((M, K, 3), dtype=torch.float32, device=dev)
+    docc = torch.empty_like(occ_flat) if want_docc else None
+    lin = _linspace(grid_size, dev)
+    code = lib.nm_chamfer_bwd(
+        kernels.ptr(g), kernels.ptr(kp), kernels.ptr(occ_flat),
+        int(occ_flat.dtype == torch.bfloat16), kernels.ptr(lin),
+        kernels.ptr(partial), kernels.ptr(dkp),
+        kernels.ptr(docc) if want_docc else None, M, K, grid_size, n_tiles,
+        dev.index, kernels.stream_handle(dev))
+    kernels.check(lib, code, "chamfer backward kernel")
+    bwd_launches += 1
+    return dkp, docc
+
+
 def chamfer_num(kp: torch.Tensor, occ_flat: torch.Tensor,
                 grid_size: int) -> torch.Tensor:
     """kp (M, K, 3) float32, occ_flat (M, G^3) float32/bfloat16 -> (M,)
-    float32. CUDA tensors run kernel K2 (forward only; its backward comes
-    with training), CPU tensors the plain version."""
-    if kp.device.type == "cpu":
-        return chamfer_num_plain(kp, occ_flat, grid_size)
-    if kp.device.type != "cuda":
+    float32, differentiable in both. CUDA tensors run kernel K2 forward and
+    backward, CPU tensors their plain versions."""
+    if kp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"chamfer_num: unsupported device {kp.device}")
     _check_chamfer(kp, occ_flat, grid_size)
     return _ChamferNum.apply(kp, occ_flat, grid_size)

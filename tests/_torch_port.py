@@ -14,7 +14,14 @@ from neural_marionette_tpu.models import NeuralMarionette as JaxMarionette
 from neural_marionette_tpu.models import SkeletonArrays as JaxSkeletonArrays
 from neural_marionette_tpu.ops import voxelize_np
 
+import torch
+
 from neural_marionette_tpu_torch.config import MarionetteConfig
+
+# The suite runs in several worker processes at once. With its default of
+# one intra-op thread per core, each PyTorch process oversubscribes the CPU
+# and its waiting threads slow every worker down many times over.
+torch.set_num_threads(1)
 
 SMALL = dict(grid_size=32, feat_dim=32, nkeypoints=6, Ttot=4, Tcond=2,
              input_dim=3, nlatent_kypt=16, nhidden_kypt=32)
@@ -93,3 +100,15 @@ def moving_vox(B=2, T=4, G=32, n=384, seed=0):
     vox = np.stack([np.stack([voxelize_np(pts[b, t], G)
                               for t in range(T)]) for b in range(B)])
     return vox.astype(np.float32), pts
+
+
+def jax_sample_eps(model, params, key, T, sample_num, B, Z):
+    """The noise ``HSVRNNBVH.encode`` draws from the ``"sample"`` key
+    ``key``: the first ``make_rng("sample")`` of the dynamics module, split
+    T ways, one ``normal((sample_num, B, Z))`` per step (dynamics.py:494,
+    :501). (T, sample_num, B, Z) float32."""
+    k0 = model.apply(params, method=lambda m: m.dyna_module.make_rng(
+        "sample"), rngs={"sample": key})
+    keys = jax.random.split(k0, T)
+    return np.stack([np.asarray(jax.random.normal(k, (sample_num, B, Z)))
+                     for k in keys])

@@ -65,12 +65,14 @@ assert not bad, bad
 import torch
 assert not torch.cuda.is_available()
 cfg = pkg.MarionetteConfig(grid_size=16, feat_dim=32, nkeypoints=6)
-try:
-    api.Marionette.from_config(cfg)
-except RuntimeError as e:
-    assert "no CUDA device" in str(e), e
-else:
-    raise AssertionError("from_config without a card did not raise")
+from neural_marionette_tpu_torch.train import Trainer
+for entry in (api.Marionette.from_config, Trainer):
+    try:
+        entry(cfg)
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError(f"{entry} without a card did not raise")
 print("clean")
 """
 
@@ -78,8 +80,8 @@ print("clean")
 def test_port_imports_no_jax_and_wants_a_card():
     """In a fresh process (this one has jax loaded by conftest): importing
     every module of the port loads neither ``jax`` nor any module of
-    ``neural_marionette_tpu``, and an entry point given no device asks for
-    CUDA and raises without a card."""
+    ``neural_marionette_tpu``, and the entry points (the serving model and
+    the trainer) given no device ask for CUDA and raise without a card."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)

@@ -28,7 +28,8 @@ from neural_marionette_tpu_torch.skeleton import extract_skeleton
 from neural_marionette_tpu_torch.weights import (block_state_dict,
                                                  state_dict_from_jax)
 
-from _torch_port import configs, jax_params, moving_vox, randomize
+from _torch_port import (configs, jax_params, jax_sample_eps, moving_vox,
+                         randomize)
 
 LOSSES = ("recon_loss", "vol_fit_reg", "kypt_const_loss", "separation_loss",
           "sparsity_loss", "local_const_loss", "time_const_loss",
@@ -133,17 +134,6 @@ def _tree(K, seed):
     for i in range(1, K):
         parents[order[i]] = order[g.integers(0, i)]
     return order, parents
-
-
-def _jax_eps(model, params, key, T, sample_num, B, Z):
-    """The noise ``HSVRNNBVH.encode`` draws from ``key``: the first
-    ``make_rng("sample")`` of the dynamics module, split T ways, one
-    ``normal((sample_num, B, Z))`` per step (dynamics.py:494, :501)."""
-    k0 = model.apply(params, method=lambda m: m.dyna_module.make_rng(
-        "sample"), rngs={"sample": key})
-    keys = jax.random.split(k0, T)
-    return np.stack([np.asarray(jax.random.normal(k, (sample_num, B, Z)))
-                     for k in keys])
 
 
 def _best_indices(dyn, out, keypoints, eps):
@@ -272,7 +262,8 @@ def slice_pair():
         p, v, jsk, sample_num=S, method=JaxMarionette.encode_only,
         rngs={"sample": key}))(params, jnp.asarray(vox))
     want = jax.tree.map(np.asarray, want)
-    eps = _jax_eps(model, params, key, jcfg.Ttot, S, 2, jcfg.nlatent_kypt)
+    eps = jax_sample_eps(model, params, key, jcfg.Ttot, S, 2,
+                         jcfg.nlatent_kypt)
 
     net = NeuralMarionette(cfg)
     net.load_state_dict(state_dict_from_jax(params), strict=True)

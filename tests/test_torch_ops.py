@@ -290,7 +290,96 @@ def test_volume_fitting_loss_equals_jnp_chamfer(K):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
 
 
+def _jnp_chamfer_num(kp, occ_flat, G):
+    """The JAX package's jnp volume-fitting numerator (ops/losses.py), whose
+    VJP is jax.grad's own: equal split over tied minima, 1/2 at relu 0."""
+    V = jnp.asarray(np.asarray(J.coord_maps((G,) * 3)).reshape(-1, 3))
+    v2 = jnp.sum(V * V, axis=-1)
+    dots = jnp.einsum("vc,mkc->mvk", V, kp,
+                      precision=jax.lax.Precision.HIGHEST)
+    c2 = jnp.sum(kp * kp, axis=-1)
+    dmin = v2[None] + jnp.min(c2[:, None, :] - 2.0 * dots, axis=-1)
+    return jnp.sum(jnp.maximum(dmin, 0.0) * occ_flat, axis=-1)
+
+
+@pytest.mark.parametrize("K,occ_dtype", [(24, "float32"), (9, "float32"),
+                                         (24, "bfloat16"), (9, "bfloat16")])
+def test_chamfer_backward_plain_equals_jax(K, occ_dtype):
+    """``chamfer_num_bwd_plain`` against ``jax.grad`` of chamfer_num_pallas
+    (interpret mode) and of the jnp path, weighted by g, for kp and the
+    occupancy; and the autograd route of :func:`chamfer_num` on the CPU.
+    Tolerances of tests/test_pallas.py:167-173: dkp rtol 1e-5 / atol 1e-4
+    (sums of ~1600 terms in other orders), docc atol 4e-6 * max|g| (one ulp
+    of dmin near the relu and min boundaries); a bfloat16 docc rounds
+    g * relu(dmin) to 8 bits, so there rtol 8e-3."""
+    G, M = 32, 3
+    g = np.random.default_rng(K)
+    kp = g.uniform(-0.9, 0.9, (M, K, 3)).astype(np.float32)
+    occ = (g.random((M, G ** 3)) < 0.05).astype(np.float32)
+    w = g.uniform(0.5, 2.0, M).astype(np.float32)
+    jdt = getattr(jnp, occ_dtype)
+    occ_j = jnp.asarray(occ, dtype=jdt)
+
+    def grads(fn):
+        return jax.grad(lambda a, b: jnp.sum(fn(a, b, G) * w),
+                        argnums=(0, 1))(jnp.asarray(kp), occ_j)
+
+    occ_t = t(occ).to(getattr(torch, occ_dtype))
+    dkp, docc = Pl.chamfer_num_bwd_plain(t(w), t(kp), occ_t, G)
+    assert dkp.dtype == torch.float32 and docc.dtype == occ_t.dtype
+    docc_tol = dict(rtol=8e-3 if occ_dtype == "bfloat16" else 1e-5,
+                    atol=4e-6 * float(w.max()))
+    for fn in (chamfer_num_pallas, _jnp_chamfer_num):
+        gk, go = grads(fn)
+        np.testing.assert_allclose(dkp.numpy(), np.asarray(gk), rtol=1e-5,
+                                   atol=1e-4)
+        np.testing.assert_allclose(docc.float().numpy(),
+                                   np.asarray(go, np.float32), **docc_tol)
+    # the same gradients through autograd (the CPU route of the loss)
+    kp_t = t(kp).requires_grad_(True)
+    occ_g = occ_t.clone().requires_grad_(True)
+    (Pl.chamfer_num(kp_t, occ_g, G) * t(w)).sum().backward()
+    np.testing.assert_array_equal(kp_t.grad.numpy(), dkp.numpy())
+    np.testing.assert_array_equal(occ_g.grad.float().numpy(),
+                                  docc.float().numpy())
+
+
+def test_chamfer_backward_exact_conventions():
+    """On a G=5 grid, whose voxel centres (-1, -0.5, 0, 0.5, 1) and their
+    products are exact in float32: duplicate keypoints (an exact tie over
+    k), keypoints on voxel centres (dmin == 0, relu' = 1/2) and tied
+    nearest keypoints across a voxel. The plain backward equals jax.grad
+    of the jnp path exactly (chamfer_num_pallas needs G^3 in (8, 128)
+    tiles, which no grid with exact centres of this size has)."""
+    G = 5
+    kp = np.array([[[0.5, 0.5, 0.5], [0.5, 0.5, 0.5], [-1.0, 0.0, 0.5],
+                    [0.25, -0.5, 0.0], [0.75, -0.5, 0.0]],
+                   [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.0, 0.0, 0.0],
+                    [-0.25, 0.5, -1.0], [-0.75, 0.5, -1.0]]], np.float32)
+    g = np.random.default_rng(9)
+    occ = (g.random((2, G ** 3)) < 0.6).astype(np.float32)
+    occ[:, [31, 62, 93, 112]] = 1.0   # on the keypoints and between pairs
+    w = np.array([1.5, -0.75], np.float32)
+    dkp, docc = Pl.chamfer_num_bwd_plain(t(w), t(kp), t(occ), G)
+    gk, go = jax.grad(lambda a, b: jnp.sum(_jnp_chamfer_num(a, b, G) * w),
+                      argnums=(0, 1))(jnp.asarray(kp), jnp.asarray(occ))
+    np.testing.assert_array_equal(dkp.numpy(), np.asarray(gk))
+    np.testing.assert_array_equal(docc.numpy(), np.asarray(go))
+    # the convention cases are present: exact ties and relu at exactly 0
+    V = Pc.coord_maps((G,) * 3).reshape(-1, 3)
+    for m in range(2):
+        c = t(kp[m])
+        vals = (c * c).sum(-1)[None] - 2.0 * (V @ c.T)
+        ties = (vals == vals.amin(-1, keepdim=True)).sum(-1)
+        dmin = (V * V).sum(-1) + vals.amin(-1)
+        assert int((ties > 1).sum()) > 0 and int((dmin == 0).sum()) > 0
+
+
 def test_chamfer_checks_and_backward_not_ported():
+    """The argument checks, and the backward that replaced the
+    not-yet-ported error: the autograd function's backward runs the plain
+    version on CPU tensors and returns no occupancy gradient unless asked
+    (the backward kernel's launch counter does not move on the CPU)."""
     kp = torch.zeros(2, 24, 3)
     with pytest.raises(ValueError):
         Pl.chamfer_num(kp, torch.zeros(2, 100), 8)
@@ -299,5 +388,13 @@ def test_chamfer_checks_and_backward_not_ported():
     with pytest.raises(NotImplementedError):
         Pl.volume_fitting_loss(torch.zeros(1, 1, 4, 4, 4, 1),
                                torch.zeros(1, 1, 3, 4), None, "gaussian")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Pl._ChamferNum.backward(None, torch.ones(2))
+    before = (Pl.launches, Pl.bwd_launches)
+    kp = torch.rand(2, 24, 3, generator=torch.Generator().manual_seed(0))
+    kp.requires_grad_(True)
+    occ = (torch.rand(2, 512, generator=torch.Generator().manual_seed(1))
+           < 0.3).float()
+    Pl.chamfer_num(kp, occ, 8).sum().backward()
+    assert occ.grad is None and kp.grad.shape == kp.shape
+    want, _ = Pl.chamfer_num_bwd_plain(torch.ones(2), kp.detach(), occ, 8)
+    assert torch.equal(kp.grad, want)
+    assert (Pl.launches, Pl.bwd_launches) == before
