@@ -20,29 +20,41 @@ Phases, each of which fails the run (nonzero exit, no result line):
    gradient: dkp rtol 1e-5 / atol 1e-4, docc atol 4e-6 max|g|, bitwise
    repeatable; and a G=5 case of exact ties and relu at exactly 0, equal on
    the card and on the CPU;
-6. the serving path at the full AIST width with weights from a seed: a
+6. K3 (conv3d) against its plain version on the card at every distinct
+   conv shape of the conv route (``conv_kernel=True``) in an AIST window,
+   bfloat16, plus float32-x, channels-last and z-asymmetric cases, bitwise
+   repeatable; K4 (fused conv + GroupNorm + LeakyReLU stage) on the
+   decoder's two 64^3 stage inputs against its plain version and the
+   model's own stages, bitwise repeatable; one window through the routed
+   detector against the route off; then K3 and K4 timed (see 12);
+7. the serving path at the full AIST width with weights from a seed: a
    bfloat16 stream of (4, 10, 4096, 3) windows, outputs finite and of the
    expected shapes, and the launch counters showing K1 and K2 on every
-   window;
-7. one B=1 window in float32 (TF32 off) on the card and on the CPU (plain
+   window and K3 on none;
+8. the same stream on the conv route: K3 48 times per window, keypoints
+   close to the default stream's;
+9. one B=1 window in float32 (TF32 off) on the card and on the CPU (plain
    versions), compared within stated tolerances;
-8. the training path at the full AIST width: ``Trainer`` on (4, 10, 4096,
-   3) point batches in bfloat16, a detector-phase epoch, a learner-phase
-   epoch (detector frozen, skeleton extracted from the trained affinity)
-   and a grad_accum=2 step: finite losses and grad_norm, frozen parameters
-   unchanged to the bit, K1 and K2 forward on every microbatch, K2
-   backward on every detector-phase microbatch and never in the learner
-   phase; step times, the device busy share of two profiled steps and the
-   peak memory per phase;
-9. one float32 training step (TF32 off) at B=1, T=10 on the card and on
-   the CPU: metrics, gradients and updated parameters within stated
-   tolerances;
-10. each kernel's time against its plain version, a PyTorch library call
+10. the training path at the full AIST width: ``Trainer`` on (4, 10, 4096,
+    3) point batches in bfloat16, a detector-phase epoch, a learner-phase
+    epoch (detector frozen, skeleton extracted from the trained affinity)
+    and a grad_accum=2 step: finite losses and grad_norm, frozen parameters
+    unchanged to the bit, K1 and K2 forward on every microbatch, K2
+    backward on every detector-phase microbatch and never in the learner
+    phase; step times, the device busy share of two profiled steps and the
+    peak memory per phase; then a few steps of each phase on the conv
+    route, K3 48 times per microbatch;
+11. one float32 training step (TF32 off) at B=1, T=10 on the card and on
+    the CPU: metrics, gradients and updated parameters within stated
+    tolerances;
+12. each kernel's time against its plain version, a PyTorch library call
     and its bound, at the serving and training paths' shapes;
-11. where a serving window's time goes: per-layer times of one window and,
-    under ``torch.profiler``, the device's busy share and its top kernels.
+13. where a serving window's time goes, route off and on: per-layer times
+    of one window and, under ``torch.profiler``, the device's busy share,
+    its copies and its top kernels.
 
-It prints a ``{"kernels": [...]}`` line, a ``{"stream": ...}`` line, a
+It prints a ``{"kernels": [...]}`` line, a ``{"conv3d_shapes": [...]}``
+line, a ``{"stream": ...}`` and a ``{"stream_conv_kernel": ...}`` line, a
 ``{"profile": ...}`` line, a ``{"train": ...}`` line, the card's line, and
 last ``{"ok": true, "device": {...}}``. Without a card, or without the
 package beside it, it exits nonzero before printing a result.
@@ -61,13 +73,16 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, fp32 outside the
-# tensor cores
+# tensor cores, dense bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 SERVE_B, SERVE_T, SERVE_N = 4, 10, 4096
 STREAM_WINDOWS = 16
 SAMPLE_NUM = 10
+ROUTED_CONVS = 48   # convs per detector forward on the conv route, AIST
+PORT_KERNELS = ("voxelize_kernel", "chamfer_", "conv3d_kernel")
 
 
 def log(*a):
@@ -366,6 +381,181 @@ def phase_k2_bwd(device, G, M, K):
     return err_train
 
 
+def bf16_ulp(v):
+    """The spacing of bfloat16 values at the magnitudes ``v`` (float32): a
+    value in [2^(e-1), 2^e) has 8 significant bits, so ulp 2^(e-8)."""
+    import torch
+    _, e = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def routed_conv_inputs(det, vox, keep=None):
+    """Run ``det`` (a detector with ``conv_kernel=True``) on ``vox`` with
+    ``ops.conv3d.conv3d`` wrapped: returns (a Counter of the routed convs'
+    (x shape, w shape), the x of each call for which ``keep(x, w)`` holds)."""
+    import collections
+    import torch
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    seen, kept = collections.Counter(), []
+    original = K3.conv3d
+
+    def recording(x, w, b):
+        seen[(tuple(x.shape), tuple(w.shape))] += 1
+        if keep is not None and keep(x, w):
+            kept.append(x)
+        return original(x, w, b)
+
+    K3.conv3d = recording
+    try:
+        with torch.inference_mode():
+            det(vox)
+    finally:
+        K3.conv3d = original
+    return seen, kept
+
+
+def _conv_operands(shape, cout, dtype, device, seed, channels_first=True):
+    """x (F, D, H, W, Cin) N(0, 1) in ``dtype`` (stored NCDHW, as the
+    model's activations, unless ``channels_first`` is False), w N(0,
+    1/fan_in), b N(0, 0.05)."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    Fr, D, H, W, Cin = shape
+    if channels_first:
+        x = torch.randn((Fr, Cin, D, H, W), generator=g, device=device,
+                        dtype=dtype).permute(0, 2, 3, 4, 1)
+    else:
+        x = torch.randn(shape, generator=g, device=device, dtype=dtype)
+    w = torch.randn((3, 3, 3, Cin, cout), generator=g,
+                    device=device) * (27 * Cin) ** -0.5
+    b = torch.randn((cout,), generator=g, device=device) * 0.05
+    return x, w, b
+
+
+def phase_k3(device, det, vox):
+    """K3 against its plain version on the card at every distinct routed
+    conv shape of one AIST window, bfloat16, activations stored NCDHW as in
+    the model: within one bfloat16 ulp of the larger magnitude plus 1e-5
+    of the largest |plain| (both sum the same exact bf16 products in
+    float32, in other orders, then round once), and two launches equal to
+    the bit. Also a float32-x case (the output stays float32: 1e-5 of the
+    largest |plain|) and a channels-last input, and, as
+    tests/test_pallas.py:77 does, z-asymmetric content at the z faces.
+    Returns (the routed shapes Counter, max abs err over the bf16 cases)."""
+    import torch
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    shapes, _ = routed_conv_inputs(det, vox)
+    if sum(shapes.values()) != ROUTED_CONVS:
+        raise AssertionError(f"{sum(shapes.values())} routed convs per AIST "
+                             f"window, want {ROUTED_CONVS}: {shapes}")
+    worst = 0.0
+    cases = [(xs, ws[-1], torch.bfloat16, True) for xs, ws in sorted(shapes)]
+    cases += [((40, 16, 16, 16, 64), 64, torch.float32, True),
+              ((40, 2, 2, 2, 72), 72, torch.float32, True),
+              ((4, 8, 8, 8, 48), 72, torch.bfloat16, False)]
+    for i, (xs, cout, dtype, cf) in enumerate(cases):
+        x, w, b = _conv_operands(xs, cout, dtype, device, 70 + i, cf)
+        if i == 0:   # z-asymmetric content: every z plane its own scale
+            x = x * torch.arange(1, xs[1] + 1, device=device,
+                                 dtype=dtype)[None, :, None, None, None]
+        a = K3.conv3d(x, w, b)
+        a2 = K3.conv3d(x, w, b)
+        p = K3.conv3d_plain(x, w, b)
+        torch.cuda.synchronize()
+        if a.dtype != dtype or a.shape != xs[:4] + (cout,):
+            raise AssertionError(f"K3 {xs}->{cout}: {a.dtype} "
+                                 f"{tuple(a.shape)}")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"K3 {xs}->{cout} {dtype}: two runs differ")
+        af, pf = a.float(), p.float()
+        err = (af - pf).abs()
+        top = float(pf.abs().max())
+        if dtype == torch.bfloat16:
+            tol = bf16_ulp(torch.maximum(af.abs(), pf.abs())) + 1e-5 * top
+            worst = max(worst, float(err.max()))
+        else:
+            tol = 1e-5 * top
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"K3 {xs}->{cout} {dtype}: max abs err "
+                                 f"{float(err.max()):.3e} over its bound "
+                                 f"(max |plain| {top:.3e})")
+        n_diff = int((a != p).sum())
+        log(f"[K3] {xs}->{cout} {str(dtype)[6:]} "
+            f"{'NCDHW' if cf else 'NDHWC'} x {shapes.get((xs, (3, 3, 3, xs[-1], cout)), 0)}"
+            f"/window: max abs err {float(err.max()):.3e} (max |plain| "
+            f"{top:.3e}, {n_diff} of {a.numel()} differ), bitwise "
+            f"repeatable")
+        del x, a, a2, p, af, pf, err
+    return shapes, worst
+
+
+def decoder_stage_inputs(det, vox):
+    """The inputs of the decoder's two 64^3 stages (stage 2: C/2 -> C/4,
+    stage 3: C/4 -> C/4) on ``vox``: logical NDHWC bfloat16 views, as the
+    route hands them to K3."""
+    G = vox.shape[2]
+    _, kept = routed_conv_inputs(det, vox, keep=lambda x, w: x.shape[1] == G)
+    if len(kept) != 2:
+        raise AssertionError(f"{len(kept)} routed 64^3 decoder convs")
+    return kept
+
+
+def phase_k4(device, det, vox):
+    """K4 on the decoder's 64^3 stage inputs of one AIST window (as
+    ``scripts/bench_fusedstage.py`` drives the JAX kernel, at F=40, 64->32
+    and 32->32), with the model's own stage weights. The two entry calls
+    are counted; then, against its plain version and against the model's
+    own stage (its K3 conv, GroupNorm in float32 over the bf16-stored conv
+    output, LeakyReLU, float32 out): max abs err within 2^-6 of the largest
+    |reference| (a bf16 rounding of the conv output, carried by the
+    GroupNorm's gain of about 1, and one of the output, at the scale of the
+    unit-variance output), and two launches equal to the bit. Returns
+    (launches in the entry run, max abs err against the plain version)."""
+    import torch
+    from neural_marionette_tpu_torch.models.blocks import (conv, leaky_relu,
+                                                           norm)
+    from neural_marionette_tpu_torch.ops import fusedstage as K4
+    xs = decoder_stage_inputs(det, vox)
+    d = det.kypt_to_vox.decode_voxel_from_combined_representation
+    stages = []
+    for x, (ci, gi) in zip(xs, ((8, 9), (11, 12))):
+        w = d[ci].weight.detach().to(torch.bfloat16).permute(2, 3, 4, 1, 0)
+        stages.append((x, w, d[ci].bias.detach(), d[gi].weight.detach(),
+                       d[gi].bias.detach(), d[ci], d[gi]))
+    K4.launches = 0
+    with torch.inference_mode():
+        outs = [K4.fused_stage(*s[:5]) for s in stages]
+    torch.cuda.synchronize()
+    launches = K4.launches
+    if launches != 2:
+        raise AssertionError(f"K4 entry run launches {launches}, want 2")
+    worst = 0.0
+    with torch.inference_mode():
+        for i, ((x, w, b, sc, bi, cm, gm), a) in enumerate(zip(stages, outs)):
+            a2 = K4.fused_stage(x, w, b, sc, bi)
+            if not torch.equal(a, a2):
+                raise AssertionError(f"K4 stage {i + 2}: two runs differ")
+            del a2
+            p = K4.fused_stage_plain(x, w, b, sc, bi)
+            model = leaky_relu(norm(gm, conv(cm, x.permute(0, 4, 1, 2, 3),
+                                             torch.bfloat16, True)))
+            model = model.permute(0, 2, 3, 4, 1)
+            for name, ref in (("plain", p), ("model stage", model)):
+                err = float((a.float() - ref.float()).abs().max())
+                top = float(ref.float().abs().max())
+                if name == "plain":
+                    worst = max(worst, err)
+                if not err <= 2 ** -6 * top:
+                    raise AssertionError(f"K4 stage {i + 2} vs {name}: max "
+                                         f"abs err {err:.3e}, max |ref| "
+                                         f"{top:.3e}")
+                log(f"[K4] stage {i + 2} {tuple(x.shape)}->{w.shape[-1]} vs "
+                    f"{name}: max abs err {err:.3e} (max |ref| {top:.3e})")
+            del p, model
+    log(f"[K4] entry run: {launches} launches; bitwise repeatable")
+    return launches, worst, stages
+
+
 def _window_outputs(cfg, B, T):
     K, G = cfg.nkeypoints, cfg.grid_size
     return {"keypoints": (B, T, K, 4), "kypt_recon": (B, T, K, 4),
@@ -374,33 +564,34 @@ def _window_outputs(cfg, B, T):
             "kypt_recon_loss": ()}
 
 
-def phase_stream(marionette, n_windows):
-    """A bfloat16 stream of serving windows; returns (host ms from the
-    start to the first result and between consecutive results, launches of
-    K1, launches of K2).
+def phase_stream(marionette, n_windows, conv_kernel=False):
+    """A bfloat16 stream of serving windows, with the conv route off or on
+    (``conv_kernel``); returns (host ms from the start to the first result
+    and between consecutive results, {kernel: launches}, the results).
 
     Results come lag-1, so gap i (1 <= i <= n-2) is the time the stream
     takes for one window: the host queues window i+1 and waits for window
     i. The first gap pays set-up. The last (the flush) is no window's time:
     while the host sets the pace, the card has nearly finished the last
     window by the time the host asks for it."""
+    from neural_marionette_tpu_torch.ops import conv3d as K3
     from neural_marionette_tpu_torch.ops import losses as L
     from neural_marionette_tpu_torch.ops import voxelize as V
     cfg = marionette.cfg
     shapes = _window_outputs(cfg, SERVE_B, SERVE_T)
     windows = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=100 + i)
                for i in range(n_windows)]
-    V.launches = 0
-    L.launches = 0
     stamps = []
     results = []
     with marionette.stream(dtype="bfloat16", sample_num=SAMPLE_NUM,
-                           outputs=tuple(shapes)) as s:
+                           outputs=tuple(shapes),
+                           conv_kernel=conv_kernel) as s:
+        V.launches = L.launches = K3.launches = 0
         t0 = time.perf_counter()
         for res in s.run(windows):
             stamps.append(time.perf_counter())
             results.append(res)
-    k1, k2 = V.launches, L.launches
+    k1, k2, k3 = V.launches, L.launches, K3.launches
     if len(results) != n_windows:
         raise AssertionError(f"stream gave {len(results)} results for "
                              f"{n_windows} windows")
@@ -411,16 +602,48 @@ def phase_stream(marionette, n_windows):
                 raise AssertionError(f"window {i} {k}: shape {v.shape} "
                                      f"(want {shape}), finite "
                                      f"{np.isfinite(v).all()}")
-    if k1 != n_windows or k2 != n_windows:
+    k3_want = ROUTED_CONVS * n_windows if conv_kernel else 0
+    if k1 != n_windows or k2 != n_windows or k3 != k3_want:
         raise AssertionError(f"launches over {n_windows} windows: K1 {k1}, "
-                             f"K2 {k2}")
+                             f"K2 {k2}, K3 {k3} (want {k3_want})")
     ms = np.diff([t0] + stamps) * 1e3
-    log(f"[stream] {n_windows} windows {SERVE_B}x{SERVE_T}x{SERVE_N}x3 bf16: "
+    tag = "stream conv_kernel" if conv_kernel else "stream"
+    log(f"[{tag}] {n_windows} windows {SERVE_B}x{SERVE_T}x{SERVE_N}x3 bf16: "
         f"ms to the first result and between results "
         f"{[round(float(x), 2) for x in ms]}")
-    log(f"[stream] launches: K1 {k1}, K2 {k2}; outputs finite, shapes "
-        f"right")
-    return ms, k1, k2
+    log(f"[{tag}] launches: K1 {k1}, K2 {k2}, K3 {k3}; outputs finite, "
+        f"shapes right")
+    return ms, {"voxelize": k1, "chamfer_fwd": k2, "conv3d": k3}, results
+
+
+def stream_record(ms, n_windows, peak, card, **extra):
+    """The steady gaps of a stream: neither the set-up gap nor the flush
+    (``phase_stream``)."""
+    steady = ms[1:-1]
+    return {"windows": n_windows, "B": SERVE_B, "T": SERVE_T, "N": SERVE_N,
+            "dtype": "bfloat16", "sample_num": SAMPLE_NUM,
+            "mean_ms_per_window": float(steady.mean()),
+            "p50_ms_per_window": float(np.percentile(steady, 50)),
+            "gaps_ms": [float(x) for x in ms],
+            "peak_device_memory_gib": peak, "card": card, **extra}
+
+
+def compare_streams(routed, default, atol=2e-2):
+    """The routed stream's keypoints against the default stream's on the
+    same windows: within ``atol`` (5 bfloat16 ulps at the coordinates'
+    magnitude 1: the two routes round the bf16 conv outputs apart at about
+    one element in a thousand, by one ulp, and the soft-argmax averages
+    them). Returns the max abs difference of keypoints and of kypt_recon."""
+    kp = max(float(np.abs(a["keypoints"] - b["keypoints"]).max())
+             for a, b in zip(routed, default))
+    rec = max(float(np.abs(a["kypt_recon"] - b["kypt_recon"]).max())
+              for a, b in zip(routed, default))
+    log(f"[stream conv_kernel] against the default stream: keypoints max "
+        f"abs diff {kp:.3e}, kypt_recon {rec:.3e}")
+    if not kp <= atol:
+        raise AssertionError(f"routed stream keypoints differ by {kp:.3e} "
+                             f"> {atol}")
+    return kp, rec
 
 
 def phase_reference(cfg, seed, card_device):
@@ -511,7 +734,7 @@ def _busy(prof, wall_us):
     for e in dev:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
-        if "voxelize_kernel" in e.name or "chamfer_" in e.name:
+        if any(k in e.name for k in PORT_KERNELS):
             ours[e.name.split("(")[0].split("<")[0].split()[-1]] += \
                 e.time_range.elapsed_us() / 1e3
     return busy / 1e3, busy / wall_us, dict(ours), dict(by_name)
@@ -530,6 +753,7 @@ def _train_epoch(trainer, epoch, n_steps, seed, counts):
     ``Trainer.train_epoch``, the launch counters set to 0 just before it
     and read just after; returns (record, per-step ms, peak GiB)."""
     import torch
+    from neural_marionette_tpu_torch.ops import conv3d as K3
     from neural_marionette_tpu_torch.ops import losses as L
     from neural_marionette_tpu_torch.ops import voxelize as V
     batches = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=seed + i)
@@ -537,10 +761,10 @@ def _train_epoch(trainer, epoch, n_steps, seed, counts):
     stamps = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    V.launches = L.launches = L.bwd_launches = 0
+    V.launches = L.launches = L.bwd_launches = K3.launches = 0
     record = trainer.train_epoch(epoch, _timed(batches, stamps))
     counts.update(voxelize=V.launches, chamfer_fwd=L.launches,
-                  chamfer_bwd=L.bwd_launches)
+                  chamfer_bwd=L.bwd_launches, conv3d=K3.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return record, np.diff(stamps) * 1e3, peak
 
@@ -572,7 +796,8 @@ def phase_train(cfg, device, card, n_steps=12, n_profiled=2):
         record, ms, peak = _train_epoch(trainer, epoch, n_steps,
                                         1000 + 100 * epoch, counts)
         want = {"voxelize": n_steps, "chamfer_fwd": n_steps,
-                "chamfer_bwd": n_steps if name == "detector" else 0}
+                "chamfer_bwd": n_steps if name == "detector" else 0,
+                "conv3d": 0}
         if counts != want:
             raise AssertionError(f"{name} phase launches {counts}, want "
                                  f"{want}")
@@ -642,7 +867,8 @@ def phase_train(cfg, device, card, n_steps=12, n_profiled=2):
                   dtype="bfloat16")
     counts = {}
     record, ms, peak = _train_epoch(acc, 0, 1, 3000, counts)
-    if counts != {"voxelize": 2, "chamfer_fwd": 2, "chamfer_bwd": 2}:
+    if counts != {"voxelize": 2, "chamfer_fwd": 2, "chamfer_bwd": 2,
+                  "conv3d": 0}:
         raise AssertionError(f"grad_accum=2 launches {counts}")
     if not all(np.isfinite(v) for v in record["train"].values()):
         raise AssertionError(f"grad_accum=2 metrics {record['train']}")
@@ -655,6 +881,65 @@ def phase_train(cfg, device, card, n_steps=12, n_profiled=2):
         f"{peak:.2f} GiB, launches {counts}")
     return ({"B": SERVE_B, "T": SERVE_T, "N": SERVE_N, "dtype": "bfloat16",
              "phases": phases, "card": card}, det_launches)
+
+
+def phase_train_conv(cfg, device, n_steps=(4, 3)):
+    """The training path on the conv route: ``Trainer(conv_kernel=True)`` at
+    the full AIST width, a detector-phase epoch of ``n_steps[0]`` steps and
+    a learner-phase epoch of ``n_steps[1]``, as ``phase_train`` runs them:
+    finite losses and grad_norm, frozen parameters unchanged to the bit,
+    and K3 launched ``ROUTED_CONVS`` times per microbatch in both phases
+    (the frozen detector's forward too). Returns the ``conv_kernel`` entry
+    of the ``train`` line (per phase: step ms, peak memory, launches)."""
+    import dataclasses
+    import torch
+    from neural_marionette_tpu_torch.train import Trainer
+    cfg = dataclasses.replace(cfg, detector_start=0, detector_end=1,
+                              learner_start=1, affinity_anneal=0)
+    trainer = Trainer(cfg, device=device, dtype="bfloat16", conv_kernel=True)
+    params = dict(trainer.model.named_parameters())
+    offset = params["dyna_module.offset_param"].detach().clone()
+    out = {}
+    for epoch, name in ((0, "detector"), (1, "learner")):
+        n = n_steps[epoch]
+        det_before = {k: v.detach().clone() for k, v in params.items()
+                      if k.startswith("kypt_detector.")}
+        counts = {}
+        record, ms, peak = _train_epoch(trainer, epoch, n,
+                                        7000 + 100 * epoch, counts)
+        want = {"voxelize": n, "chamfer_fwd": n,
+                "chamfer_bwd": n if name == "detector" else 0,
+                "conv3d": ROUTED_CONVS * n}
+        if counts != want:
+            raise AssertionError(f"conv route {name} phase launches "
+                                 f"{counts}, want {want}")
+        bad = {k: v for k, v in record["train"].items()
+               if not np.isfinite(v)}
+        if bad or not record["train"]["grad_norm"] > 0:
+            raise AssertionError(f"conv route {name} phase metrics "
+                                 f"{record['train']}")
+        if name == "learner":
+            for k, v in det_before.items():
+                if not torch.equal(params[k].detach(), v):
+                    raise AssertionError(f"conv route: frozen detector "
+                                         f"moved: {k}")
+        if not torch.equal(params["dyna_module.offset_param"].detach(),
+                           offset):
+            raise AssertionError("conv route: offset_param moved")
+        timed = ms[1:]   # the first step is warm-up
+        out[name] = {"steps": n, "timed_steps": len(timed),
+                     "mean_ms_per_step": float(timed.mean()),
+                     "p50_ms_per_step": float(np.percentile(timed, 50)),
+                     "step_ms": [float(x) for x in ms],
+                     "peak_device_memory_gib": peak, "launches": counts,
+                     "total_loss": record["train"]["total_loss"],
+                     "grad_norm": record["train"]["grad_norm"]}
+        log(f"[train conv_kernel] {name} phase: {n} steps, ms per step "
+            f"{[round(float(x), 1) for x in ms]}, peak {peak:.2f} GiB, "
+            f"launches {counts}, total_loss "
+            f"{record['train']['total_loss']:.4f}, grad_norm "
+            f"{record['train']['grad_norm']:.4f}")
+    return out
 
 
 def _informative_weights(net, seed):
@@ -812,7 +1097,7 @@ def phase_timing(device, G, K, launches, errs):
         cuda_ms(lambda: V.voxelize(pts, G, dtype=torch.bfloat16)),
         cuda_ms(lambda: V.voxelize_plain(pts, G, dtype=torch.bfloat16)),
         cuda_ms(lambda: grid.index_put_((lin,), one)),
-        k1_bytes, k1_ops))
+        k1_bytes, [(k1_ops, PEAK_FP32_OPS_PER_S)]))
 
     # K2: kp (40, 24, 3) float32, occupancy (40, 64^3) bfloat16 -> (40,)
     occ = V.voxelize(pts, G, dtype=torch.bfloat16).reshape(F, G ** 3)
@@ -840,7 +1125,7 @@ def phase_timing(device, G, K, launches, errs):
         cuda_ms(lambda: L.chamfer_num(kp, occ, G)),
         cuda_ms(lambda: L.chamfer_num_plain(kp, occ, G), iters=5),
         cuda_ms(library_k2, iters=5),
-        k2_bytes, k2_ops))
+        k2_bytes, [(k2_ops, PEAK_FP32_OPS_PER_S)]))
 
     # K2 backward, as the training step calls it: g (40,), kp (40, 24, 3),
     # bfloat16 occupancy, no occupancy gradient -> dkp (40, 24, 3). Only
@@ -866,7 +1151,7 @@ def phase_timing(device, G, K, launches, errs):
         cuda_ms(lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, False)),
         cuda_ms(lambda: L.chamfer_num_bwd_plain(gr, kp, occ, G), iters=5),
         cuda_ms(library_k2_bwd, iters=5),
-        k2b_bytes, k2b_ops))
+        k2b_bytes, [(k2b_ops, PEAK_FP32_OPS_PER_S)]))
     # with the occupancy gradient (not on the training path): dmin at every
     # voxel and a write of the grid
     docc_ms = cuda_ms(lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, True))
@@ -878,19 +1163,164 @@ def phase_timing(device, G, K, launches, errs):
     return records
 
 
+def _bound_ms(n_bytes, ops):
+    """(ms to move ``n_bytes``, ms for ``ops``, a list of (operations, peak
+    rate of their type))."""
+    return (n_bytes / PEAK_BYTES_PER_S * 1e3,
+            sum(n / peak for n, peak in ops) * 1e3)
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, library_ms,
-            n_bytes, n_ops):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
+            n_bytes, ops, **extra):
+    """A ``kernels`` record; ``ops`` is a list of (operations, peak rate of
+    their type)."""
+    t_bytes, t_ops = _bound_ms(n_bytes, ops)
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
+           "library_ms": library_ms, **extra}
     log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}: {n_bytes} bytes, {n_ops} ops)")
+        f"({rec['bound_by']}: {n_bytes} bytes, "
+        f"{sum(n for n, _ in ops):.4g} ops)")
     return rec
+
+
+def _k3_work(xs, cout, k=3):
+    """(bytes, ops) of one bf16 conv: x, w, b read once, y written once."""
+    Fr, D, H, W, Cin = xs
+    vox = Fr * D * H * W
+    n_bytes = 2 * (vox * Cin + k ** 3 * Cin * cout + cout + vox * cout)
+    return n_bytes, [(2 * vox * k ** 3 * Cin * cout, PEAK_BF16_OPS_PER_S)]
+
+
+def phase_route_window(cfg, device, routed, vox):
+    """One AIST window (B=4) through the routed bf16 detector and through
+    the same weights with the route off (cuDNN): keypoints within 1e-2
+    (coordinates in [-1, 1]; the routes round the bf16 conv outputs apart
+    by one ulp in about 0.1 % of the elements, and the soft-argmax averages
+    heatmaps built from them: at the CPU tests' size they differ by 1.5e-4)
+    and the mean abs difference of recon within 1e-2. The weights are
+    ``_informative_weights``: with the seeded initial ones the two streams'
+    keypoints come out equal to the bit. Returns the max abs keypoint
+    difference."""
+    import torch
+    from neural_marionette_tpu_torch.models import NeuralMarionette
+    plain = NeuralMarionette(cfg, dtype=torch.bfloat16, device=device).eval()
+    plain.load_state_dict(routed.state_dict())
+    with torch.inference_mode():
+        a = routed.kypt_detector(vox)
+        b = plain.kypt_detector(vox)
+    kp = float((a["keypoints"] - b["keypoints"]).abs().max())
+    rec = float((a["recon"].float() - b["recon"].float()).abs().mean())
+    spread = float(a["keypoints"][..., :3].std(dim=(0, 1)).mean())
+    log(f"[route] one window, informative weights, route on vs off: "
+        f"keypoints max abs diff {kp:.3e} (their spread over the window "
+        f"{spread:.3e}), recon mean abs diff {rec:.3e}")
+    if not (kp <= 1e-2 and rec <= 1e-2):
+        raise AssertionError(f"route on vs off: keypoints {kp:.3e}, recon "
+                             f"{rec:.3e}")
+    return kp
+
+
+def phase_timing_conv(device, shapes, stages, errs):
+    """K3 at every distinct routed conv shape of an AIST window (bf16, x
+    stored NCDHW), weighted by its calls per window, against its plain
+    version, cuDNN's bf16 ``F.conv3d`` at the same shape (timed here only)
+    and its bound; K4 at the decoder's stage 3 (F=40, 64^3, 32->32, the
+    model's weights and activations) against its plain version,
+    ``F.conv3d`` + ``F.group_norm`` + ``F.leaky_relu`` in bf16 and its
+    bound, with its device time from the profiler. Returns (the K3 and K4
+    records, launches to be filled in from the main paths' runs, the
+    per-shape K3 rows)."""
+    import torch
+    import torch.nn.functional as Fn
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    from neural_marionette_tpu_torch.ops import fusedstage as K4
+    rows = []
+    tot = defaultdict(float)
+    for i, ((xs, ws), calls) in enumerate(sorted(shapes.items())):
+        cout = ws[-1]
+        x, w, b = _conv_operands(xs, cout, torch.bfloat16, device, 90 + i)
+        xc = x.permute(0, 4, 1, 2, 3)
+        wc = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
+        bb = b.to(torch.bfloat16)
+        n_bytes, ops = _k3_work(xs, cout)
+        big = ops[0][0] > 1e11
+        row = {"x": list(xs), "cout": cout, "calls_per_window": calls,
+               "ms": cuda_ms(lambda: K3.conv3d(x, w, b), iters=5 if big else 20),
+               "plain_ms": cuda_ms(lambda: K3.conv3d_plain(x, w, b), iters=3,
+                                   warmup=1),
+               "library_ms": cuda_ms(lambda: Fn.conv3d(xc, wc, bb, padding=1),
+                                     iters=5 if big else 20),
+               "bound_ms": max(_bound_ms(n_bytes, ops))}
+        row["tflops"] = ops[0][0] / row["ms"] / 1e9
+        rows.append(row)
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[k] += calls * row[k]
+        tot["bytes"] += calls * n_bytes
+        tot["ops"] += calls * ops[0][0]
+        log(f"[time] conv3d {xs}->{cout} x{calls}: kernel {row['ms']:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.3f} ms, "
+            f"cuDNN {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+        del x, xc
+    # K3's record: the sums over the routed convs of one window
+    records = [_record(
+        "conv3d", "neural_marionette_tpu_torch/csrc/conv3d.cu",
+        "neural_marionette_tpu/ops/pallas/conv3d_kernel.py:102",
+        None, errs["conv3d"], tot["ms"], tot["plain_ms"],
+        tot["library_ms"], int(tot["bytes"]),
+        [(tot["ops"], PEAK_BF16_OPS_PER_S)],
+        per=f"window ({ROUTED_CONVS} calls; ms, plain_ms, library_ms and "
+            f"bound_ms summed over them)")]
+    records[0]["bound_ms"] = tot["bound_ms"]   # the sum of per-call bounds
+    log(f"[time] conv3d per window: sum of per-call bounds "
+        f"{tot['bound_ms']:.4f} ms")
+
+    # K4 at the decoder's stage 3
+    x, w, b, sc, bi = stages[1][:5]
+    Fr, D, H, W, Cin = x.shape
+    cout = w.shape[-1]
+    xc = x.permute(0, 4, 1, 2, 3)
+    wc = w.permute(4, 3, 0, 1, 2).contiguous()
+    bb, sb, bib = (t.to(torch.bfloat16) for t in (b, sc, bi))
+    ng = max(cout // 16, 1)
+
+    def library_k4():
+        y = Fn.conv3d(xc, wc, bb, padding=1)
+        return Fn.leaky_relu(Fn.group_norm(y, ng, sb, bib, 1e-5), 0.01)
+
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: K4.fused_stage(x, w, b, sc, bi), iters=5)
+        plain_ms = cuda_ms(lambda: K4.fused_stage_plain(x, w, b, sc, bi),
+                           iters=3, warmup=1)
+        library_ms = cuda_ms(library_k4, iters=5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                K4.fused_stage(x, w, b, sc, bi)
+            torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    pass1 = sum(e.time_range.elapsed_us() for e in dev
+                if "conv3d_kernel" in e.name) / 3e3
+    device_ms = sum(e.time_range.elapsed_us() for e in dev) / 3e3
+    vox = Fr * D * H * W
+    n_bytes, ops = _k3_work((Fr, D, H, W, Cin), cout)
+    n_bytes += 8 * cout                       # scale and bias, float32
+    ops.append((9 * vox * cout, PEAK_FP32_OPS_PER_S))  # moments, pass 2
+    records.append(_record(
+        "fused_stage", "neural_marionette_tpu_torch/csrc/conv3d.cu",
+        "neural_marionette_tpu/ops/pallas/fusedstage_kernel.py:117",
+        None, errs["fused_stage"], ms, plain_ms,
+        library_ms, n_bytes, ops, device_ms=device_ms,
+        device_ms_pass1=pass1))
+    log(f"[time] fused_stage device ms: pass 1 {pass1:.4f}, all its device "
+        f"operations {device_ms:.4f}")
+    return records, rows
 
 
 def _layer_ms(model, skeleton, pts, G, reps=5):
@@ -929,25 +1359,36 @@ def _layer_ms(model, skeleton, pts, G, reps=5):
     return med
 
 
-def phase_profile(marionette, n_windows=4):
+def _is_copy(name):
+    """A device operation that only moves or casts data: ATen's copy and
+    cast kernels, memcpys, cuDNN's NCDHW <-> NDHWC conversions."""
+    low = name.lower()
+    return ("copy" in low or "nchwtonhwc" in low or "nhwctonchw" in low
+            or "transpose" in low)
+
+
+def phase_profile(marionette, n_windows=4, conv_kernel=False):
     """Where a serving window's time goes, after every check has passed:
     the layer times of one window, then a bfloat16 stream of ``n_windows``
-    under ``torch.profiler``: the device's busy share (the union of its
-    kernel, copy and memset intervals over the wall time), its operations
-    per window, the kernels that take the most device time, and the device
-    time per call of the port's own kernels."""
+    (conv route off or on) under ``torch.profiler``: the device's busy
+    share (the union of its kernel, copy and memset intervals over the wall
+    time), its operations per window, the kernels that take the most device
+    time, the copies and layout conversions, and the device time per call
+    of the port's own kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neural_marionette_tpu_torch.models import SkeletonArrays
     cfg = marionette.cfg
-    stream = marionette.stream(dtype="bfloat16", sample_num=SAMPLE_NUM)
+    tag = "profile conv_kernel" if conv_kernel else "profile"
+    stream = marionette.stream(dtype="bfloat16", sample_num=SAMPLE_NUM,
+                               conv_kernel=conv_kernel)
     skeleton = SkeletonArrays.from_skeleton(marionette.extract_skeleton(),
                                             marionette.device)
     pts = torch.from_numpy(serving_points(SERVE_B, SERVE_T, SERVE_N,
                                           seed=51)).to(marionette.device)
     layers = _layer_ms(stream.model, skeleton, pts, cfg.grid_size)
-    log("[profile] layers: " + ", ".join(f"{k} {v:.2f} ms"
-                                         for k, v in layers.items()))
+    log(f"[{tag}] layers: " + ", ".join(f"{k} {v:.2f} ms"
+                                        for k, v in layers.items()))
     ws = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=200 + i)
           for i in range(n_windows)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -962,8 +1403,11 @@ def phase_profile(marionette, n_windows=4):
     n = n_windows
     # the port's own kernels, by the names of their __global__s in csrc/
     ours = {k: v for k, v in by_name.items()
-            if "voxelize_kernel" in k or "chamfer_" in k}
-    out = {"windows": n, "layers_ms": layers,
+            if any(p in k for p in PORT_KERNELS)}
+    copies = [v for k, v in by_name.items() if _is_copy(k)]
+    out = {"windows": n, "conv_kernel": conv_kernel, "layers_ms": layers,
+           "copy_ms_per_window": sum(us for us, _ in copies) / n / 1e3,
+           "copies_per_window": sum(c for _, c in copies) / n,
            "wall_ms_per_window": wall_us / n / 1e3,
            "device_busy_ms_per_window": busy_ms / n,
            "device_busy_share": share,
@@ -973,15 +1417,17 @@ def phase_profile(marionette, n_windows=4):
                              "device_ms_per_call": v[0] / v[1] / 1e3,
                              "calls_per_window": v[1] / n}
                             for k, v in ours.items()]}
-    log(f"[profile] {n} windows: wall {out['wall_ms_per_window']:.2f} ms, "
+    log(f"[{tag}] {n} windows: wall {out['wall_ms_per_window']:.2f} ms, "
         f"device busy {out['device_busy_ms_per_window']:.2f} ms per window "
         f"(share {out['device_busy_share']:.3f}), "
-        f"{out['device_ops_per_window']:.0f} device operations per window")
+        f"{out['device_ops_per_window']:.0f} device operations per window; "
+        f"copies and layout conversions {out['copy_ms_per_window']:.2f} ms, "
+        f"{out['copies_per_window']:.0f} per window")
     for k in out["port_kernels"]:
-        log(f"[profile] port kernel {k['device_ms_per_call']:.4f} ms per "
+        log(f"[{tag}] port kernel {k['device_ms_per_call']:.4f} ms per "
             f"call, {k['calls_per_window']:.1f} per window: {k['name']}")
     for k in out["top_kernels"]:
-        log(f"[profile] {k['ms_per_window']:8.3f} ms "
+        log(f"[{tag}] {k['ms_per_window']:8.3f} ms "
             f"{k['calls_per_window']:6.1f} per window: {k['name']}")
     return out
 
@@ -1001,7 +1447,9 @@ def main() -> int:
     from neural_marionette_tpu_torch import (MarionetteConfig, adjust_config,
                                              check_supported)
     from neural_marionette_tpu_torch.api import Marionette
+    from neural_marionette_tpu_torch.models import NeuralMarionette
     from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops.voxelize import voxelize
 
     # every float32 comparison runs in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1022,11 +1470,34 @@ def main() -> int:
     phase_k2(device, G, SERVE_B * SERVE_T, K)
     errs["chamfer_bwd"] = phase_k2_bwd(device, G, SERVE_B * SERVE_T, K)
 
+    # K3 and K4 at the conv route's shapes, on a routed model whose
+    # seeded weights give informative activations
+    routed = NeuralMarionette(cfg, dtype=torch.bfloat16, device=device,
+                              conv_kernel=True).eval()
+    _informative_weights(routed, seed=0)
+    vox = voxelize(torch.from_numpy(serving_points(
+        SERVE_B, SERVE_T, SERVE_N, seed=51)).to(device), G,
+        dtype=torch.bfloat16)
+    shapes, errs["conv3d"] = phase_k3(device, routed.kypt_detector, vox)
+    k4_launches, errs["fused_stage"], stages = phase_k4(
+        device, routed.kypt_detector, vox)
+    phase_route_window(cfg, device, routed, vox)
+    conv_records, conv_rows = phase_timing_conv(device, shapes, stages, errs)
+    del vox, stages, routed
+    torch.cuda.empty_cache()
+
     marionette = Marionette.from_config(cfg, seed=0, device=device)
     torch.cuda.reset_peak_memory_stats()
-    ms, k1, k2 = phase_stream(marionette, STREAM_WINDOWS)
+    ms, launches, results = phase_stream(marionette, STREAM_WINDOWS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {"voxelize": k1, "chamfer_fwd": k2}
+    launches.pop("conv3d")
+    torch.cuda.reset_peak_memory_stats()
+    ms_c, launches_c, results_c = phase_stream(marionette, STREAM_WINDOWS,
+                                               conv_kernel=True)
+    peak_c = torch.cuda.max_memory_allocated() / 2 ** 30
+    kp_diff, recon_diff = compare_streams(results_c, results)
+    del results, results_c
+    launches.update(conv3d=launches_c["conv3d"], fused_stage=k4_launches)
 
     # max_abs_err of K2 at the serving shape, bfloat16 occupancy
     from neural_marionette_tpu_torch.ops import voxelize as V
@@ -1042,22 +1513,34 @@ def main() -> int:
     train, det_launches = phase_train(cfg, device, card)
     launches["chamfer_bwd"] = det_launches["chamfer_bwd"]
     torch.cuda.empty_cache()
+    train["conv_kernel"] = phase_train_conv(cfg, device)
+    torch.cuda.empty_cache()
     phase_train_reference(cfg, seed=0, card_device=device)
     records = phase_timing(device, G, K, launches, errs)
+    for rec in conv_records:
+        rec["launches"] = launches[rec["name"]]
+    records += conv_records
     profile = phase_profile(marionette)
+    profile["conv_kernel"] = phase_profile(marionette, conv_kernel=True)
+    k3_dev = sum(k["device_ms_per_call"] * k["calls_per_window"]
+                 for k in profile["conv_kernel"]["port_kernels"]
+                 if "conv3d_kernel" in k["name"])
+    records[-2]["device_ms"] = k3_dev   # per window, from the profiler
 
-    steady = ms[1:-1]   # neither the set-up gap nor the flush (phase_stream)
-    stream = {"windows": STREAM_WINDOWS, "B": SERVE_B, "T": SERVE_T,
-              "N": SERVE_N, "dtype": "bfloat16", "sample_num": SAMPLE_NUM,
-              "mean_ms_per_window": float(steady.mean()),
-              "p50_ms_per_window": float(np.percentile(steady, 50)),
-              "gaps_ms": [float(x) for x in ms],
-              "peak_device_memory_gib": peak, "card": card}
-    log(f"[stream] steady windows: mean {stream['mean_ms_per_window']:.2f} "
-        f"ms, p50 {stream['p50_ms_per_window']:.2f} ms over {len(steady)}")
+    stream = stream_record(ms, STREAM_WINDOWS, peak, card)
+    stream_c = stream_record(ms_c, STREAM_WINDOWS, peak_c, card,
+                             conv3d_launches=launches["conv3d"],
+                             keypoints_max_abs_diff=kp_diff,
+                             kypt_recon_max_abs_diff=recon_diff)
+    for tag, st in (("stream", stream), ("stream conv_kernel", stream_c)):
+        log(f"[{tag}] steady windows: mean {st['mean_ms_per_window']:.2f} "
+            f"ms, p50 {st['p50_ms_per_window']:.2f} ms over "
+            f"{STREAM_WINDOWS - 2}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
+    print(json.dumps({"conv3d_shapes": conv_rows}))
     print(json.dumps({"stream": stream}))
+    print(json.dumps({"stream_conv_kernel": stream_c}))
     print(json.dumps({"profile": profile}))
     print(json.dumps({"train": train}))
     print(card)

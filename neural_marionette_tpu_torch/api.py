@@ -50,20 +50,23 @@ class Marionette:
     # ------------------------------------------------------------- loading
     @classmethod
     def from_config(cls, cfg: MarionetteConfig, seed: int = 0,
-                    device=None) -> "Marionette":
+                    device=None, conv_kernel: bool = False) -> "Marionette":
         """Random weights made from ``seed`` (the JAX package's initial
-        distributions; not its bits)."""
+        distributions; not its bits). ``conv_kernel`` routes the eligible
+        bfloat16 convs through kernel K3 (the JAX package's
+        ``NM_PALLAS_CONV=1``); it applies to bfloat16 models and streams."""
         dev = resolve_device(device)
-        model = NeuralMarionette(cfg, device=dev)
+        model = NeuralMarionette(cfg, device=dev, conv_kernel=conv_kernel)
         init_weights(model, torch.Generator().manual_seed(seed))
         return cls(cfg, model, dev)
 
     @classmethod
     def from_jax_params(cls, cfg: MarionetteConfig, params,
-                        device=None) -> "Marionette":
+                        device=None, conv_kernel: bool = False
+                        ) -> "Marionette":
         """Weights carried from the JAX package's ``{"params": ...}`` tree."""
         dev = resolve_device(device)
-        model = NeuralMarionette(cfg, device=dev)
+        model = NeuralMarionette(cfg, device=dev, conv_kernel=conv_kernel)
         model.load_state_dict(state_dict_from_jax(params), strict=True)
         return cls(cfg, model, dev)
 
@@ -116,10 +119,11 @@ class Marionette:
     def stream(self, dtype: str = "bfloat16", sample_num: int = 10,
                seed: int = 2,
                outputs: Sequence[str] = ("keypoints", "kypt_recon", "R"),
-               ) -> "MarionetteStream":
+               conv_kernel: Optional[bool] = None) -> "MarionetteStream":
         """Streaming serving session (see :class:`MarionetteStream`)."""
         return MarionetteStream(self, dtype=dtype, sample_num=sample_num,
-                                seed=seed, outputs=outputs)
+                                seed=seed, outputs=outputs,
+                                conv_kernel=conv_kernel)
 
 
 class MarionetteStream:
@@ -137,11 +141,15 @@ class MarionetteStream:
     ``outputs`` names the keys of ``NeuralMarionette.encode_only`` to
     return (e.g. ``recon`` or a loss scalar); all of them are computed
     every window. Loss scalars cover the padded batch rows too.
+
+    ``conv_kernel`` (default: the marionette's model's) routes the eligible
+    bfloat16 convs through kernel K3, the JAX package's ``NM_PALLAS_CONV=1``.
     """
 
     def __init__(self, marionette: Marionette, dtype: str = "bfloat16",
                  sample_num: int = 10, seed: int = 2,
-                 outputs: Sequence[str] = ("keypoints", "kypt_recon", "R")):
+                 outputs: Sequence[str] = ("keypoints", "kypt_recon", "R"),
+                 conv_kernel: Optional[bool] = None):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self.marionette = marionette
@@ -151,12 +159,16 @@ class MarionetteStream:
         self.sample_num = sample_num
         self.seed = seed
         self.outputs = tuple(outputs)
-        if self.dtype == marionette.model.dtype:
-            self.model = marionette.model
+        base = marionette.model
+        if conv_kernel is None:
+            conv_kernel = base.conv_kernel
+        if (self.dtype, conv_kernel) == (base.dtype, base.conv_kernel):
+            self.model = base
         else:
-            # same weights (float32), another compute dtype
+            # same weights (float32), another compute dtype or conv route
             self.model = NeuralMarionette(self.cfg, dtype=self.dtype,
-                                          device=self.device).eval()
+                                          device=self.device,
+                                          conv_kernel=conv_kernel).eval()
             self.model.load_state_dict(marionette.model.state_dict())
         self._sk: Optional[SkeletonArrays] = None
         self._pending = None  # (device outputs, true B) of the window in flight

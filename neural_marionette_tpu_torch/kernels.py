@@ -25,13 +25,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("voxelize", "chamfer")
+SOURCES = ("voxelize", "chamfer", "conv3d")
 
 # No --use_fast_math: the voxelizer depends on true IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of each library: argument types (every one returns int)
 _SIGNATURES = {
     "voxelize": {
@@ -44,6 +44,12 @@ _SIGNATURES = {
         "nm_chamfer_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "nm_chamfer_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _P],
+    },
+    "conv3d": {
+        "nm_conv3d_tile_m": [],
+        "nm_conv3d_tile_k": [],
+        "nm_conv3d": [_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_L] * 10
+                     + [_I, _I, _I, _I, _P],
     },
 }
 

@@ -13,12 +13,18 @@ Counterpart of ``neural_marionette_tpu/models/blocks.py`` (the reference's
   (upstream ``F.leaky_relu(x, True)`` sets slope 1.0);
 * :class:`Upsample3DBlock` pads with ``output_padding`` before its
   block-level bias, which is added in float32.
+
+With ``conv_kernel=True`` (the counterpart of the JAX package's
+``NM_PALLAS_CONV=1``) every conv that :func:`routes_to_kernel` accepts goes
+through kernel K3 (``ops/conv3d``) instead of ``F.conv3d``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops import conv3d as K3
 
 LEAKY_SLOPE = 0.01
 
@@ -35,8 +41,30 @@ def group_norm(C: int, device=None) -> nn.GroupNorm:
     return nn.GroupNorm(num_groups(C), C, eps=1e-5, device=device)
 
 
-def conv(m: nn.Conv3d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``m``'s convolution with input, weight and bias in ``dtype``."""
+def routes_to_kernel(m: nn.Conv3d, dtype: torch.dtype) -> bool:
+    """The conv route's predicate: the JAX package's
+    ``_pallas_conv_applicable`` (``models/blocks.py`` there) without its
+    backend test. A cubic odd kernel of 3 or more, stride 1, SAME padding,
+    a bias, bfloat16 compute and at least 32 input channels."""
+    k = m.kernel_size
+    return (dtype == torch.bfloat16 and m.in_channels >= 32
+            and len(set(k)) == 1 and k[0] % 2 == 1 and k[0] >= 3
+            and m.stride == (1, 1, 1) and m.padding == (k[0] // 2,) * 3
+            and m.dilation == (1, 1, 1) and m.groups == 1
+            and m.padding_mode == "zeros" and m.bias is not None)
+
+
+def conv(m: nn.Conv3d, x: torch.Tensor, dtype: torch.dtype,
+         kernel: bool = False) -> torch.Tensor:
+    """``m``'s convolution with input, weight and bias in ``dtype``; with
+    ``kernel``, through kernel K3 where :func:`routes_to_kernel` allows. The
+    kernel takes the NCDHW activation as a logical NDHWC view and returns
+    NCDHW memory, so the route adds no layout copy."""
+    if kernel and routes_to_kernel(m, dtype):
+        y = K3.conv3d(x.to(dtype).permute(0, 2, 3, 4, 1),
+                      m.weight.to(dtype).permute(2, 3, 4, 1, 0),
+                      m.bias.to(dtype))
+        return y.permute(0, 4, 1, 2, 3)
     b = None if m.bias is None else m.bias.to(dtype)
     return F.conv3d(x.to(dtype), m.weight.to(dtype), b, m.stride, m.padding)
 
@@ -50,9 +78,10 @@ class Basic3DBlock(nn.Module):
     """Conv3d(k, same) -> GroupNorm -> LeakyReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, conv_kernel: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.conv_kernel = conv_kernel
         self.block = nn.Sequential(
             nn.Conv3d(in_ch, out_ch, kernel_size, padding=kernel_size // 2,
                       device=device),
@@ -61,7 +90,8 @@ class Basic3DBlock(nn.Module):
 
     def forward(self, x):
         return leaky_relu(norm(self.block[1], conv(self.block[0], x,
-                                                   self.dtype)))
+                                                   self.dtype,
+                                                   self.conv_kernel)))
 
 
 class Res3DBlock(nn.Module):
@@ -69,9 +99,10 @@ class Res3DBlock(nn.Module):
     changes; identity output activation."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32,
-                 device=None):
+                 device=None, conv_kernel: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.conv_kernel = conv_kernel
         self.res_branch = nn.Sequential(
             nn.Conv3d(in_ch, out_ch, 3, padding=1, device=device),
             group_norm(out_ch, device),
@@ -86,9 +117,9 @@ class Res3DBlock(nn.Module):
                 group_norm(out_ch, device))
 
     def forward(self, x):
-        r = self.res_branch
-        res = leaky_relu(norm(r[1], conv(r[0], x, self.dtype)))
-        res = norm(r[4], conv(r[3], res, self.dtype))
+        r, ck = self.res_branch, self.conv_kernel
+        res = leaky_relu(norm(r[1], conv(r[0], x, self.dtype, ck)))
+        res = norm(r[4], conv(r[3], res, self.dtype, ck))
         if len(self.skip_con) == 0:
             skip = x
         else:
@@ -145,24 +176,25 @@ class Hourglass(nn.Module):
     ``output_padding`` on grids that are not powers of two."""
 
     def __init__(self, in_ch: int, out_ch: int, N: int, dtype=torch.float32,
-                 device=None):
+                 device=None, conv_kernel: bool = False):
         super().__init__()
         pad = [(N // 4) % 2, (N // 2) % 2, N % 2]
         kw = dict(dtype=dtype, device=device)
-        self.skip_res1 = Res3DBlock(in_ch, out_ch, **kw)
+        rk = dict(kw, conv_kernel=conv_kernel)
+        self.skip_res1 = Res3DBlock(in_ch, out_ch, **rk)
         self.encoder_pool1 = Pool3DBlock(in_ch, 2, **kw)
-        self.encoder_res1 = Res3DBlock(in_ch, 32, **kw)
-        self.skip_res2 = Res3DBlock(32, 32, **kw)
+        self.encoder_res1 = Res3DBlock(in_ch, 32, **rk)
+        self.skip_res2 = Res3DBlock(32, 32, **rk)
         self.encoder_pool2 = Pool3DBlock(32, 2, **kw)
-        self.encoder_res2 = Res3DBlock(32, 48, **kw)
-        self.skip_res3 = Res3DBlock(48, 48, **kw)
+        self.encoder_res2 = Res3DBlock(32, 48, **rk)
+        self.skip_res3 = Res3DBlock(48, 48, **rk)
         self.encoder_pool3 = Pool3DBlock(48, 2, **kw)
-        self.encoder_res3 = Res3DBlock(48, 72, **kw)
-        self.decoder_res3 = Res3DBlock(72, 72, **kw)
+        self.encoder_res3 = Res3DBlock(48, 72, **rk)
+        self.decoder_res3 = Res3DBlock(72, 72, **rk)
         self.decoder_upsample3 = Upsample3DBlock(72, 48, pad[0], **kw)
-        self.decoder_res2 = Res3DBlock(48, 48, **kw)
+        self.decoder_res2 = Res3DBlock(48, 48, **rk)
         self.decoder_upsample2 = Upsample3DBlock(48, 32, pad[1], **kw)
-        self.decoder_res1 = Res3DBlock(32, 32, **kw)
+        self.decoder_res1 = Res3DBlock(32, 32, **rk)
         self.decoder_upsample1 = Upsample3DBlock(32, out_ch, pad[2], **kw)
 
     def forward(self, x):

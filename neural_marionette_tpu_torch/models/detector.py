@@ -33,18 +33,20 @@ def _channels_last_vox(seq: torch.Tensor) -> torch.Tensor:
     return seq.reshape(seq.shape[0], 1, *seq.shape[1:4])
 
 
-def feature_net(C: int, grid_size: int, dtype, device) -> nn.Sequential:
+def feature_net(C: int, grid_size: int, dtype, device,
+                conv_kernel: bool = False) -> nn.Sequential:
     """Voxels + 3 coordinate channels -> features at grid/4 (reference
     ``_build_feature_net``): Basic(k5, C/4) -> Pool/2 -> Res(C/2) -> Pool/2
     -> HG(C/2) -> Res(C)."""
     kw = dict(dtype=dtype, device=device)
+    rk = dict(kw, conv_kernel=conv_kernel)
     return nn.Sequential(
-        Basic3DBlock(1 + 3, C // 4, 5, **kw),
+        Basic3DBlock(1 + 3, C // 4, 5, **rk),
         Pool3DBlock(C // 4, 2, **kw),
-        Res3DBlock(C // 4, C // 2, **kw),
+        Res3DBlock(C // 4, C // 2, **rk),
         Pool3DBlock(C // 2, 2, **kw),
-        Hourglass(C // 2, C // 2, grid_size // 4, **kw),
-        Res3DBlock(C // 2, C, **kw))
+        Hourglass(C // 2, C // 2, grid_size // 4, **rk),
+        Res3DBlock(C // 2, C, **rk))
 
 
 def heatmap_head(C: int, K: int, device) -> nn.Sequential:
@@ -59,16 +61,17 @@ class VoxToKyptNet(nn.Module):
     fused with each frame's heatmap by a 1x1 conv + softplus."""
 
     def __init__(self, cfg: MarionetteConfig, dtype=torch.float32,
-                 device=None):
+                 device=None, conv_kernel: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.heat_grid = cfg.grid_size // 4
         C, K = cfg.feat_dim, cfg.nkeypoints
-        self.extract_features = feature_net(C, cfg.grid_size, dtype, device)
+        self.extract_features = feature_net(C, cfg.grid_size, dtype, device,
+                                            conv_kernel)
         self.extract_heatmaps_from_features = heatmap_head(C, K, device)
         self.extract_spatio_temporal_features = feature_net(
-            2 * C, cfg.grid_size, dtype, device)
+            2 * C, cfg.grid_size, dtype, device, conv_kernel)
         self.extract_spatio_temporal_heatmaps_from_features = heatmap_head(
             2 * C, K, device)
         self.propagate_heatmaps = nn.Sequential(
@@ -122,10 +125,11 @@ class KyptToVoxNet(nn.Module):
     LeakyReLU stages) and the first-frame-biased sharpened sigmoid."""
 
     def __init__(self, cfg: MarionetteConfig, dtype=torch.float32,
-                 device=None):
+                 device=None, conv_kernel: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.conv_kernel = conv_kernel
         C, K = cfg.feat_dim, cfg.nkeypoints
         self.adjust_combined_representation = nn.Sequential(
             nn.Conv3d(2 * K + C + 3, C, 1, device=device),
@@ -150,13 +154,13 @@ class KyptToVoxNet(nn.Module):
 
     def _decode(self, x):
         d = self.decode_voxel_from_combined_representation
-        dt = self.dtype
+        dt, ck = self.dtype, self.conv_kernel
         x = upsample2_trilinear_first(x)
-        x = leaky_relu(norm(d[2], conv(d[1], x, dt)))
-        x = leaky_relu(norm(d[5], conv(d[4], x, dt)))
+        x = leaky_relu(norm(d[2], conv(d[1], x, dt, ck)))
+        x = leaky_relu(norm(d[5], conv(d[4], x, dt, ck)))
         x = upsample2_trilinear_first(x)
-        x = leaky_relu(norm(d[9], conv(d[8], x, dt)))
-        x = leaky_relu(norm(d[12], conv(d[11], x, dt)))
+        x = leaky_relu(norm(d[9], conv(d[8], x, dt, ck)))
+        x = leaky_relu(norm(d[12], conv(d[11], x, dt, ck)))
         return conv(d[14], x, dt)
 
     def forward(self, gaussians, first_feature, first_frame,
@@ -182,13 +186,13 @@ class KyptDetector(nn.Module):
     """Encoder + decoder + learned affinity graph (ver 3) + detector losses."""
 
     def __init__(self, cfg: MarionetteConfig, dtype=torch.float32,
-                 device=None):
+                 device=None, conv_kernel: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
-        self.vox_to_kypt = VoxToKyptNet(cfg, dtype, device)
-        self.kypt_to_vox = KyptToVoxNet(cfg, dtype, device)
+        self.vox_to_kypt = VoxToKyptNet(cfg, dtype, device, conv_kernel)
+        self.kypt_to_vox = KyptToVoxNet(cfg, dtype, device, conv_kernel)
         K, n = cfg.nkeypoints, cfg.nneighbor
         self.affinity_params = nn.Parameter(
             torch.ones((n, K, K - 1), device=device))

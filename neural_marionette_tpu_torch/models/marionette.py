@@ -18,12 +18,17 @@ from .dynamics import HSVRNNBVH, SkeletonArrays
 
 
 class NeuralMarionette(nn.Module):
+    """``conv_kernel=True`` routes the detector's eligible convs through
+    kernel K3 (``models/blocks.routes_to_kernel``): the counterpart of the
+    JAX package's ``NM_PALLAS_CONV=1``. It adds no parameter."""
+
     def __init__(self, cfg: MarionetteConfig, dtype=torch.float32,
-                 device=None):
+                 device=None, conv_kernel: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.kypt_detector = KyptDetector(cfg, dtype, device)
+        self.conv_kernel = conv_kernel
+        self.kypt_detector = KyptDetector(cfg, dtype, device, conv_kernel)
         self.dyna_module = HSVRNNBVH(cfg, device)
 
     def forward(self, vox_seq, detector_active: bool = True,

@@ -48,14 +48,19 @@ class Trainer:
     def __init__(self, cfg: MarionetteConfig, device=None,
                  dtype: str = "bfloat16",
                  model: Optional[NeuralMarionette] = None,
-                 logger_path: Optional[str] = None):
+                 logger_path: Optional[str] = None,
+                 conv_kernel: bool = False):
+        """``conv_kernel`` routes the eligible bfloat16 convs of the model it
+        builds through kernel K3 (the JAX package's ``NM_PALLAS_CONV=1``);
+        a ``model`` passed in keeps its own route."""
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is None:
             model = NeuralMarionette(cfg, dtype=_DTYPES[dtype],
-                                     device=self.device)
+                                     device=self.device,
+                                     conv_kernel=conv_kernel)
             init_weights(model, torch.Generator().manual_seed(cfg.seed))
         self.model = model
         self.sched = LossScheduler(cfg)
