@@ -25,8 +25,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bfloat16, plus float32-x, channels-last and z-asymmetric cases, bitwise
    repeatable; K4 (fused conv + GroupNorm + LeakyReLU stage) on the
    decoder's two 64^3 stage inputs against its plain version and the
-   model's own stages, bitwise repeatable; one window through the routed
-   detector against the route off; then K3 and K4 timed (see 12);
+   model's own stages, bitwise repeatable, and its passes one by one: pass
+   1's per-brick moment partials against their plain layout, pass 2's
+   kernel (``csrc/groupnorm.cu``) against ``_normalize`` within one ulp;
+   one window through the routed detector against the route off; then K3
+   (per shape: TFLOP/s and share of its bound, beside cuDNN) and K4 (pass
+   1, reduce and pass 2 apart) timed (see 12);
 7. the serving path at the full AIST width with weights from a seed: a
    bfloat16 stream of (4, 10, 4096, 3) windows, outputs finite and of the
    expected shapes, and the launch counters showing K1 and K2 on every
@@ -48,7 +52,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
     the CPU: metrics, gradients and updated parameters within stated
     tolerances;
 12. each kernel's time against its plain version, a PyTorch library call
-    and its bound, at the serving and training paths' shapes;
+    and its bound, at the serving and training paths' shapes (K1's
+    yardstick does K1's work: zero a grid, then one ``index_put_`` of
+    indices computed beforehand; no one call computes K1's function);
 13. where a serving window's time goes, route off and on: per-layer times
     of one window and, under ``torch.profiler``, the device's busy share,
     its copies and its top kernels.
@@ -82,7 +88,8 @@ SERVE_B, SERVE_T, SERVE_N = 4, 10, 4096
 STREAM_WINDOWS = 16
 SAMPLE_NUM = 10
 ROUTED_CONVS = 48   # convs per detector forward on the conv route, AIST
-PORT_KERNELS = ("voxelize_kernel", "chamfer_", "conv3d_kernel")
+PORT_KERNELS = ("voxelize_kernel", "chamfer_", "conv3d_kernel",
+                "groupnorm_act")
 
 
 def log(*a):
@@ -399,11 +406,11 @@ def routed_conv_inputs(det, vox, keep=None):
     seen, kept = collections.Counter(), []
     original = K3.conv3d
 
-    def recording(x, w, b):
+    def recording(x, w, b, packed=None):
         seen[(tuple(x.shape), tuple(w.shape))] += 1
         if keep is not None and keep(x, w):
             kept.append(x)
-        return original(x, w, b)
+        return original(x, w, b, packed)
 
     K3.conv3d = recording
     try:
@@ -509,8 +516,9 @@ def phase_k4(device, det, vox):
     output, LeakyReLU, float32 out): max abs err within 2^-6 of the largest
     |reference| (a bf16 rounding of the conv output, carried by the
     GroupNorm's gain of about 1, and one of the output, at the scale of the
-    unit-variance output), and two launches equal to the bit. Returns
-    (launches in the entry run, max abs err against the plain version)."""
+    unit-variance output), and two launches equal to the bit; then each
+    pass alone (``check_k4_passes``). Returns (launches in the entry run,
+    max abs err against the plain version, the stages' inputs)."""
     import torch
     from neural_marionette_tpu_torch.models.blocks import (conv, leaky_relu,
                                                            norm)
@@ -522,13 +530,14 @@ def phase_k4(device, det, vox):
         w = d[ci].weight.detach().to(torch.bfloat16).permute(2, 3, 4, 1, 0)
         stages.append((x, w, d[ci].bias.detach(), d[gi].weight.detach(),
                        d[gi].bias.detach(), d[ci], d[gi]))
-    K4.launches = 0
+    K4.launches = K4.pass2_launches = 0
     with torch.inference_mode():
         outs = [K4.fused_stage(*s[:5]) for s in stages]
     torch.cuda.synchronize()
-    launches = K4.launches
-    if launches != 2:
-        raise AssertionError(f"K4 entry run launches {launches}, want 2")
+    launches, pass2 = K4.launches, K4.pass2_launches
+    if launches != 2 or pass2 != 2:
+        raise AssertionError(f"K4 entry run launches {launches}, pass 2 "
+                             f"{pass2}, want 2 and 2")
     worst = 0.0
     with torch.inference_mode():
         for i, ((x, w, b, sc, bi, cm, gm), a) in enumerate(zip(stages, outs)):
@@ -552,8 +561,63 @@ def phase_k4(device, det, vox):
                 log(f"[K4] stage {i + 2} {tuple(x.shape)}->{w.shape[-1]} vs "
                     f"{name}: max abs err {err:.3e} (max |ref| {top:.3e})")
             del p, model
-    log(f"[K4] entry run: {launches} launches; bitwise repeatable")
+    log(f"[K4] entry run: {launches} launches, the pass-2 kernel {pass2}; "
+        f"bitwise repeatable")
+    with torch.inference_mode():
+        for i, (x, w, b, sc, bi, _, _) in enumerate(stages):
+            check_k4_passes(x, w, b, sc, bi, f"stage {i + 2}")
     return launches, worst, stages
+
+
+def check_k4_passes(x, w, b, sc, bi, tag):
+    """K4's passes one by one on the card. Pass 1's moment partials against
+    ``brick_partials_plain`` of the plain float32 conv: within 1e-4 of the
+    brick's sum of |y| (and of y^2) — both sum the same voxels' float32
+    values in other orders, so a partial of another brick or a lost voxel
+    shows as an error of order 1. Pass 2 (``csrc/groupnorm.cu``) against
+    its plain version ``_normalize`` on the same stored y and partials:
+    within one ulp of x's dtype (both round ((y - mean) * inv) * scale +
+    bias step by step in float32 and LeakyReLU once to x's dtype; the
+    mean and inv are the same tensors), and two launches equal to the
+    bit."""
+    import torch
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    from neural_marionette_tpu_torch.ops import fusedstage as K4
+    y, part = K3._launch(x, w, b, stats=True)
+    yf = K3._conv_f32(x, w, b)
+    want = K3.brick_partials_plain(yf)
+    scale = K3.brick_partials_plain(yf.abs())[:, :, :1]
+    del yf
+    scale = torch.cat((scale, want[:, :, 1:]), dim=2)
+    perr = float(((part - want).abs() / scale.clamp(min=1e-30)).max())
+    if part.shape != want.shape or not perr <= 1e-4:
+        raise AssertionError(f"K4 {tag} pass 1 partials {tuple(part.shape)} "
+                             f"vs {tuple(want.shape)}: max error {perr:.3e} "
+                             f"of the brick's sums")
+    Fr, D, H, W, C = y.shape
+    ng = max(C // 16, 1)
+    tot = part.sum(dim=1)
+    mean, inv = K4.group_stats(tot[:, 0], tot[:, 1], ng,
+                               float(D * H * W * (C // ng)), 1e-5)
+    a = K4.normalize(y, mean, inv, sc, bi)
+    a2 = K4.normalize(y, mean, inv, sc, bi)
+    p = K4._normalize(y, tot[:, 0], tot[:, 1], sc, bi, ng, 1e-5)
+    torch.cuda.synchronize()
+    if not torch.equal(a, a2):
+        raise AssertionError(f"K4 {tag} pass 2: two runs differ")
+    af, pf = a.float(), p.float()
+    err = (af - pf).abs()
+    ulp = bf16_ulp(torch.maximum(af.abs(), pf.abs())) if a.dtype == \
+        torch.bfloat16 else torch.maximum(af.abs(), pf.abs()) * 2.0 ** -23
+    if a.dtype != x.dtype or a.stride() != y.stride() or \
+            not bool((err <= ulp).all()):
+        raise AssertionError(f"K4 {tag} pass 2 vs _normalize: max abs err "
+                             f"{float(err.max()):.3e}, {a.dtype}, strides "
+                             f"{a.stride()}")
+    log(f"[K4] {tag} pass 1 partials {tuple(part.shape)}: max error "
+        f"{perr:.2e} of the brick's sums; pass 2 vs _normalize: max abs err "
+        f"{float(err.max()):.3e} ({int((a != p).sum())} of {a.numel()} "
+        f"differ), bitwise repeatable")
 
 
 def _window_outputs(cfg, B, T):
@@ -1071,6 +1135,8 @@ def phase_timing(device, G, K, launches, errs):
     """Kernel, plain and library times at the serving shapes; returns the
     ``kernels`` records."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from neural_marionette_tpu_torch.ops import losses as L
     from neural_marionette_tpu_torch.ops import voxelize as V
     from neural_marionette_tpu_torch.ops.coords import coord_maps
@@ -1086,8 +1152,29 @@ def phase_timing(device, G, K, launches, errs):
     idx = idx.long()
     lin = (torch.arange(F, device=device)[:, None] * G ** 3
            + (idx[..., 0] * G + idx[..., 1]) * G + idx[..., 2])[ok]
-    grid = torch.zeros(F * G ** 3, dtype=torch.bfloat16, device=device)
     one = torch.ones((), dtype=torch.bfloat16, device=device)
+
+    # No one PyTorch call computes K1's function from the points. The
+    # yardstick does the same work as K1's call, with the indices
+    # precomputed (above, untimed): allocate and zero the grid, then one
+    # index_put_ of ones.
+    def library_k1():
+        grid = torch.zeros(F * G ** 3, dtype=torch.bfloat16, device=device)
+        return grid.index_put_((lin,), one)
+
+    # K1's device time per call, the zero fill included, from the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            V.voxelize(pts, G, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k1_device = sum(e.time_range.elapsed_us() for e in dev) / 10e3
+    k1_kernel = sum(e.time_range.elapsed_us() for e in dev
+                    if "voxelize_kernel" in e.name) / 10e3
+    log(f"[time] voxelize device ms per call: {k1_device:.4f} (zero fill "
+        f"{k1_device - k1_kernel:.4f}, kernel {k1_kernel:.4f})")
     k1_bytes = pts.numel() * 4 + F * G ** 3 * 2
     k1_ops = F * SERVE_N * 3 * 3     # add, divide, floor per coordinate
     records.append(_record(
@@ -1096,8 +1183,10 @@ def phase_timing(device, G, K, launches, errs):
         launches["voxelize"], errs["voxelize"],
         cuda_ms(lambda: V.voxelize(pts, G, dtype=torch.bfloat16)),
         cuda_ms(lambda: V.voxelize_plain(pts, G, dtype=torch.bfloat16)),
-        cuda_ms(lambda: grid.index_put_((lin,), one)),
-        k1_bytes, [(k1_ops, PEAK_FP32_OPS_PER_S)]))
+        cuda_ms(library_k1),
+        k1_bytes, [(k1_ops, PEAK_FP32_OPS_PER_S)], device_ms=k1_device,
+        device_ms_kernel=k1_kernel,
+        library="torch.zeros + index_put_ of precomputed indices"))
 
     # K2: kp (40, 24, 3) float32, occupancy (40, 64^3) bfloat16 -> (40,)
     occ = V.voxelize(pts, G, dtype=torch.bfloat16).reshape(F, G ** 3)
@@ -1250,22 +1339,31 @@ def phase_timing_conv(device, shapes, stages, errs):
         bb = b.to(torch.bfloat16)
         n_bytes, ops = _k3_work(xs, cout)
         big = ops[0][0] > 1e11
+        K3.packed_operands(w, b)    # packed once, as the route does
+
+        def route_call():
+            return K3.conv3d(x, w, b, packed=K3.packed_operands(w, b))
+
         row = {"x": list(xs), "cout": cout, "calls_per_window": calls,
-               "ms": cuda_ms(lambda: K3.conv3d(x, w, b), iters=5 if big else 20),
+               "ms": cuda_ms(route_call, iters=5 if big else 20),
                "plain_ms": cuda_ms(lambda: K3.conv3d_plain(x, w, b), iters=3,
                                    warmup=1),
                "library_ms": cuda_ms(lambda: Fn.conv3d(xc, wc, bb, padding=1),
                                      iters=5 if big else 20),
                "bound_ms": max(_bound_ms(n_bytes, ops))}
         row["tflops"] = ops[0][0] / row["ms"] / 1e9
+        row["library_tflops"] = ops[0][0] / row["library_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             tot[k] += calls * row[k]
         tot["bytes"] += calls * n_bytes
         tot["ops"] += calls * ops[0][0]
         log(f"[time] conv3d {xs}->{cout} x{calls}: kernel {row['ms']:.4f} ms "
-            f"({row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.3f} ms, "
-            f"cuDNN {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+            f"({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f} % "
+            f"of its bound), plain {row['plain_ms']:.3f} ms, cuDNN "
+            f"{row['library_ms']:.4f} ms ({row['library_tflops']:.1f} "
+            f"TFLOP/s), bound {row['bound_ms']:.4f} ms")
         del x, xc
     # K3's record: the sums over the routed convs of one window
     records = [_record(
@@ -1307,6 +1405,8 @@ def phase_timing_conv(device, shapes, stages, errs):
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     pass1 = sum(e.time_range.elapsed_us() for e in dev
                 if "conv3d_kernel" in e.name) / 3e3
+    pass2 = sum(e.time_range.elapsed_us() for e in dev
+                if "groupnorm_act" in e.name) / 3e3
     device_ms = sum(e.time_range.elapsed_us() for e in dev) / 3e3
     vox = Fr * D * H * W
     n_bytes, ops = _k3_work((Fr, D, H, W, Cin), cout)
@@ -1317,9 +1417,15 @@ def phase_timing_conv(device, shapes, stages, errs):
         "neural_marionette_tpu/ops/pallas/fusedstage_kernel.py:117",
         None, errs["fused_stage"], ms, plain_ms,
         library_ms, n_bytes, ops, device_ms=device_ms,
-        device_ms_pass1=pass1))
-    log(f"[time] fused_stage device ms: pass 1 {pass1:.4f}, all its device "
-        f"operations {device_ms:.4f}")
+        device_ms_pass1=pass1, device_ms_pass2=pass2,
+        device_ms_reduce=device_ms - pass1 - pass2,
+        source_pass2="neural_marionette_tpu_torch/csrc/groupnorm.cu",
+        pass2_bound_ms=2 * vox * cout * x.element_size() / PEAK_BYTES_PER_S
+        * 1e3))
+    log(f"[time] fused_stage device ms: pass 1 {pass1:.4f}, reduce "
+        f"{device_ms - pass1 - pass2:.4f}, pass 2 {pass2:.4f} (bound "
+        f"{records[-1]['pass2_bound_ms']:.4f}), all its device operations "
+        f"{device_ms:.4f}")
     return records, rows
 
 

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("voxelize", "chamfer", "conv3d")
+SOURCES = ("voxelize", "chamfer", "conv3d", "groupnorm")
 
 # No --use_fast_math: the voxelizer depends on true IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,10 +46,15 @@ _SIGNATURES = {
                            _I, _P],
     },
     "conv3d": {
-        "nm_conv3d_tile_m": [],
-        "nm_conv3d_tile_k": [],
-        "nm_conv3d": [_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_L] * 10
-                     + [_I, _I, _I, _I, _P],
+        "nm_conv3d_chunk": [],
+        "nm_conv3d_brick_z": [_I],
+        "nm_conv3d_brick_x": [_I],
+        "nm_conv3d": [_P, _P, _P, _P, _I, _P] + [_I] * 7 + [_L] * 10
+                     + [_I, _I, _I, _P],
+    },
+    "groupnorm": {
+        "nm_groupnorm_act": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 5
+                            + [_L] * 10 + [_I, _P],
     },
 }
 

@@ -59,11 +59,19 @@ def conv(m: nn.Conv3d, x: torch.Tensor, dtype: torch.dtype,
     """``m``'s convolution with input, weight and bias in ``dtype``; with
     ``kernel``, through kernel K3 where :func:`routes_to_kernel` allows. The
     kernel takes the NCDHW activation as a logical NDHWC view and returns
-    NCDHW memory, so the route adds no layout copy."""
+    NCDHW memory, so the route adds no layout copy. On a card it reads the
+    weight packed once per parameter version (``K3.packed_operands``); where
+    no gradient is wanted the casts of w and b are skipped too, since the
+    kernel and the plain version round them to bfloat16 themselves."""
     if kernel and routes_to_kernel(m, dtype):
+        w, b = m.weight, m.bias
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                        or b.requires_grad):
+            w, b = w.to(dtype), b.to(dtype)
+        packed = K3.packed_operands(m.weight, m.bias, channels_first=True) \
+            if x.is_cuda else None
         y = K3.conv3d(x.to(dtype).permute(0, 2, 3, 4, 1),
-                      m.weight.to(dtype).permute(2, 3, 4, 1, 0),
-                      m.bias.to(dtype))
+                      w.permute(2, 3, 4, 1, 0), b, packed=packed)
         return y.permute(0, 4, 1, 2, 3)
     b = None if m.bias is None else m.bias.to(dtype)
     return F.conv3d(x.to(dtype), m.weight.to(dtype), b, m.stride, m.padding)
