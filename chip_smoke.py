@@ -13,13 +13,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    shape (4, 10, 4096, 3), G=64, and on the edge cases (out of range on each
    axis, duplicates, ragged N, cell boundaries): occupancy exactly equal;
 4. K2 (chamfer numerator, forward) against its plain version on the card at
-   M=40, K=24, G=64, occupancy float32 and bfloat16: rtol 1e-5, and two
-   kernel runs equal to the bit;
+   M=40, K=24, G=64, occupancy float32 and bfloat16, then on edge frames
+   (empty, occupied inside one tile, full, sparse) at G=64 and G=5 for K =
+   1, 24 and 64: rtol 1e-5, two kernel runs equal to the bit, an empty
+   frame exactly 0, and on G=5 the kernel, the plain version on the card
+   and on the CPU equal to the bit;
 5. K2 backward against its plain version on the card at M=40, K=24, G=64,
    occupancy float32 and bfloat16, with and without the occupancy
-   gradient: dkp rtol 1e-5 / atol 1e-4, docc atol 4e-6 max|g|, bitwise
-   repeatable; and a G=5 case of exact ties and relu at exactly 0, equal on
-   the card and on the CPU;
+   gradient, and on the same edge frames: dkp rtol 1e-5 plus 2e-5 of its
+   terms' magnitude, docc atol 4e-6 max|g|, bitwise repeatable, dkp equal
+   with and without docc; and a G=5 case of exact ties and relu at exactly
+   0, equal on the card and on the CPU;
 6. K3 (conv3d) against its plain version on the card at every distinct
    conv shape of the conv route (``conv_kernel=True``) in an AIST window,
    bfloat16, plus float32-x, channels-last and z-asymmetric cases, bitwise
@@ -54,7 +58,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 12. each kernel's time against its plain version, a PyTorch library call
     and its bound, at the serving and training paths' shapes (K1's
     yardstick does K1's work: zero a grid, then one ``index_put_`` of
-    indices computed beforehand; no one call computes K1's function);
+    indices computed beforehand; no one call computes K1's function); K2
+    also with its device time per kernel, its occupied voxels, and its
+    times on a 30 % and a fully occupied grid (``k2_times``);
 13. where a serving window's time goes, route off and on: per-layer times
     of one window and, under ``torch.profiler``, the device's busy share,
     its copies and its top kernels.
@@ -229,11 +235,62 @@ def phase_k1(device, G):
     return worst
 
 
-def phase_k2(device, G, M, K):
-    """K2 forward against its plain version: rtol 1e-5 (float32 sums of up
-    to G^3 terms in different orders), and two kernel runs equal to the
-    bit."""
+def k2_edge_frames(G, tile, seed):
+    """(4, G^3) float32 occupancy of K2's edge frames: empty; occupied (at
+    about 30 %) only inside one tile of the kernel (``tile`` voxels, the
+    last whole one); fully occupied; about 5 % occupied at random. At G=5
+    (one ragged tile) the second frame is 60 % at random."""
+    g = np.random.default_rng(seed)
+    G3 = G ** 3
+    occ = np.zeros((4, G3), np.float32)
+    if G3 > tile:
+        t0 = (G3 // tile - 1) * tile
+        occ[1, t0:t0 + tile] = g.random(tile) < 0.3
+    else:
+        occ[1] = g.random(G3) < 0.6
+    occ[2] = 1.0
+    occ[3] = g.random(G3) < 0.05
+    return occ
+
+
+def k2_edge_keypoints(G, K, seed):
+    """(4, K, 3) keypoints for k2_edge_frames: uniform in [-0.9, 0.9]; at
+    G=5 on the 0.25 grid, so that with the exact voxel centres every dmin,
+    tie and sum is exact in float32."""
+    g = np.random.default_rng(seed)
+    if G == 5:
+        return (g.integers(-4, 5, (4, K, 3)) * 0.25).astype(np.float32)
+    return g.uniform(-0.9, 0.9, (4, K, 3)).astype(np.float32)
+
+
+def _check_k2_fwd(kp, o, G, tag):
+    """K2 forward on (kp, o) against its plain version: rtol 1e-5 (float32
+    sums of up to G^3 terms in different orders), and two kernel runs equal
+    to the bit. Returns (the max rel err, num)."""
     import torch
+    from neural_marionette_tpu_torch.ops import losses as L
+    M = kp.shape[0]
+    a = L.chamfer_num(kp, o, G)
+    b = L.chamfer_num(kp, o, G)
+    plain = L.chamfer_num_plain(kp, o, G)
+    if a.shape != (M,) or a.dtype != torch.float32:
+        raise AssertionError(f"K2 {tag}: {a.dtype} {tuple(a.shape)}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"K2 {tag}: two runs differ")
+    rel = float(((a - plain).abs() / plain.abs().clamp(min=1e-6)).max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"K2 {tag}: max rel err {rel:.3e} > 1e-5")
+    return rel, a
+
+
+def phase_k2(device, G, M, K):
+    """K2 forward against its plain version (``_check_k2_fwd``) at the
+    serving shape on the path's occupancy and a dense one, then on the edge
+    frames (``k2_edge_frames``: empty, one tile, full, sparse) at G and at
+    G=5 for K = 1, 24 and 64, float32 and bfloat16. On G=5 the kernel, the
+    plain version on the card and on the CPU give equal num to the bit."""
+    import torch
+    from neural_marionette_tpu_torch import kernels
     from neural_marionette_tpu_torch.ops import losses as L
     from neural_marionette_tpu_torch.ops import voxelize as V
     g = np.random.default_rng(5)
@@ -245,22 +302,32 @@ def phase_k2(device, G, M, K):
         (g.random((M, G ** 3)) < 0.3).astype(np.float32)).to(device)
     for occ_name, occ in (("path", path_occ), ("dense", dense_occ)):
         for dtype in (torch.float32, torch.bfloat16):
-            o = occ.to(dtype).contiguous()
-            a = L.chamfer_num(kp, o, G)
-            b = L.chamfer_num(kp, o, G)
-            plain = L.chamfer_num_plain(kp, o, G)
-            if a.shape != (M,) or a.dtype != torch.float32:
-                raise AssertionError(f"K2: {a.dtype} {tuple(a.shape)}")
-            if not torch.equal(a, b):
-                raise AssertionError(f"K2 {occ_name} {dtype}: two runs "
-                                     f"differ")
-            rel = ((a - plain).abs() / plain.abs().clamp(min=1e-6)).max()
-            rel = float(rel)
-            if not rel <= 1e-5:
-                raise AssertionError(f"K2 {occ_name} {dtype}: max rel err "
-                                     f"{rel:.3e} > 1e-5")
+            rel, _ = _check_k2_fwd(kp, occ.to(dtype).contiguous(), G,
+                                   f"{occ_name} {dtype}")
             log(f"[K2] {occ_name} occupancy {dtype}: max rel err {rel:.3e}, "
                 f"bitwise repeatable")
+    tile = kernels.library("chamfer").nm_chamfer_tile_voxels()
+    for Ge in (G, 5):
+        occ = torch.from_numpy(k2_edge_frames(Ge, tile, 7)).to(device)
+        for Ke in (1, 24, 64):
+            kpe = torch.from_numpy(k2_edge_keypoints(Ge, Ke, 8)).to(device)
+            for dtype in (torch.float32, torch.bfloat16):
+                o = occ.to(dtype)
+                rel, a = _check_k2_fwd(kpe, o, Ge,
+                                       f"edges G={Ge} K={Ke} {dtype}")
+                if float(a[0]) != 0.0:
+                    raise AssertionError(f"K2 edges G={Ge} K={Ke}: empty "
+                                         f"frame num {float(a[0])}")
+                if Ge == 5 and not (
+                        torch.equal(a, L.chamfer_num_plain(kpe, o, Ge)) and
+                        torch.equal(a.cpu(), L.chamfer_num_plain(
+                            kpe.cpu(), o.cpu(), Ge))):
+                    raise AssertionError(f"K2 G=5 K={Ke} {dtype}: kernel, "
+                                         f"plain on the card and CPU differ")
+            log(f"[K2] edges G={Ge} K={Ke} (empty, one tile, full, sparse), "
+                f"float32 and bfloat16: max rel err {rel:.3e}, bitwise "
+                f"repeatable" + (", equal to plain on the card and CPU"
+                                 if Ge == 5 else ""))
 
 
 def _dkp_scale(g, kp, occ, G):
@@ -287,27 +354,75 @@ def _dkp_scale(g, kp, occ, G):
     return torch.stack(out), torch.stack(reach)
 
 
-def phase_k2_bwd(device, G, M, K):
-    """K2 backward against its plain version on the card. dkp within rtol
-    1e-5 plus 2e-5 of the magnitude of its summed terms (``_dkp_scale``):
-    dkp_k = 2 c_k S_k - 2 P_k cancels two sums of up to ~10^3 at G=64, and
-    the kernel adds a frame's terms in about 300 sequential steps (tiles,
-    then warps), the plain version in a matmul's order; 2e-5 is 300 * 2^-24.
-    (At tests/test_pallas.py's G=32 this is near its atol 1e-4.) Beyond
-    that, at most 1 % of the (m, k) entries may differ by up to one
-    voxel's weight moved between two keypoints (``_dkp_scale``'s reach): a
-    voxel within an ulp of a tie can have another nearest keypoint under
-    the kernel's FMA rounding of v.c than under the plain matmul's. docc
-    within atol 4e-6 * max|g| (float32) and, in bfloat16, one bfloat16
-    rounding of g * relu(dmin) (rtol 8e-3): the kernel's FMAs round v.c
-    otherwise than the plain matmul, and one ulp of dmin moves
-    g * relu(dmin) by ~1e-6 (tests/test_pallas.py:167-173).
-    Both modes (with and without docc) give the same dkp to the bit, two
-    runs agree to the bit, and on a G=5 grid, whose voxel centres are exact
-    in float32, ties and dmin == 0 give equal results on the card, in the
-    plain version on the card and on the CPU. Returns the max abs dkp
-    error at the training shape, bfloat16 occupancy."""
+def _check_k2_bwd(gr, kp, o, G, tag):
+    """K2 backward on (gr, kp, o) against its plain version on the card
+    (tolerances: ``phase_k2_bwd``). Returns (dkp max abs err, its share of
+    the terms' magnitude, entries with a near-tie voxel moved, docc max abs
+    err, dkp, docc)."""
     import torch
+    from neural_marionette_tpu_torch.ops import losses as L
+    M, K = kp.shape[:2]
+    dtype = o.dtype
+    gmax = float(gr.abs().max())
+    dkp0, none = L._chamfer_bwd_cuda(gr, kp, o, G, False)
+    dkp, docc = L._chamfer_bwd_cuda(gr, kp, o, G, True)
+    dkp2, docc2 = L._chamfer_bwd_cuda(gr, kp, o, G, True)
+    pk, po = L.chamfer_num_bwd_plain(gr, kp, o, G)
+    if none is not None or docc.dtype != dtype or dkp.shape != (M, K, 3):
+        raise AssertionError(f"K2 bwd: {docc.dtype} {dkp.shape}")
+    if not (torch.equal(dkp, dkp2) and torch.equal(docc, docc2)):
+        raise AssertionError(f"K2 bwd {tag}: two runs differ")
+    if not torch.equal(dkp0, dkp):
+        raise AssertionError(f"K2 bwd {tag}: dkp with and without docc "
+                             f"differ")
+    scale, reach = _dkp_scale(gr, kp, o, G)
+    diff = (dkp - pk).abs()
+    ek = float(diff.max())
+    over = diff > 1e-5 * pk.abs() + 2e-5 * scale
+    n_over = int(over.any(dim=-1).sum())
+    moved = bool((diff <= reach[:, None, None]).all())
+    if n_over > M * K // 100 or not moved:
+        raise AssertionError(f"K2 bwd {tag}: dkp max abs err {ek:.3e}; "
+                             f"{n_over} of {M * K} entries over the rounding "
+                             f"bound, within one moved voxel: {moved}")
+    er = float((torch.where(over, 0.0, diff) / scale.clamp(min=1e-30)).max())
+    rtol = 8e-3 if dtype == torch.bfloat16 else 0.0
+    eo = float((docc.float() - po.float()).abs().max())
+    if not torch.allclose(docc.float(), po.float(), rtol=rtol,
+                          atol=4e-6 * gmax):
+        raise AssertionError(f"K2 bwd {tag}: docc max abs err {eo:.3e}")
+    return ek, er, n_over, eo, dkp, docc
+
+
+def phase_k2_bwd(device, G, M, K):
+    """K2 backward against its plain version on the card
+    (``_check_k2_bwd``). dkp within rtol 1e-5 plus 2e-5 of the magnitude
+    of its summed terms (``_dkp_scale``): dkp_k = 2 c_k S_k - 2 P_k cancels
+    two sums of up to ~10^3 at G=64, and the kernel adds a frame's terms in
+    a few hundred sequential steps (segments, tiles), the plain version in
+    a matmul's order; 2e-5 is 300 * 2^-24. (At tests/test_pallas.py's G=32
+    this is near its atol 1e-4.) Beyond that, at most 1 % of the (m, k)
+    entries may differ by up to one voxel's weight moved between two
+    keypoints (``_dkp_scale``'s reach): a voxel within an ulp of a tie can
+    have another nearest keypoint under the kernel's FMA rounding of v.c
+    than under the plain matmul's. docc within atol 4e-6 * max|g| (float32)
+    and, in bfloat16, one bfloat16 rounding of g * relu(dmin) (rtol 8e-3):
+    the kernel's FMAs round v.c otherwise than the plain matmul, and one ulp
+    of dmin moves g * relu(dmin) by ~1e-6 (tests/test_pallas.py:167-173).
+    Both modes (with and without docc) give the same dkp to the bit, two
+    runs agree to the bit. Cases: the serving shape on the path's occupancy
+    and a dense one; the edge frames (``k2_edge_frames``: empty, one tile,
+    full, sparse; an empty frame's dkp exactly 0) at G and at G=5 for K =
+    1, 24 and 64 (at G=5, whose keypoints lie on the 0.25 grid, docc is
+    exact and equal on the card, in the plain version on the card and on
+    the CPU; dkp is not: a tie of 3 or 5 keypoints makes the weights
+    inexact, and then the sums' orders round apart); and a G=5 grid, whose
+    voxel centres are exact in float32, with ties and dmin == 0, where the
+    kernel, the plain version on the card and on the CPU are equal.
+    Returns the max abs dkp error at the training shape, bfloat16
+    occupancy."""
+    import torch
+    from neural_marionette_tpu_torch import kernels
     from neural_marionette_tpu_torch.ops import losses as L
     from neural_marionette_tpu_torch.ops import voxelize as V
     g = np.random.default_rng(6)
@@ -319,51 +434,47 @@ def phase_k2_bwd(device, G, M, K):
     path_occ = V.voxelize(torch.from_numpy(pts).to(device), G).reshape(M, -1)
     dense_occ = torch.from_numpy(
         (g.random((M, G ** 3)) < 0.3).astype(np.float32)).to(device)
-    gmax = float(gr.abs().max())
     err_train = None
     for occ_name, occ in (("path", path_occ), ("dense", dense_occ)):
         for dtype in (torch.float32, torch.bfloat16):
             o = occ.to(dtype).contiguous()
-            dkp0, none = L._chamfer_bwd_cuda(gr, kp, o, G, False)
-            dkp, docc = L._chamfer_bwd_cuda(gr, kp, o, G, True)
-            dkp2, docc2 = L._chamfer_bwd_cuda(gr, kp, o, G, True)
-            pk, po = L.chamfer_num_bwd_plain(gr, kp, o, G)
-            if none is not None or docc.dtype != dtype or \
-                    dkp.shape != (M, K, 3):
-                raise AssertionError(f"K2 bwd: {docc.dtype} {dkp.shape}")
-            if not (torch.equal(dkp, dkp2) and torch.equal(docc, docc2)):
-                raise AssertionError(f"K2 bwd {occ_name} {dtype}: two runs "
-                                     f"differ")
-            if not torch.equal(dkp0, dkp):
-                raise AssertionError(f"K2 bwd {occ_name} {dtype}: dkp with "
-                                     f"and without docc differ")
-            scale, reach = _dkp_scale(gr, kp, o, G)
-            diff = (dkp - pk).abs()
-            ek = float(diff.max())
-            over = diff > 1e-5 * pk.abs() + 2e-5 * scale
-            n_over = int(over.any(dim=-1).sum())
-            moved = bool((diff <= reach[:, None, None]).all())
-            if n_over > M * K // 100 or not moved:
-                raise AssertionError(f"K2 bwd {occ_name} {dtype}: dkp max "
-                                     f"abs err {ek:.3e}; {n_over} of "
-                                     f"{M * K} entries over the rounding "
-                                     f"bound, within one moved voxel: "
-                                     f"{moved}")
-            er = float((torch.where(over, 0.0, diff)
-                        / scale.clamp(min=1e-30)).max())
-            rtol = 8e-3 if dtype == torch.bfloat16 else 0.0
-            eo = float((docc.float() - po.float()).abs().max())
-            if not torch.allclose(docc.float(), po.float(), rtol=rtol,
-                                  atol=4e-6 * gmax):
-                raise AssertionError(f"K2 bwd {occ_name} {dtype}: docc max "
-                                     f"abs err {eo:.3e}")
+            ek, er, n_over, eo, _, _ = _check_k2_bwd(gr, kp, o, G,
+                                                     f"{occ_name} {dtype}")
             if occ_name == "path" and dtype == torch.bfloat16:
                 err_train = ek
             log(f"[K2 bwd] {occ_name} occupancy {dtype}: dkp max abs err "
-                f"{ek:.3e} (max |dkp| {float(pk.abs().max()):.3e}, "
-                f"{er:.3e} of the terms' magnitude, {n_over} of {M * K} "
-                f"entries with a near-tie voxel moved), docc {eo:.3e}; "
-                f"bitwise repeatable")
+                f"{ek:.3e} ({er:.3e} of the terms' magnitude, {n_over} of "
+                f"{M * K} entries with a near-tie voxel moved), docc "
+                f"{eo:.3e}; bitwise repeatable")
+    tile = kernels.library("chamfer").nm_chamfer_tile_voxels()
+    ge = torch.tensor([1.5, -0.75, 0.5, 2.0], device=device)
+    for Ge in (G, 5):
+        occ = torch.from_numpy(k2_edge_frames(Ge, tile, 7)).to(device)
+        for Ke in (1, 24, 64):
+            kpe = torch.from_numpy(k2_edge_keypoints(Ge, Ke, 8)).to(device)
+            for dtype in (torch.float32, torch.bfloat16):
+                o = occ.to(dtype)
+                tag = f"edges G={Ge} K={Ke} {dtype}"
+                ek, er, n_over, eo, dkp, docc = _check_k2_bwd(ge, kpe, o, Ge,
+                                                              tag)
+                if bool(dkp[0].any()):
+                    raise AssertionError(f"K2 bwd {tag}: empty frame's dkp "
+                                         f"not 0")
+                if Ge == 5:
+                    want = L.chamfer_num_bwd_plain(ge.cpu(), kpe.cpu(),
+                                                   o.cpu(), Ge)[1]
+                    plain = L.chamfer_num_bwd_plain(ge, kpe, o, Ge)[1]
+                    if not (torch.equal(docc.cpu(), want) and
+                            torch.equal(plain.cpu(), want)):
+                        raise AssertionError(f"K2 bwd {tag}: docc of the "
+                                             f"kernel, plain on the card and "
+                                             f"CPU differ")
+            log(f"[K2 bwd] edges G={Ge} K={Ke} (empty, one tile, full, "
+                f"sparse), float32 and bfloat16: dkp max abs err {ek:.3e} "
+                f"({n_over} entries with a near-tie voxel moved), docc "
+                f"{eo:.3e}; bitwise repeatable" +
+                (", docc equal to plain on the card and CPU" if Ge == 5
+                 else ""))
     # exact conventions: duplicate keypoints, keypoints on voxel centres
     Gc = 5
     kpc = torch.tensor([[[0.5, 0.5, 0.5], [0.5, 0.5, 0.5], [-1.0, 0.0, 0.5],
@@ -1188,11 +1299,15 @@ def phase_timing(device, G, K, launches, errs):
         device_ms_kernel=k1_kernel,
         library="torch.zeros + index_put_ of precomputed indices"))
 
-    # K2: kp (40, 24, 3) float32, occupancy (40, 64^3) bfloat16 -> (40,)
+    # K2: kp (40, 24, 3) float32, occupancy (40, 64^3) bfloat16 -> (40,);
+    # its backward as the training step calls it: g (40,), no occupancy
+    # gradient -> dkp (40, 24, 3)
     occ = V.voxelize(pts, G, dtype=torch.bfloat16).reshape(F, G ** 3)
     g = np.random.default_rng(32)
     kp = torch.from_numpy(g.uniform(-0.6, 0.6, (F, K, 3)).astype(
         np.float32)).to(device)
+    gr = torch.from_numpy(g.uniform(-2.0, 2.0, F).astype(np.float32)).to(
+        device)
     vox = coord_maps((G,) * 3, device=device).reshape(1, G ** 3, 3)
     vox = vox.expand(F, -1, -1)
 
@@ -1200,30 +1315,6 @@ def phase_timing(device, G, K, launches, errs):
         d = torch.cdist(vox, kp).square_().amin(dim=-1)
         return (d * occ).sum(dim=-1)
 
-    # An empty voxel adds exactly 0 to num[m], so the work these inputs need
-    # is the min over keypoints at the occupied voxels only (4 FMAs, 8
-    # flops, and a min per voxel-keypoint pair; |v|^2, relu and the
-    # weighted add per voxel), against one read of the dense grid.
-    occupied = int(occ.count_nonzero())
-    k2_bytes = kp.numel() * 4 + occ.numel() * 2 + F * 4
-    k2_ops = occupied * (K * 9 + 8)
-    records.append(_record(
-        "chamfer_fwd", "neural_marionette_tpu_torch/csrc/chamfer.cu",
-        "neural_marionette_tpu/ops/pallas/chamfer_kernel.py:190",
-        launches["chamfer_fwd"], errs["chamfer_fwd"],
-        cuda_ms(lambda: L.chamfer_num(kp, occ, G)),
-        cuda_ms(lambda: L.chamfer_num_plain(kp, occ, G), iters=5),
-        cuda_ms(library_k2, iters=5),
-        k2_bytes, [(k2_ops, PEAK_FP32_OPS_PER_S)]))
-
-    # K2 backward, as the training step calls it: g (40,), kp (40, 24, 3),
-    # bfloat16 occupancy, no occupancy gradient -> dkp (40, 24, 3). Only
-    # occupied voxels add to dkp: per occupied voxel the min and tie count
-    # over k (K * 9 + 8 operations, as the forward) and, per keypoint, the
-    # tie test and the four sums (K * 9 more); against one read of the
-    # grid, g and kp, and one write of dkp.
-    gr = torch.from_numpy(g.uniform(-2.0, 2.0, F).astype(np.float32)).to(
-        device)
     kp_lib = kp.clone().requires_grad_(True)
     d = torch.cdist(vox, kp_lib).square().amin(dim=-1)
     lib_out = ((d * occ).sum(dim=-1) * gr).sum()
@@ -1231,25 +1322,100 @@ def phase_timing(device, G, K, launches, errs):
     def library_k2_bwd():
         return torch.autograd.grad(lib_out, kp_lib, retain_graph=True)
 
-    k2b_bytes = gr.numel() * 4 + kp.numel() * 4 * 2 + occ.numel() * 2
-    k2b_ops = occupied * (K * 18 + 8)
+    t = {"path": k2_times(kp, occ, gr, G)}
+    for name, o in k2_dense_grids(F, G, device).items():
+        t[name] = k2_times(kp, o, gr, G)
+    for direction in ("fwd", "bwd", "docc"):
+        log(f"[time] chamfer_{direction} by occupancy: " + ", ".join(
+            f"{name} ({r['occupied_voxels']} voxels) "
+            f"{r[direction + '_ms']:.4f} ms, device "
+            f"{r[direction + '_device_ms']:.4f}, bound "
+            f"{r[direction + '_bound_ms']:.4f}" for name, r in t.items()))
+    path = t["path"]
+    extra = {"occupied_voxels": path["occupied_voxels"]}
+    records.append(_record(
+        "chamfer_fwd", "neural_marionette_tpu_torch/csrc/chamfer.cu",
+        "neural_marionette_tpu/ops/pallas/chamfer_kernel.py:190",
+        launches["chamfer_fwd"], errs["chamfer_fwd"], path["fwd_ms"],
+        cuda_ms(lambda: L.chamfer_num_plain(kp, occ, G), iters=5),
+        cuda_ms(library_k2, iters=5), *path["fwd_work"],
+        device_ms=path["fwd_device_ms"],
+        device_ms_kernels=path["fwd_kernels"], **extra,
+        ms_dense30=t["dense30"]["fwd_ms"], ms_full=t["full"]["fwd_ms"]))
     records.append(_record(
         "chamfer_bwd", "neural_marionette_tpu_torch/csrc/chamfer.cu",
         "neural_marionette_tpu/ops/pallas/chamfer_kernel.py:218",
-        launches["chamfer_bwd"], errs["chamfer_bwd"],
-        cuda_ms(lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, False)),
+        launches["chamfer_bwd"], errs["chamfer_bwd"], path["bwd_ms"],
         cuda_ms(lambda: L.chamfer_num_bwd_plain(gr, kp, occ, G), iters=5),
-        cuda_ms(library_k2_bwd, iters=5),
-        k2b_bytes, [(k2b_ops, PEAK_FP32_OPS_PER_S)]))
+        cuda_ms(library_k2_bwd, iters=5), *path["bwd_work"],
+        device_ms=path["bwd_device_ms"],
+        device_ms_kernels=path["bwd_kernels"], **extra,
+        ms_dense30=t["dense30"]["bwd_ms"], ms_full=t["full"]["bwd_ms"]))
     # with the occupancy gradient (not on the training path): dmin at every
     # voxel and a write of the grid
-    docc_ms = cuda_ms(lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, True))
-    docc_bytes = k2b_bytes + occ.numel() * 2
-    docc_ops = F * G ** 3 * (K * 9 + 8) + occupied * K * 9
-    log(f"[time] chamfer_bwd with docc: kernel {docc_ms:.4f} ms, bound "
-        f"{max(docc_bytes / PEAK_BYTES_PER_S, docc_ops / PEAK_FP32_OPS_PER_S) * 1e3:.4f} ms "
-        f"({docc_bytes} bytes, {docc_ops} ops)")
+    log(f"[time] chamfer_bwd with docc: kernel {path['docc_ms']:.4f} ms, "
+        f"device {path['docc_device_ms']:.4f} ms "
+        f"({path['docc_kernels']}), bound {path['docc_bound_ms']:.4f} ms")
     return records
+
+
+def k2_dense_grids(F, G, device):
+    """K2's dense yardsticks in bfloat16: about 30 % occupied at random,
+    and fully occupied."""
+    import torch
+    g = np.random.default_rng(33)
+    return {"dense30": torch.from_numpy(g.random((F, G ** 3)) < 0.3).to(
+                device, torch.bfloat16),
+            "full": torch.ones((F, G ** 3), dtype=torch.bfloat16,
+                               device=device)}
+
+
+def k2_times(kp, occ, gr, G, iters=20):
+    """K2 forward, backward without and with docc on (kp, occ, gr): event
+    ms per call (``cuda_ms``), device ms per call from the profiler (all
+    the call's device operations, and by kernel), the bound and the work
+    behind it. An empty voxel adds exactly 0, so the work these inputs need
+    is at the occupied voxels only: per voxel the min over k (4 FMAs, 8
+    flops, and a min per keypoint: 9 K), |v|^2, relu and the weighted add
+    (8); the backward's weight, and the four sums of its nearest keypoints
+    (16 in all); against one read of the grid, kp (and g) and one write of
+    num (dkp). docc needs dmin at every voxel and writes the grid."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neural_marionette_tpu_torch.ops import losses as L
+    F, K = kp.shape[:2]
+    calls = {"fwd": lambda: L.chamfer_num(kp, occ, G),
+             "bwd": lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, False),
+             "docc": lambda: L._chamfer_bwd_cuda(gr, kp, occ, G, True)}
+    occupied = int(occ.count_nonzero())
+    grid = occ.numel() * occ.element_size()
+    work = {"fwd": (kp.numel() * 4 + grid + F * 4,
+                    [(occupied * (K * 9 + 8), PEAK_FP32_OPS_PER_S)]),
+            "bwd": (F * 4 + kp.numel() * 4 * 2 + grid,
+                    [(occupied * (K * 9 + 16), PEAK_FP32_OPS_PER_S)])}
+    work["docc"] = (work["bwd"][0] + grid,
+                    [(occ.numel() * (K * 9 + 8) + occupied * (K * 9 + 16),
+                      PEAK_FP32_OPS_PER_S)])
+    out = {"occupied_voxels": occupied}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = cuda_ms(fn, iters=iters)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        by_name = defaultdict(float)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name.split("(")[0].split("<")[0].split()[-1]] += \
+                    e.time_range.elapsed_us() / 10e3
+        out[f"{name}_device_ms"] = sum(by_name.values())
+        out[f"{name}_kernels"] = dict(by_name)
+        out[f"{name}_work"] = work[name]
+        out[f"{name}_bound_ms"] = max(_bound_ms(*work[name]))
+    return out
 
 
 def _bound_ms(n_bytes, ops):

@@ -41,9 +41,10 @@ _SIGNATURES = {
     "chamfer": {
         "nm_chamfer_tile_voxels": [],
         "nm_chamfer_max_k": [],
-        "nm_chamfer_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "nm_chamfer_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _P],
+        "nm_chamfer_fwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P],
+        "nm_chamfer_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _P],
     },
     "conv3d": {
         "nm_conv3d_chunk": [],

@@ -16,6 +16,8 @@ outside.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import kernels
@@ -57,8 +59,10 @@ def temporal_separation_loss(keypoints: torch.Tensor,
 
 
 # ------------------------------------------------------------ kernel K2
-def _linspace(G: int, device) -> torch.Tensor:
-    """Per-axis voxel-centre coordinates, exactly ``ops/coords``' grid."""
+@functools.lru_cache(maxsize=32)
+def _linspace(G: int, device: torch.device) -> torch.Tensor:
+    """Per-axis voxel-centre coordinates, exactly ``ops/coords``' grid.
+    Cached per grid and device: the kernels' wrappers read it every call."""
     return coord_maps((G,), device=device)[:, 0]
 
 
@@ -175,33 +179,56 @@ class _ChamferNum(torch.autograd.Function):
         return dkp, (docc if want_docc else None), None
 
 
-def _chamfer_setup(kp, occ_flat, grid_size):
-    """The loaded library and the tile count, after the kernel's checks."""
+_lib = None   # (the kernel's library, voxels per tile, largest K)
+# (device index, stream) -> (int32 tickets, one per frame, float32 scratch
+# for the tile partials). The tickets are zero between launches (a frame's
+# last block sets its ticket back to 0) and a stream's launches run in
+# order, so they share one workspace.
+_workspace: dict = {}
+
+
+def _chamfer_setup(kp, occ_flat, grid_size, floats_per_tile):
+    """(the loaded library, tiles per frame, the frames' tickets, a scratch
+    of ``floats_per_tile`` floats per tile or more, the per-axis
+    coordinates, the current stream) after the kernel's checks."""
+    global _lib
     for name, t in (("kp", kp), ("occupancy", occ_flat)):
         if not t.is_contiguous():
             raise ValueError(f"chamfer_num: {name} must be contiguous")
-    K = kp.shape[1]
-    lib = kernels.library("chamfer")
-    if not 1 <= K <= lib.nm_chamfer_max_k():
-        raise ValueError(f"chamfer_num: K={K} outside [1, "
-                         f"{lib.nm_chamfer_max_k()}]")
-    tile = lib.nm_chamfer_tile_voxels()
-    return lib, -(-grid_size ** 3 // tile)
+    if _lib is None:
+        lib = kernels.library("chamfer")
+        _lib = (lib, lib.nm_chamfer_tile_voxels(), lib.nm_chamfer_max_k())
+    lib, tile, max_k = _lib
+    M, K = kp.shape[:2]
+    if not 1 <= K <= max_k:
+        raise ValueError(f"chamfer_num: K={K} outside [1, {max_k}]")
+    if M > 65535:
+        raise ValueError(f"chamfer_num: at most 65535 frames, got {M}")
+    dev = kp.device
+    n_tiles = -(-grid_size ** 3 // tile)
+    stream = kernels.stream_handle(dev)
+    key = (dev.index, stream.value)
+    tickets, scratch = _workspace.get(key, (None, None))
+    need = n_tiles * floats_per_tile
+    if tickets is None or tickets.numel() < M or scratch.numel() < need:
+        tickets = torch.zeros(max(M, 64), dtype=torch.int32, device=dev)
+        scratch = torch.empty(need, dtype=torch.float32, device=dev)
+        _workspace[key] = (tickets, scratch)
+    return lib, n_tiles, tickets, scratch, _linspace(grid_size, dev), stream
 
 
 def _chamfer_num_cuda(kp, occ_flat, grid_size):
     global launches
-    lib, n_tiles = _chamfer_setup(kp, occ_flat, grid_size)
     M, K = kp.shape[:2]
+    lib, n_tiles, tickets, partial, lin, stream = _chamfer_setup(
+        kp, occ_flat, grid_size, M)
     dev = kp.device
-    partial = torch.empty((M, n_tiles), dtype=torch.float32, device=dev)
     num = torch.empty((M,), dtype=torch.float32, device=dev)
-    lin = _linspace(grid_size, dev)
     code = lib.nm_chamfer_fwd(
-        kernels.ptr(kp), kernels.ptr(occ_flat),
-        int(occ_flat.dtype == torch.bfloat16), kernels.ptr(lin),
-        kernels.ptr(partial), kernels.ptr(num), M, K, grid_size, n_tiles,
-        dev.index, kernels.stream_handle(dev))
+        kp.data_ptr(), occ_flat.data_ptr(),
+        int(occ_flat.dtype == torch.bfloat16), lin.data_ptr(),
+        partial.data_ptr(), tickets.data_ptr(), num.data_ptr(), M, K,
+        grid_size, n_tiles, dev.index, stream)
     kernels.check(lib, code, "chamfer kernel")
     launches += 1
     return num
@@ -210,23 +237,21 @@ def _chamfer_num_cuda(kp, occ_flat, grid_size):
 def _chamfer_bwd_cuda(g, kp, occ_flat, grid_size, want_docc):
     """The backward kernel: (dkp, docc or None)."""
     global bwd_launches
-    lib, n_tiles = _chamfer_setup(kp, occ_flat, grid_size)
     M, K = kp.shape[:2]
+    lib, n_tiles, tickets, partial, lin, stream = _chamfer_setup(
+        kp, occ_flat, grid_size, M * K * 4)
     dev = kp.device
     if g.shape != (M,) or g.device != dev:
         raise ValueError(f"chamfer_num backward: gradient must be ({M},) on "
                          f"{dev}, got {tuple(g.shape)} on {g.device}")
-    partial = torch.empty((M, n_tiles, K, 4), dtype=torch.float32,
-                          device=dev)
     dkp = torch.empty((M, K, 3), dtype=torch.float32, device=dev)
     docc = torch.empty_like(occ_flat) if want_docc else None
-    lin = _linspace(grid_size, dev)
     code = lib.nm_chamfer_bwd(
-        kernels.ptr(g), kernels.ptr(kp), kernels.ptr(occ_flat),
-        int(occ_flat.dtype == torch.bfloat16), kernels.ptr(lin),
-        kernels.ptr(partial), kernels.ptr(dkp),
-        kernels.ptr(docc) if want_docc else None, M, K, grid_size, n_tiles,
-        dev.index, kernels.stream_handle(dev))
+        g.data_ptr(), kp.data_ptr(), occ_flat.data_ptr(),
+        int(occ_flat.dtype == torch.bfloat16), lin.data_ptr(),
+        partial.data_ptr(), tickets.data_ptr(), dkp.data_ptr(),
+        docc.data_ptr() if want_docc else None, M, K, grid_size, n_tiles,
+        dev.index, stream)
     kernels.check(lib, code, "chamfer backward kernel")
     bwd_launches += 1
     return dkp, docc
