@@ -1,10 +1,11 @@
 """Configuration of the port: a copy of the JAX package's ``config.py``.
 
 :class:`MarionetteConfig` keeps the JAX package's fields and defaults (the
-reference CLI flag names) and :func:`adjust_config` its per-dataset
-overrides, so one configuration drives both packages. The port implements
-the configuration of the AIST preset only; :func:`check_supported` rejects
-every other value of the options it does not implement.
+reference CLI flag names), :func:`adjust_config` its per-dataset
+overrides and :func:`derive_training_id` the fields of the detector and
+the dynamics runs, so one configuration drives both packages. The port
+implements the configuration of the AIST preset only; :func:`check_supported`
+rejects every other value of the options it does not implement.
 """
 from __future__ import annotations
 
@@ -277,6 +278,29 @@ def adjust_config(cfg: MarionetteConfig) -> MarionetteConfig:
 
     if cfg.pretrained_mode > 0:
         kw.update(firstdecay=int(1e10), seconddecay=int(1e10))
+    return cfg.replace(**kw)
+
+
+def derive_training_id(cfg: MarionetteConfig) -> MarionetteConfig:
+    """The fields that follow from ``pretrained_mode``, mirroring reference
+    ``train.py:141-158``: mode 0 is the detector run, mode 1 the dynamics
+    run on a frozen pretrained detector (``detector_end=0``,
+    ``learner_start=0``); ``log_gif_num`` is clamped to ``nbatch``."""
+    if cfg.pretrained_mode == 0:
+        tid = "rl_setup/disc_training/%s/%s/%dkypt" % (
+            cfg.dataset, cfg.keypoints_graph, cfg.nkeypoints)
+        kw: dict[str, Any] = {"training_id": tid}
+    elif cfg.pretrained_mode == 1:
+        tid = "rl_setup/dyna_training/%s/%s/%s/%dkypt/%dzkypt_%dhkypt" % (
+            cfg.dataset, cfg.transition_type, cfg.dyna_module,
+            cfg.nkeypoints, cfg.nlatent_kypt, cfg.nhidden_kypt)
+        kw = {"training_id": tid, "detector_end": 0, "learner_start": 0}
+    else:
+        raise ValueError(
+            "pretrained_mode must be 0 (detector) or 1 (dynamics); the "
+            "reference's mode 2 (RL) is broken upstream and not implemented")
+    if cfg.log_gif_num > cfg.nbatch:
+        kw["log_gif_num"] = cfg.nbatch
     return cfg.replace(**kw)
 
 

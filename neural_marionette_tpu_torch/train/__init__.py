@@ -1,6 +1,6 @@
 """Training layer: loss registry, scheduler, state and masked Adam, steps,
 checkpoints and the trainer loop."""
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, load_params_only
 from .loop import Trainer
 from .losses import LOSS_LIST, anneal_epochs, loss_weights, \
     module_active_epochs
@@ -14,5 +14,5 @@ __all__ = [
     "LossScheduler", "MetricLogger", "Adam", "TrainState", "make_optimizer",
     "make_update_mask", "create_train_state", "set_learning_rate",
     "reset_optimizer", "make_train_step", "make_eval_step", "total_loss",
-    "CheckpointManager", "Trainer",
+    "CheckpointManager", "load_params_only", "Trainer",
 ]

@@ -5,10 +5,11 @@ directories ``<logger_path>/epochs/<epoch>/`` with a ring buffer of the
 newest ``save_que_len`` (reference train.py:238-265, 664-673), each holding
 ``state.pt`` (parameters, optimizer state, the generator's state, the step)
 and ``meta.json`` (the epoch, extras, and the extracted skeleton).
-Restoring them continues training to the bit.
-
-Loading the published reference ``.pth`` waits for the AIST checkpoint to
-be in the repository.
+Restoring them continues training to the bit. :func:`load_params_only`
+reads one checkpoint's parameters alone, as the dynamics run takes a
+detector run's (counterpart of ``load_params_only`` of the JAX package's
+``train/checkpoint.py``); ``weights.load_reference_detector`` reads a
+reference ``.pth`` instead.
 """
 from __future__ import annotations
 
@@ -80,26 +81,42 @@ class CheckpointManager:
     def restore(self, state: TrainState, epoch: Optional[int] = None):
         """Load a checkpoint into ``state`` in place; ``epoch=None`` ->
         the latest. Returns (state, skeleton or None, meta)."""
-        if epoch is None:
-            epoch = self.latest_epoch()
-        if epoch is None:
-            raise FileNotFoundError(
-                f"no checkpoints under {self.ckpt_root}")
-        path = os.path.join(self.ckpt_root, str(epoch))
-        payload = torch.load(os.path.join(path, "state.pt"),
-                             map_location="cpu", weights_only=True)
+        payload, skeleton, meta = _read(self.ckpt_root, epoch)
         state.model.load_state_dict(payload["model"], strict=True)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.generator.set_state(payload["generator"])
         state.step = int(payload["step"])
-        with open(os.path.join(path, "meta.json")) as f:
-            meta = json.load(f)
-        skeleton = None
-        if "skeleton" in meta:
-            sk = meta.pop("skeleton")
-            skeleton = Skeleton(
-                A=np.asarray(sk["A"], np.float32),
-                priority_values=np.asarray(sk["priority_values"], np.float32),
-                priority_indices=np.asarray(sk["priority_indices"], np.int32),
-                parents=np.asarray(sk["parents"], np.int32))
         return state, skeleton, meta
+
+
+def _read(ckpt_root: str, epoch: Optional[int]):
+    """(the ``state.pt`` payload, skeleton or None, meta) of the checkpoint
+    of ``epoch`` (None: the latest) under ``ckpt_root``."""
+    if epoch is None:
+        dirs = _epoch_dirs(ckpt_root)
+        if not dirs:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_root}")
+        epoch = dirs[-1]
+    path = os.path.join(ckpt_root, str(epoch))
+    payload = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                         weights_only=True)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    skeleton = None
+    if "skeleton" in meta:
+        sk = meta.pop("skeleton")
+        skeleton = Skeleton(
+            A=np.asarray(sk["A"], np.float32),
+            priority_values=np.asarray(sk["priority_values"], np.float32),
+            priority_indices=np.asarray(sk["priority_indices"], np.int32),
+            parents=np.asarray(sk["parents"], np.int32))
+    return payload, skeleton, meta
+
+
+def load_params_only(logger_path: str, epoch: Optional[int] = None):
+    """The model's ``state_dict``, the skeleton (or None) and the meta of the
+    checkpoint of ``epoch`` (None: the latest) under ``logger_path``; no
+    optimizer or generator state is touched."""
+    payload, skeleton, meta = _read(
+        os.path.abspath(os.path.join(logger_path, "epochs")), epoch)
+    return payload["model"], skeleton, meta

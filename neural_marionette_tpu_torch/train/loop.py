@@ -15,13 +15,26 @@ sets the staged learning rate (and resets Adam when
 the step metrics back only every ``_READBACK_EVERY`` steps and at the end
 of the epoch, so the host does not wait for the card on every step. With a
 ``logger_path`` it checkpoints every ``cfg.save_every`` epochs and resumes
-from the latest checkpoint there.
+from there: from the latest checkpoint, or from epoch ``cfg.resume_epoch``
+when that is not ``"0"``.
+
+Two-phase training (reference ``train.py:238-278``, the JAX package's
+``train.py:148-181``): a run with ``cfg.pretrained_mode == 1`` (the
+dynamics run, ``derive_training_id``) and no checkpoint of its own starts
+from a detector run's detector, read from
+``<cfg.pretrained_dir>/detector/<cfg.dataset>_detector``, a directory of
+the port's checkpoints (``checkpoint.load_params_only``) or, failing that,
+the same path plus ``.pth`` in the reference's layout
+(``weights.load_reference_detector``). The dynamics keep their initial
+values; the schedule keeps the detector frozen from epoch 0, and the
+skeleton is extracted from the loaded affinity as the learner turns on.
 
 The dataset families, the loader, validation and the CLI come in later
 slices.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Iterable, Iterator, Optional
 
@@ -32,8 +45,9 @@ from ..api import _DTYPES, resolve_device
 from ..config import MarionetteConfig
 from ..models import NeuralMarionette, SkeletonArrays
 from ..skeleton import Skeleton, extract_skeleton
-from ..weights import init_weights
-from .checkpoint import CheckpointManager
+from ..weights import (init_weights, load_detector_state,
+                       load_reference_detector)
+from .checkpoint import CheckpointManager, load_params_only
 from .scheduler import LossScheduler, MetricLogger
 from .state import create_train_state, reset_optimizer, set_learning_rate
 from .step import make_train_step
@@ -73,11 +87,32 @@ class Trainer:
         self.start_epoch = 0
         self._steps: dict = {}
         self.ckpt = None
+        latest = None
         if logger_path is not None:
             self.ckpt = CheckpointManager(logger_path, cfg.save_que_len)
-            if self.ckpt.latest_epoch() is not None:
-                _, self.skeleton, meta = self.ckpt.restore(self.state)
-                self.start_epoch = meta["epoch"] + 1
+            latest = self.ckpt.latest_epoch()
+        want = None if cfg.resume_epoch == "0" else int(cfg.resume_epoch)
+        if want is not None and latest is None:
+            raise ValueError("No previous checkpoints from this setting.")
+        if latest is not None:
+            _, self.skeleton, meta = self.ckpt.restore(self.state, want)
+            self.start_epoch = meta["epoch"] + 1
+        elif cfg.pretrained_mode == 1:
+            self.load_pretrained_detector()
+
+    def load_pretrained_detector(self) -> None:
+        """Load the detector run's detector into the model (the dynamics run
+        of ``pretrained_mode=1``)."""
+        cfg = self.cfg
+        pre = os.path.join(cfg.pretrained_dir, "detector",
+                           f"{cfg.dataset}_detector")
+        if os.path.isdir(pre):
+            state, _, _ = load_params_only(pre)
+            load_detector_state(self.model, state, source=pre)
+        elif os.path.exists(pre + ".pth"):
+            load_reference_detector(pre + ".pth", self.model)
+        else:
+            raise ValueError(f"pretrained file is not existing: {pre}")
 
     # ------------------------------------------------------------ helpers
     def _to_device(self, batch) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Weights: the JAX package's parameter tree -> the port's ``state_dict``,
-and random initialisation from a seed.
+a reference detector ``.pth`` -> the port's detector, and random
+initialisation from a seed.
 
 The port's module tree uses the reference's ``state_dict`` key names, the
 ones the JAX package's ``utils/torch_convert.py`` maps. This module holds
@@ -12,6 +13,9 @@ the port's own copy of those tables and runs them the other way:
 * GroupNorm ``scale`` -> ``weight``.
 
 :func:`state_dict_from_jax` is the inverse of ``convert_reference_state_dict``.
+The reference's own ``network.state_dict()`` needs no table:
+:func:`load_reference_detector` copies its ``kypt_detector.`` entries
+straight into the port's detector.
 """
 from __future__ import annotations
 
@@ -217,6 +221,43 @@ def block_state_dict(params: Mapping[str, Any], kind: str) -> dict:
              "Res3DBlock": _RES, "Upsample3DBlock": _UP,
              "Hourglass": _HG}[kind]
     return {k[1:]: _tensor(v) for k, v in _block("", params, table)}
+
+
+# ------------------------------------------------------- pretrained detector
+DETECTOR_PREFIX = "kypt_detector."
+
+
+@torch.no_grad()
+def load_detector_state(model: nn.Module, state: Mapping[str, Any],
+                        source: str = "state dict") -> None:
+    """Copy the ``kypt_detector.`` entries of ``state`` (reference key names,
+    the port's own) into ``model``'s detector in place; other entries are
+    ignored. Raises ``KeyError`` on a detector key that ``state`` lacks or
+    that the model does not have, ``ValueError`` on a shape that differs."""
+    own = {k: v for k, v in model.state_dict(keep_vars=True).items()
+           if k.startswith(DETECTOR_PREFIX)}
+    given = {k: v for k, v in state.items() if k.startswith(DETECTOR_PREFIX)}
+    missing = sorted(own.keys() - given.keys())
+    unmapped = sorted(given.keys() - own.keys())
+    if missing or unmapped:
+        raise KeyError(f"{source}: detector keys missing {missing[:4]} "
+                       f"({len(missing)}), unmapped {unmapped[:4]} "
+                       f"({len(unmapped)})")
+    for k, dst in own.items():
+        src = torch.as_tensor(given[k])
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{source}: {k} has shape {tuple(src.shape)}, "
+                             f"the model {tuple(dst.shape)}")
+        dst.copy_(src)
+
+
+def load_reference_detector(path: str, model: nn.Module) -> None:
+    """Load the detector of a reference-layout ``.pth`` (a
+    ``network.state_dict()``) into ``model``; its other keys are ignored.
+    Counterpart of ``load_torch_detector`` of the JAX package's
+    ``utils/torch_convert.py``."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    load_detector_state(model, state, source=path)
 
 
 # ------------------------------------------------------------- random init
