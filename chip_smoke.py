@@ -71,11 +71,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
     times on a 30 % and a fully occupied grid (``k2_times``);
 13. where a serving window's time goes, route off and on: per-layer times
     of one window and, under ``torch.profiler``, the device's busy share,
-    its copies and its top kernels.
+    its copies and its top kernels;
+14. the apps at the full AIST width, float32, seeded informative weights:
+    ``Marionette.generate`` (a 5-frame clip, Tgen 25, sample_num 3),
+    ``interpolate`` (20 frames, anchor_rate 10, sample_num 10000) and
+    ``retarget`` (10 frames onto 4096 points, modes ``ours`` and
+    ``baseline``), each timed twice: JAX shapes, finite outputs, R
+    orthonormal, and K2 forward once per detector forward; the training
+    loop's generate step on a bfloat16 model (B 4, T 10, Tcond 3) with
+    the conv route on and off, K3 once per routed conv of the detector
+    forward and of the decoder, the two routes within stated bounds; and
+    generation and interpolation card against CPU (float32, injected
+    noise, selections equal or float32 near-ties) within stated
+    tolerances.
 
-It prints a ``{"kernels": [...]}`` line, a ``{"conv3d_shapes": [...]}``
-line, a ``{"stream": ...}`` and a ``{"stream_conv_kernel": ...}`` line, a
-``{"profile": ...}`` line, a ``{"train": ...}`` line, the card's line, and
+It prints a ``{"kernels": [...]}`` line (K2 forward's record with its
+launches on the apps, K3's with its launches on the generate step), a
+``{"conv3d_shapes": [...]}`` line, a ``{"stream": ...}`` and a
+``{"stream_conv_kernel": ...}`` line, a ``{"profile": ...}`` line, a
+``{"train": ...}`` line, an ``{"apps": ...}`` line, the card's line, and
 last ``{"ok": true, "device": {...}}``. Without a card, or without the
 package beside it, it exits nonzero before printing a result.
 """
@@ -1903,6 +1917,386 @@ def phase_profile(marionette, n_windows=4, conv_kernel=False):
     return out
 
 
+# ------------------------------------------------------------------- apps
+APP_N = 4096
+ROUTED_DECODER_CONVS = 4   # routed convs of the decoder alone (decode_from_dyna)
+
+
+def motion_points(T, N, seed):
+    """(T, N, 3) float32 points of one clip: a blob drifting across the
+    clip, inside [-0.7, 0.7]^3 (the apps voxelize on the host, where a
+    point outside [-1, 1] is clamped onto the grid's face)."""
+    g = np.random.default_rng(seed)
+    base = g.normal(0.0, 0.25, (1, N, 3)) * np.array([0.6, 1.0, 0.5])
+    drift = np.linspace(-0.2, 0.2, T)[:, None, None] * g.uniform(-1, 1, 3)
+    return np.clip(base + drift, -0.7, 0.7).astype(np.float32)
+
+
+class _Argmins:
+    """Record each ``torch.argmin`` of a run with its input (on the host),
+    to compare the selections of two runs."""
+
+    def __init__(self):
+        import torch
+        self.calls, self._orig = [], torch.argmin
+
+    def __enter__(self):
+        import torch
+
+        def rec(x, *a, **k):
+            out = self._orig(x, *a, **k)
+            self.calls.append((x.detach().float().cpu().numpy(),
+                               out.cpu().numpy()))
+            return out
+        torch.argmin = rec
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.argmin = self._orig
+
+
+def compare_selections(card, host, what, rtol=1e-5):
+    """The card's and the CPU's argmins of the same rollout: equal, or each
+    mismatch a float32 near-tie (the two picks' distances on the card
+    within ``rtol`` of each other). Returns the number of near-ties."""
+    if len(card.calls) != len(host.calls):
+        raise AssertionError(f"{what}: {len(card.calls)} argmins on the card,"
+                             f" {len(host.calls)} on the CPU")
+    ties = 0
+    for i, ((d, a), (_, b)) in enumerate(zip(card.calls, host.calls)):
+        if np.array_equal(a, b):
+            continue
+        da = np.take_along_axis(d, np.expand_dims(a, 0), 0) if d.ndim > 1 \
+            else d[a]
+        db = np.take_along_axis(d, np.expand_dims(b, 0), 0) if d.ndim > 1 \
+            else d[b]
+        if not np.all(np.abs(da - db) <= rtol * np.abs(da)):
+            raise AssertionError(f"{what}: argmin {i} picks {a} on the card, "
+                                 f"{b} on the CPU, distances {da} vs {db}")
+        ties += 1
+    return ties
+
+
+def _app_marionette(cfg, device, seed=0):
+    """A float32 ``Marionette`` with seeded informative weights."""
+    from neural_marionette_tpu_torch.api import Marionette
+    from neural_marionette_tpu_torch.models import NeuralMarionette
+    net = NeuralMarionette(cfg, device=device)
+    _informative_weights(net, seed)
+    return Marionette(cfg, net, device)
+
+
+def _timed_call(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_apps(cfg, device):
+    """Generation, interpolation and retargeting through the port's
+    ``Marionette`` at the full AIST width in float32, with seeded
+    informative weights, each called twice (ms of both calls; the first
+    pays the set-up): ``generate`` on a 5-frame clip (Tgen 25,
+    sample_num 3), ``interpolate`` on a 20-frame clip (anchor_rate 10,
+    sample_num 10000), ``retarget`` of a 10-frame clip onto a 4096-point
+    target in modes ``ours`` and ``baseline``, then an ``encode`` of the
+    source for its rotations. Checks the JAX shapes, finite outputs,
+    voxels in {0, 1}, anchors and frozen intensities, skin weights summing
+    to 1, R orthonormal, and K2 forward launched once per detector forward
+    (counted by a hook on the detector), K1 and K3 never (the apps
+    voxelize on the host, and float32 takes no conv route)."""
+    import torch
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops import voxelize as V
+    G, K = cfg.grid_size, cfg.nkeypoints
+    m = _app_marionette(cfg, device)
+    clip20 = m.voxelize(motion_points(20, APP_N, seed=61))
+    source = m.voxelize(motion_points(10, APP_N, seed=62))
+    target = motion_points(1, APP_N, seed=63)[0] * np.float32(1.2)
+    forwards = [0]
+    hook = m.model.kypt_detector.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    ms = defaultdict(list)
+    V.launches = L.launches = K3.launches = 0
+    try:
+        for _ in range(2):
+            gen, t = _timed_call(lambda: m.generate(clip20[:5], Tcond=5,
+                                                    Tgen=25, sample_num=3))
+            ms["generate"].append(t)
+            itp, t = _timed_call(lambda: m.interpolate(
+                clip20, anchor_rate=10, sample_num=10000))
+            ms["interpolate"].append(t)
+            ret = {}
+            for mode in ("ours", "baseline"):
+                ret[mode], t = _timed_call(lambda: m.retarget(
+                    source, target, mode=mode))
+                ms[f"retarget_{mode}"].append(t)
+        enc = m.encode(source)
+    finally:
+        hook.remove()
+    launches = {"voxelize": V.launches, "chamfer_fwd": L.launches,
+                "conv3d": K3.launches, "detector_forwards": forwards[0]}
+    # per round: generate 1, interpolate 1, retarget 2 per mode; then encode
+    if (launches["chamfer_fwd"] != forwards[0] or forwards[0] != 2 * 6 + 1
+            or V.launches or K3.launches):
+        raise AssertionError(f"apps launches {launches}: want K2 forward "
+                             f"once per detector forward (13), K1 and K3 "
+                             f"never")
+
+    def want(name, v, shape):
+        if v.shape != shape or not np.isfinite(v).all():
+            raise AssertionError(f"{name}: shape {v.shape} (want {shape}),"
+                                 f" finite {np.isfinite(v).all()}")
+
+    want("generate gen_voxels", gen["gen_voxels"], (3, 30, G, G, G, 1))
+    want("generate keypoints", gen["keypoints"], (3, 30, K, 4))
+    want("generate cond_keypoints", gen["cond_keypoints"], (5, K, 4))
+    want("interpolate interp_voxels", itp["interp_voxels"], (20, G, G, G, 1))
+    want("interpolate keypoints", itp["keypoints"], (20, K, 4))
+    for v in (gen["gen_voxels"], itp["interp_voxels"]):
+        if not set(np.unique(v)) <= {0.0, 1.0}:
+            raise AssertionError("app voxels not thresholded to {0, 1}")
+    kp, det = itp["keypoints"], itp["detected_keypoints"]
+    if not (np.array_equal(kp[[0, 10, 19], :, :3], det[[0, 10, 19], :, :3])
+            and np.array_equal(kp[:, :, 3], np.broadcast_to(det[0, :, 3],
+                                                             (20, K)))):
+        raise AssertionError("interpolate: anchors or intensities changed")
+    if not np.array_equal(gen["keypoints"][:, :5],
+                          np.broadcast_to(gen["cond_keypoints"],
+                                          (3, 5, K, 4))):
+        raise AssertionError("generate: conditioning keypoints differ")
+    for mode, r in ret.items():
+        res = r["result"]
+        want(f"retarget {mode} new_points", res.new_points, (10, APP_N, 3))
+        want(f"retarget {mode} new_keypoints", res.new_keypoints, (10, K, 4))
+        want(f"retarget {mode} skin_weights", res.skin_weights, (APP_N, K))
+        if not np.allclose(res.skin_weights.sum(-1), 1.0, atol=1e-9):
+            raise AssertionError(f"retarget {mode}: skin weights")
+    R = enc["R"].astype(np.float64)
+    orth = float(np.abs(R @ np.swapaxes(R, -1, -2) - np.eye(3)).max())
+    det_err = float(np.abs(np.linalg.det(R) - 1).max())
+    if not (orth < 1e-5 and det_err < 1e-5):
+        raise AssertionError(f"R not orthonormal: {orth:.2e}, det "
+                             f"{det_err:.2e}")
+    out = {"ms": {k: [float(x) for x in v] for k, v in ms.items()},
+           "breakdown_ms": _app_breakdown(m, clip20, source, target),
+           "launches": launches, "R_orthonormal_max_err": orth,
+           "R_det_max_err": det_err,
+           "shapes": {"generate": [5, 25, 3], "interpolate": [20, 10, 10000],
+                      "retarget": [10, APP_N]}}
+    log(f"[apps] ms (first, second call): "
+        + ", ".join(f"{k} {v[0]:.1f}/{v[1]:.1f}" for k, v in ms.items()))
+    log(f"[apps] launches {launches}; R orthonormal to {orth:.1e}")
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _app_breakdown(m, clip20, source, target):
+    """Where an app call's time goes: its parts timed one by one, each
+    synchronised (ms): the detector forward, the VRNN rollout, the decode
+    (``decode_from_dyna``, per call), and retargeting's host part."""
+    import torch
+    from neural_marionette_tpu_torch.apps.common import \
+        detect_and_extract_skeleton
+    from neural_marionette_tpu_torch.models import SkeletonArrays
+    from neural_marionette_tpu_torch.retarget import retarget_motion
+    dyn, det_mod = m.model.dyna_module, m.model.kypt_detector
+    sk_host = m.extract_skeleton()
+    sk = SkeletonArrays.from_skeleton(sk_host, m.device)
+    out = {}
+
+    def part(name, fn):
+        res, out[name] = _timed_call(fn)
+        return res
+
+    with torch.inference_mode():
+        for tag, clip in (("generate", clip20[:5]), ("interpolate", clip20),
+                          ("retarget", source)):
+            det, _ = part(f"{tag}_detector_{len(clip)}_frames",
+                          lambda: detect_and_extract_skeleton(m, clip))
+            first = m.clip_tensor(clip[:1])[:, 0]
+            if tag == "generate":
+                gen = torch.Generator(m.device).manual_seed(2)
+                cond, roll = part("generate_rollout", lambda: (
+                    dyn.generate_many(det["keypoints"], sk, 30, 5, 3,
+                                      generator=gen)))
+                kp = torch.cat([cond, roll[:1]], dim=1)
+                part("generate_decode_30_frames", lambda: (
+                    det_mod.decode_from_dyna(kp, det["first_feature"],
+                                             first)))
+            elif tag == "interpolate":
+                gen = torch.Generator(m.device).manual_seed(2)
+                sel = part("interpolate_rollout", lambda: dyn.interpolate(
+                    det["keypoints"], sk, 10, 10000, generator=gen))
+                part("interpolate_decode_20_frames", lambda: (
+                    det_mod.decode_from_dyna(sel, det["first_feature"],
+                                             first)))
+            else:
+                enc = part("retarget_encode_10_frames", lambda: dyn.encode(
+                    det["keypoints"], sk))
+    kp = det["keypoints"][0].cpu().numpy().astype(np.float64)
+    R = enc["R"][0].cpu().numpy().astype(np.float64)
+    offset = dyn.get_offset(det["keypoints"][:, :1], sk.parents)[0]
+    for mode in ("ours", "baseline"):
+        t0 = time.perf_counter()
+        retarget_motion(sk_host, kp, R, kp[0], R[0], target.astype(
+            np.float64), offset.cpu().numpy(), mode=mode)
+        out[f"retarget_motion_host_{mode}"] = \
+            (time.perf_counter() - t0) * 1e3
+    log("[apps] parts, ms: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in out.items()))
+    return out
+
+
+def phase_generate_step(cfg, device, B=4, T=10, Tcond=3, reps=3):
+    """The training loop's generate step (``make_generate_step``) on a
+    bfloat16 model of the AIST detector preset with Tcond 3, on (4, 10,
+    4096, 3) point batches, with the conv route on and off: K3 launched
+    once per routed conv of a detector forward (``ROUTED_CONVS``) plus
+    once per routed conv of the decoder (``decode_from_dyna``) per step, K1
+    and K2 forward once. Route on against off, same weights and noise:
+    the detected keypoints within 2e-2 (as the stream's), the generated
+    ones within 0.25 (they roll out of bfloat16 detections), and at most
+    1 % of the voxels thresholded otherwise. Returns ms per step (first
+    and timed), launches, and those differences."""
+    import dataclasses
+    import torch
+    from neural_marionette_tpu_torch.models import NeuralMarionette, \
+        SkeletonArrays
+    from neural_marionette_tpu_torch.models.blocks import routes_to_kernel
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops import voxelize as V
+    from neural_marionette_tpu_torch.skeleton import extract_skeleton
+    from neural_marionette_tpu_torch.train import make_generate_step
+    cfg = dataclasses.replace(cfg, Tcond=Tcond)
+    pts = torch.from_numpy(serving_points(B, T, SERVE_N, seed=71)).to(device)
+    out, runs = {}, {}
+    for route in (False, True):
+        net = NeuralMarionette(cfg, dtype=torch.bfloat16, device=device,
+                               conv_kernel=route).eval()
+        _informative_weights(net, seed=0)
+        routed = sum(isinstance(mod, torch.nn.Conv3d)
+                     and routes_to_kernel(mod, torch.bfloat16)
+                     for mod in net.kypt_detector.kypt_to_vox.modules())
+        if routed != ROUTED_DECODER_CONVS:
+            raise AssertionError(f"decoder routed convs {routed}")
+        with torch.no_grad():
+            aff = net.kypt_detector.get_affinity().cpu().numpy()
+        sk = SkeletonArrays.from_skeleton(extract_skeleton(aff), device)
+        step = make_generate_step(net, cfg, sample_num=SAMPLE_NUM)
+        ms = []
+        for i in range(reps):
+            gen = torch.Generator(device).manual_seed(5)
+            V.launches = L.launches = K3.launches = 0
+            res, t = _timed_call(lambda: step(pts, sk, generator=gen))
+            ms.append(t)
+            counts = {"voxelize": V.launches, "chamfer_fwd": L.launches,
+                      "conv3d": K3.launches}
+            k3 = (ROUTED_CONVS + ROUTED_DECODER_CONVS) if route else 0
+            if counts != {"voxelize": 1, "chamfer_fwd": 1, "conv3d": k3}:
+                raise AssertionError(f"generate step (conv_kernel={route}) "
+                                     f"launches {counts}, K3 want {k3}")
+        G, K = cfg.grid_size, cfg.nkeypoints
+        if (res["gen"].shape != (B, T, G, G, G, 1)
+                or res["keypoints"].shape != (B, T, K, 4)
+                or not torch.isfinite(res["gen"].float()).all()
+                or not torch.isfinite(res["keypoints"]).all()):
+            raise AssertionError("generate step outputs")
+        runs[route] = {k: res[k].float().cpu().numpy()
+                       for k in ("gen", "keypoints")}
+        name = "conv_kernel" if route else "default"
+        out[name] = {"ms": [float(x) for x in ms], "launches": counts}
+        log(f"[generate step] {name}: B {B} T {T} Tcond {Tcond} bf16, ms "
+            f"{[round(x, 1) for x in ms]}, launches {counts}")
+        del net, step, res
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    kp_cond = float(np.abs(on["keypoints"][:, :Tcond]
+                           - off["keypoints"][:, :Tcond]).max())
+    kp_gen = float(np.abs(on["keypoints"][:, Tcond:]
+                          - off["keypoints"][:, Tcond:]).max())
+    flips = float(np.mean((on["gen"] >= 0.5) != (off["gen"] >= 0.5)))
+    if not (kp_cond <= 2e-2 and kp_gen <= 0.25 and flips <= 0.01):
+        raise AssertionError(f"generate step route on vs off: keypoints "
+                             f"{kp_cond:.3e} / {kp_gen:.3e}, voxel flips "
+                             f"{flips:.2e}")
+    out.update(B=B, T=T, Tcond=Tcond, sample_num=SAMPLE_NUM,
+               keypoints_cond_max_abs_diff=kp_cond,
+               keypoints_gen_max_abs_diff=kp_gen, voxel_flip_share=flips)
+    log(f"[generate step] route on vs off: detected keypoints {kp_cond:.2e},"
+        f" generated {kp_gen:.2e}, voxel flips {flips:.2e}")
+    return out
+
+
+def phase_apps_reference(cfg, card_device):
+    """Card against CPU (plain versions), float32 with TF32 off, same
+    weights, skeleton and injected noise, at the full width: generation
+    (Tcond 5, Tgen 2, sample_num 2) and interpolation (T 6, anchor_rate
+    3, S 64) through the apps. Tolerances: keypoints 1e-3 absolute (the
+    detected ones agree to 1e-4, phase_reference, and the FK chain
+    amplifies them), thresholded voxels equal on all but 1e-4 of the grid
+    (a voxel within the decoders' agreement of 0.5 may flip); every
+    argmin equal, or a float32 near-tie (``compare_selections``)."""
+    import torch
+    from neural_marionette_tpu_torch.apps.generation import run_generation
+    from neural_marionette_tpu_torch.apps.interpolation import \
+        run_interpolation
+    cpu = torch.device("cpu")
+    card = _app_marionette(cfg, card_device)
+    host = _app_marionette(cfg, cpu)
+    for a, b in zip(card.extract_skeleton(), host.extract_skeleton()):
+        if not np.array_equal(a, b):
+            raise AssertionError("skeleton differs between card and CPU")
+    Z = cfg.nlatent_kypt
+    g = np.random.default_rng(81)
+    gen_eps = (g.standard_normal((5, 2, 1, Z)), g.standard_normal((2, 2, Z)))
+    itp_eps = (g.standard_normal((6, 64, Z)), g.standard_normal((6, 64, Z)))
+    clip = card.voxelize(motion_points(6, APP_N, seed=82))
+    res, rec = {}, {}
+    for m in (card, host):
+        def eps(e):
+            return tuple(torch.from_numpy(x.astype(np.float32)).to(m.device)
+                         for x in e)
+        with _Argmins() as r:
+            res[m is card] = (
+                run_generation(m, clip, Tcond=5, Tgen=2, sample_num=2,
+                               eps=eps(gen_eps)),
+                run_interpolation(m, clip, anchor_rate=3, sample_num=64,
+                                  eps=eps(itp_eps)))
+        rec[m is card] = r
+    ties = compare_selections(rec[True], rec[False], "apps card vs CPU")
+    errs = {}
+    (gc, ic), (gh, ih) = res[True], res[False]
+    for name, a, b in (("generate keypoints", gc["keypoints"],
+                        gh["keypoints"]),
+                       ("interpolate keypoints", ic["keypoints"],
+                        ih["keypoints"])):
+        errs[name] = float(np.abs(a - b).max())
+        if not errs[name] <= 1e-3:
+            raise AssertionError(f"{name}: card vs CPU {errs[name]:.3e}")
+    for name, a, b in (("generate voxels", gc["gen_voxels"],
+                        gh["gen_voxels"]),
+                       ("interpolate voxels", ic["interp_voxels"],
+                        ih["interp_voxels"])):
+        errs[name + " mismatch share"] = float(np.mean(a != b))
+        if not np.mean(a != b) <= 1e-4:
+            raise AssertionError(f"{name}: card vs CPU differ on "
+                                 f"{np.mean(a != b):.2e} of the grid")
+    errs["argmins"] = len(rec[True].calls)
+    errs["argmin_near_ties"] = ties
+    log("[apps reference] float32 card vs CPU: " + ", ".join(
+        f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in errs.items()))
+    return errs
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not (ROOT / "neural_marionette_tpu_torch" / "csrc").is_dir():
@@ -1995,6 +2389,10 @@ def main() -> int:
     train["conv_kernel"] = phase_train_conv(cfg, device)
     torch.cuda.empty_cache()
     phase_train_reference(cfg, seed=0, card_device=device)
+    apps = phase_apps(cfg, device)
+    apps["generate_step"] = phase_generate_step(cfg, device)
+    apps["reference"] = phase_apps_reference(cfg, device)
+    torch.cuda.empty_cache()
     records = phase_timing(device, G, K, launches, errs)
     for rec in conv_records:
         rec["launches"] = launches[rec["name"]]
@@ -2005,6 +2403,12 @@ def main() -> int:
                  for k in profile["conv_kernel"]["port_kernels"]
                  if "conv3d_kernel" in k["name"])
     records[-2]["device_ms"] = k3_dev   # per window, from the profiler
+    for rec in records:   # launches on this slice's paths
+        if rec["name"] == "chamfer_fwd":
+            rec["launches_apps"] = apps["launches"]["chamfer_fwd"]
+        elif rec["name"] == "conv3d":
+            rec["launches_generate_step"] = \
+                apps["generate_step"]["conv_kernel"]["launches"]["conv3d"]
 
     stream = stream_record(ms, STREAM_WINDOWS, peak, card)
     stream_c = stream_record(ms_c, STREAM_WINDOWS, peak_c, card,
@@ -2022,6 +2426,7 @@ def main() -> int:
     print(json.dumps({"stream_conv_kernel": stream_c}))
     print(json.dumps({"profile": profile}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"apps": apps}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
-"""High-level facade of the port: the serving path.
+"""High-level facade of the port: serving, generation, interpolation and
+retargeting.
 
 Counterpart of ``neural_marionette_tpu/api.py`` (``Marionette`` and its
 streaming session), on PyTorch and CUDA:
 
     from neural_marionette_tpu_torch.api import Marionette
-    m = Marionette.from_config(cfg, seed=0)       # on "cuda"
+    m = Marionette.load("pretrained/aist")        # ours or reference .pth
+    gen = m.generate(vox_clip, Tcond=5, Tgen=25)  # motion generation
+    itp = m.interpolate(vox_clip, anchor_rate=10) # in-betweening
+    ret = m.retarget(source_vox, target_points)   # motion retargeting
     with m.stream() as s:
         for result in s.run(windows):              # (B, T, N, 3) points
             consume(result["keypoints"], result["R"])
@@ -49,6 +53,13 @@ class Marionette:
 
     # ------------------------------------------------------------- loading
     @classmethod
+    def load(cls, exp_dir: str, device=None, **overrides) -> "Marionette":
+        """From an experiment directory: the port's checkpoints or the
+        reference's ``opt.pickle`` + ``.pth`` (``apps.common.load_pretrained``)."""
+        from .apps.common import load_pretrained
+        return load_pretrained(exp_dir, device=device, **overrides)
+
+    @classmethod
     def from_config(cls, cfg: MarionetteConfig, seed: int = 0,
                     device=None, conv_kernel: bool = False) -> "Marionette":
         """Random weights made from ``seed`` (the JAX package's initial
@@ -76,7 +87,8 @@ class Marionette:
         return np.stack([voxelize_np(points[t], self.cfg.grid_size)
                          for t in range(points.shape[0])])
 
-    def _vox(self, vox_clip: np.ndarray) -> torch.Tensor:
+    def clip_tensor(self, vox_clip: np.ndarray) -> torch.Tensor:
+        """A clip (T, ...) as a float32 batch of one on the device."""
         return torch.as_tensor(np.asarray(vox_clip, np.float32)[None],
                                device=self.device)
 
@@ -93,7 +105,7 @@ class Marionette:
         """(T, G, G, G, 1) -> keypoints (T, K, 4), heatmaps, recon,
         affinity, skeleton."""
         with torch.inference_mode():
-            det = self.model.kypt_detector(self._vox(vox_clip))
+            det = self.model.kypt_detector(self.clip_tensor(vox_clip))
         skeleton = self.extract_skeleton()
         return dict(keypoints=det["keypoints"][0].cpu().numpy(),
                     heatmaps=det["heatmaps"][0].cpu().numpy(),
@@ -108,12 +120,35 @@ class Marionette:
         sk = SkeletonArrays.from_skeleton(skeleton, self.device)
         gen = torch.Generator(self.device).manual_seed(seed)
         with torch.inference_mode():
-            out = self.model.encode_only(self._vox(vox_clip), sk,
+            out = self.model.encode_only(self.clip_tensor(vox_clip), sk,
                                          sample_num=sample_num,
                                          generator=gen)
         return dict(keypoints=out["keypoints"][0].cpu().numpy(),
                     kypt_recon=out["kypt_recon"][0].cpu().numpy(),
                     R=out["R"][0].cpu().numpy(), skeleton=skeleton)
+
+    # --------------------------------------------------------- capabilities
+    def generate(self, vox_clip: np.ndarray, Tcond: int = 5, Tgen: int = 25,
+                 sample_num: int = 3, seed: int = 2) -> dict:
+        """Motion generation (``apps.generation.run_generation``)."""
+        from .apps.generation import run_generation
+        return run_generation(self, vox_clip, Tcond=Tcond, Tgen=Tgen,
+                              sample_num=sample_num, seed=seed)
+
+    def interpolate(self, vox_clip: np.ndarray, anchor_rate: int = 10,
+                    sample_num: int = 10000, seed: int = 2) -> dict:
+        """In-betweening (``apps.interpolation.run_interpolation``)."""
+        from .apps.interpolation import run_interpolation
+        return run_interpolation(self, vox_clip, anchor_rate=anchor_rate,
+                                 sample_num=sample_num, seed=seed)
+
+    def retarget(self, source_vox: np.ndarray, target_points: np.ndarray,
+                 hardness: float = 8.0, mode: str = "ours",
+                 seed: int = 0) -> dict:
+        """Motion retargeting (``apps.retarget.run_retarget``)."""
+        from .apps.retarget import run_retarget
+        return run_retarget(self, source_vox, target_points,
+                            hardness=hardness, mode=mode, seed=seed)
 
     # ------------------------------------------------------------ streaming
     def stream(self, dtype: str = "bfloat16", sample_num: int = 10,

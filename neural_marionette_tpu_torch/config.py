@@ -2,8 +2,9 @@
 
 :class:`MarionetteConfig` keeps the JAX package's fields and defaults (the
 reference CLI flag names), :func:`adjust_config` its per-dataset
-overrides and :func:`derive_training_id` the fields of the detector and
-the dynamics runs, so one configuration drives both packages. The port
+overrides, :func:`derive_training_id` the fields of the detector and
+the dynamics runs and :func:`load_reference_pickle` the reference's
+``opt.pickle``, so one configuration drives both packages. The port
 implements the configuration of the AIST preset only; :func:`check_supported`
 rejects every other value of the options it does not implement.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pickle
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -314,6 +316,30 @@ SUPPORTED = {
     "fixed_sigma": 1,
     "keypoints_graph": "affinity_params",
 }
+
+
+class _NamespaceStub:
+    """Unpickle target for argparse.Namespace attribute bags."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def load_reference_pickle(path: str) -> MarionetteConfig:
+    """Read a reference ``opt.pickle`` (an ``argparse.Namespace``) into a
+    config: unknown attributes are ignored, missing or None ones keep the
+    defaults (reference ``vis_generation.py:47-50``)."""
+    class _Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if name == "Namespace":
+                return _NamespaceStub
+            return super().find_class(module, name)
+
+    with open(path, "rb") as f:
+        ns = _Unpickler(f).load()
+    raw = dict(ns.__dict__) if not isinstance(ns, dict) else dict(ns)
+    kw = {k: v for k, v in raw.items() if k in _FIELD_NAMES and v is not None}
+    return MarionetteConfig(**kw)
 
 
 def check_supported(cfg: MarionetteConfig) -> None:

@@ -260,3 +260,20 @@ class KyptDetector(nn.Module):
             graph_vol_loss=zero_bt.mean(),  # always zero upstream
             first_feature=first_feature.permute(0, 2, 3, 4, 1),
         )
+
+    def decode_from_dyna(self, keypoints, first_feature, first_frame
+                         ) -> dict[str, Any]:
+        """Keypoints of a rollout -> voxels (reference
+        kypt_detector.py:213-241): Gaussian maps with the fixed sigma list
+        ``[gaussian_sigma] * K`` (not the learned sigmas, as upstream), then
+        the decoder. ``keypoints`` (B, T, K, 4); ``first_feature``
+        (B, g, g, g, C), channels-last as :meth:`forward` returns it;
+        ``first_frame`` (B, G, G, G, 1). Returns ``gen`` (B, T, G, G, G, 1)."""
+        cfg = self.cfg
+        sigmas = torch.full((cfg.nkeypoints,), cfg.gaussian_sigma,
+                            dtype=keypoints.dtype, device=keypoints.device)
+        gaussians = render_gaussian_maps_first(keypoints, sigmas,
+                                               cfg.grid_size // 4)
+        gen = self.kypt_to_vox(gaussians, first_feature.permute(0, 4, 1, 2, 3),
+                               first_frame)
+        return dict(gen=gen)

@@ -1,11 +1,16 @@
 """HSVRNNBVH: variational-RNN latent dynamics over keypoints with
-forward-kinematic 6D-rotation decoding — the ``encode`` path.
+forward-kinematic 6D-rotation decoding: ``encode`` and the demo rollouts
+``generate``, ``generate_many`` and ``interpolate``.
 
 Counterpart of ``neural_marionette_tpu/models/dynamics.py``: the GRU cell,
 the posterior/prior and decoder MLPs, best-of-N sampling with the N
 samples folded into the batch, pointer-doubling FK. Parameter names follow
 the reference ``state_dict`` (``model/hsvrnn_bvh.py``). The dynamics
 compute in float32 whatever the detector's dtype, as in the JAX package.
+
+Every rollout is a Python loop over t. Its standard-normal draws come in
+as ``eps`` (laid out one to one onto the JAX package's draws, so the tests
+replay them) or are drawn from ``generator`` on the keypoints' device.
 """
 from __future__ import annotations
 
@@ -69,18 +74,26 @@ class HSVRNNBVH(nn.Module):
         """torch.nn.GRUCell semantics (reset gate inside the candidate)."""
         return self.kypt_rnn_cell(x, h)
 
+    @staticmethod
+    def _dist(raw):
+        mean, sraw = raw.chunk(2, dim=-1)
+        return mean, F.softplus(sraw) + 1e-4  # hsvrnn_bvh.py:95,103
+
+    def _posterior(self, h, keypoint_flat):
+        """(mean, std) of the posterior on ``[h, x]``."""
+        return self._dist(self.extract_post_dist(
+            torch.cat([h, keypoint_flat], dim=-1)))
+
+    def _prior(self, h):
+        """(mean, std) of the prior on ``h``."""
+        return self._dist(self.extract_prior_dist(h))
+
     def _post_prior_fused(self, h, keypoint_flat):
         """Posterior(h, x) and prior(h). The JAX package fuses the two MLPs
         into one (XLA folds the weight concatenation); eager PyTorch would
         rebuild the fused weights on every step, so the modules run as they
         are. Returns (post_mean, post_std, prior_mean, prior_std)."""
-        post = self.extract_post_dist(torch.cat([h, keypoint_flat], dim=-1))
-        prior = self.extract_prior_dist(h)
-        post_mean, post_sraw = post.chunk(2, dim=-1)
-        prior_mean, prior_sraw = prior.chunk(2, dim=-1)
-        eps = 1e-4  # hsvrnn_bvh.py:95,103
-        return (post_mean, F.softplus(post_sraw) + eps,
-                prior_mean, F.softplus(prior_sraw) + eps)
+        return self._posterior(h, keypoint_flat) + self._prior(h)
 
     def _decoder_fused(self, x):
         """Both decoder heads on ``x``, unfused as in ``_post_prior_fused``.
@@ -189,3 +202,176 @@ class HSVRNNBVH(nn.Module):
             topo_recon_loss=zero,  # dead upstream
             best_index=torch.stack(idx, 1),               # (B, T)
         )
+
+    # ----------------------------------------------------- demo rollouts
+    def _noise(self, eps, shapes, generator, device, what):
+        """The rollout's standard-normal draws: ``eps`` (a tuple of tensors
+        of ``shapes``) checked, or drawn from ``generator`` on ``device``."""
+        if eps is None:
+            return tuple(torch.randn(s, generator=generator, device=device)
+                         for s in shapes)
+        got = tuple(tuple(e.shape) for e in eps)
+        if got != tuple(shapes):
+            raise ValueError(f"{what}: eps must be {tuple(shapes)}, got {got}")
+        return tuple(eps)
+
+    def _condition(self, keypoints, eps, offset_rep, skeleton):
+        """Posterior best-of-N steps over the conditioning frames of
+        ``keypoints`` (B, T, K, 4) from the learned initial state, with the
+        draws ``eps`` (T, S, B, Z). Returns (h, the best keypoints of each
+        step, (B, K*4) each)."""
+        B, T = keypoints.shape[:2]
+        h = self.init_kypt_rnn_state.expand(B, self.H)
+        best = []
+        for t in range(T):
+            keypoint_flat = keypoints[:, t].reshape(B, -1)
+            post_mean, post_std = self._posterior(h, keypoint_flat)
+            z_samples = post_mean[None] + post_std[None] * eps[t]
+            best_z, best_kypt, _, _ = self._best_of_n(
+                h, z_samples, offset_rep, skeleton, keypoint_flat)
+            h = self._gru(torch.cat([best_kypt, best_z], dim=-1), h)
+            best.append(best_kypt)
+        return h, best
+
+    def _prior_step(self, h, eps, offset, skeleton):
+        """One prior step: z from the prior on ``h`` with the draws ``eps``,
+        decoded with ``offset``, then the GRU. Returns (h, keypoints flat)."""
+        prior_mean, prior_std = self._prior(h)
+        z = prior_mean + prior_std * eps
+        kypt_flat, _ = self.extract_kypt_from_latent_and_state(
+            torch.cat([h, z], dim=-1), offset, skeleton)
+        return self._gru(torch.cat([kypt_flat, z], dim=-1), h), kypt_flat
+
+    def generate_many(self, keypoints_cond, skeleton: SkeletonArrays,
+                      Ttot: int, Tcond: int, sample_num: int = 3,
+                      eps=None, generator: Optional[torch.Generator] = None):
+        """Conditioned collapse, then ``sample_num`` independent prior
+        rollouts (the generation demo, reference vis_generation.py:92-127):
+        each conditioning step draws ``sample_num`` posterior samples and
+        keeps the best; the state then fans out.
+
+        ``keypoints_cond`` (1, Tcond, K, 4). ``eps`` = (conditioning draws
+        (Tcond, sample_num, 1, Z), prior draws (Ttot-Tcond, sample_num, Z)),
+        the JAX package's ``split(fold_in(rng, 0), Tcond)`` and
+        ``split(fold_in(rng, 1), Ttot-Tcond)`` draws. Returns
+        (cond_keypoints (1, Tcond, K, 4), the detected keypoints;
+        gen_keypoints (sample_num, Ttot-Tcond, K, 4))."""
+        keypoints_cond = keypoints_cond.float()
+        B, T, K, _ = keypoints_cond.shape
+        if B != 1 or T != Tcond:
+            raise ValueError(f"generate_many takes one clip of Tcond={Tcond}"
+                             f" frames, got {tuple(keypoints_cond.shape)}")
+        S, Z, Tgen = sample_num, self.Z, Ttot - Tcond
+        eps_cond, eps_gen = self._noise(
+            eps, ((Tcond, S, 1, Z), (Tgen, S, Z)), generator,
+            keypoints_cond.device, "generate_many")
+        offset_rep = self.get_offset(keypoints_cond, skeleton.parents
+                                     ).repeat(S, 1, 1)
+        h, _ = self._condition(keypoints_cond, eps_cond, offset_rep, skeleton)
+        h = h.expand(S, self.H)
+        gen = []
+        for t in range(Tgen):
+            h, kypt_flat = self._prior_step(h, eps_gen[t], offset_rep,
+                                            skeleton)
+            gen.append(kypt_flat)
+        return keypoints_cond, torch.stack(gen, 1).reshape(S, Tgen, K, -1)
+
+    def generate(self, keypoints_cond, skeleton: SkeletonArrays,
+                 Ttot: int = 10, Tcond: int = 3, sample_num: int = 10,
+                 eps=None, generator: Optional[torch.Generator] = None
+                 ) -> dict[str, Any]:
+        """Conditioned posterior steps, then one prior rollout per batch row
+        (reference hsvrnn_bvh.py:158-234).
+
+        ``keypoints_cond`` (B, Tcond, K, 4). ``eps`` = (conditioning draws
+        (Tcond, sample_num, B, Z), prior draws (Ttot-Tcond, B, Z)), laid out
+        as ``generate_many``'s. Returns the best conditioning samples
+        ``keypoints_cond`` (B, Tcond, K, 4) and ``keypoints_gen``
+        (B, Ttot-Tcond, K, 4)."""
+        keypoints_cond = keypoints_cond.float()
+        B, T, K, _ = keypoints_cond.shape
+        if T != Tcond:
+            raise ValueError(f"generate takes Tcond={Tcond} frames, got "
+                             f"{tuple(keypoints_cond.shape)}")
+        S, Z, Tgen = sample_num, self.Z, Ttot - Tcond
+        eps_cond, eps_gen = self._noise(
+            eps, ((Tcond, S, B, Z), (Tgen, B, Z)), generator,
+            keypoints_cond.device, "generate")
+        offset = self.get_offset(keypoints_cond, skeleton.parents)
+        h, cond = self._condition(keypoints_cond, eps_cond,
+                                  offset.repeat(S, 1, 1), skeleton)
+        gen = []
+        for t in range(Tgen):
+            # the rollout decodes with ``offset``, one row per clip
+            h, kypt_flat = self._prior_step(h, eps_gen[t], offset, skeleton)
+            gen.append(kypt_flat)
+        return dict(
+            keypoints_cond=torch.stack(cond, 1).reshape(B, Tcond, K, -1),
+            keypoints_gen=torch.stack(gen, 1).reshape(B, Tgen, K, -1))
+
+    def interpolate(self, keypoints, skeleton: SkeletonArrays,
+                    anchor_rate: int = 10, sample_num: int = 10000,
+                    eps=None, generator: Optional[torch.Generator] = None):
+        """Anchor-constrained latent in-betweening (the interpolation demo,
+        reference vis_interpolation.py:91-136): ``sample_num`` parallel
+        prior rollouts between anchor frames (``t % anchor_rate == 0`` or
+        the last frame). At an anchor the state collapses to the best
+        posterior sample against the detected keypoints, and the in-between
+        trajectory whose extra prior sample lands nearest that best sample
+        is kept for the whole segment back to the previous anchor.
+
+        ``keypoints`` (1, T, K, 4). ``eps`` = (posterior draws (T, S, Z),
+        prior draws (T, S, Z)): an anchor step t draws its posterior sample
+        from row t of the first and its prior sample from row t of the
+        second (the JAX package's ``split(fold_in(rng, t))`` keys k1, k2);
+        an in-between step draws from row t of the second (the key
+        ``fold_in(rng, t)`` itself) and row t of the first goes unused.
+        Returns the selected keypoints (1, T, K, 4) with the intensities
+        of frame 0 on every frame (reference :136)."""
+        keypoints = keypoints.float()
+        B, T, K, _ = keypoints.shape
+        if B != 1:
+            raise ValueError(f"interpolate takes one clip, got B={B}")
+        S, Z = sample_num, self.Z
+        eps_post, eps_prior = self._noise(
+            eps, ((T, S, Z), (T, S, Z)), generator, keypoints.device,
+            "interpolate")
+        offset = self.get_offset(keypoints, skeleton.parents)
+        offset_rep = offset.repeat(S, 1, 1)
+        h = self.init_kypt_rnn_state.expand(S, self.H)
+        kp_det_seq = keypoints[0].reshape(T, K * 4)
+        stored, chooses = [], []
+        seg_start = 0
+        for t in range(T):
+            if t % anchor_rate == 0 or t == T - 1:
+                kp_det = kp_det_seq[t][None].expand(S, K * 4)
+                post_mean, post_std, prior_mean, prior_std = \
+                    self._post_prior_fused(h, kp_det)
+                z_post = post_mean + post_std * eps_post[t]
+                z_choose = prior_mean + prior_std * eps_prior[t]
+                kp_post, _ = self.extract_kypt_from_latent_and_state(
+                    torch.cat([h, z_post], dim=-1), offset_rep, skeleton)
+                kp_choose, _ = self.extract_kypt_from_latent_and_state(
+                    torch.cat([h, z_choose], dim=-1), offset_rep, skeleton)
+                # collapse to the best posterior sample (first on ties)
+                best = torch.argmin(((kp_post - kp_det) ** 2).sum(dim=-1))
+                kp_best = kp_post[best][None].expand(S, K * 4)
+                z = z_post[best][None].expand(S, Z)
+                h_c = h[best][None].expand(S, self.H)
+                choose = torch.argmin(((kp_choose - kp_best) ** 2).sum(
+                    dim=-1))
+                h = self._gru(torch.cat([kp_best, z], dim=-1), h_c)
+                stored.append(kp_det)
+                # the segment back to the previous anchor keeps ``choose``
+                chooses += [choose] * (t + 1 - seg_start)
+                seg_start = t + 1
+            else:
+                h, kp_flat = self._prior_step(h, eps_prior[t], offset_rep,
+                                              skeleton)
+                stored.append(kp_flat)
+        kp_all = torch.stack(stored)                        # (T, S, K*4)
+        sel = torch.stack(chooses)                          # (T,)
+        out = kp_all[torch.arange(T, device=sel.device), sel].reshape(
+            1, T, K, 4).clone()
+        out[0, :, :, -1] = out[0, 0, :, -1]
+        return out

@@ -55,6 +55,35 @@ class NeuralMarionette(nn.Module):
                 eps=eps, generator=generator))
         return log
 
+    def generate(self, vox_seq, skeleton: SkeletonArrays,
+                 affinity_active: bool = True, sample_num: int = 10,
+                 eps=None, generator: Optional[torch.Generator] = None
+                 ) -> dict[str, Any]:
+        """Conditioned generation (reference neural_marionette.py:58-103):
+        detect on the first ``cfg.Tcond`` frames, roll the VRNN out to the
+        clip's T, decode the generated keypoints back to voxels. Returns
+        ``gen`` = recon[:, :Tcond] || decoded (B, T, G, G, G, 1),
+        ``keypoints`` = detected || generated (B, T, K, 4) and ``affinity``.
+        ``eps``: as ``HSVRNNBVH.generate`` takes it."""
+        T = vox_seq.shape[1]
+        Tcond = self.cfg.Tcond
+        if not Tcond < T:
+            raise ValueError(f"generate needs more than Tcond={Tcond} "
+                             f"frames, got {T}")
+        det = self.kypt_detector(vox_seq[:, :Tcond],
+                                 affinity_active=affinity_active)
+        keypoints = det["keypoints"]
+        dyn = self.dyna_module.generate(keypoints.detach(), skeleton, Ttot=T,
+                                        Tcond=Tcond, sample_num=sample_num,
+                                        eps=eps, generator=generator)
+        gen = self.kypt_detector.decode_from_dyna(
+            dyn["keypoints_gen"], det["first_feature"], vox_seq[:, 0])["gen"]
+        return dict(
+            gen=torch.cat([det["recon"][:, :Tcond], gen], dim=1),
+            keypoints=torch.cat([keypoints[:, :Tcond], dyn["keypoints_gen"]],
+                                dim=1),
+            affinity=det["affinity"])
+
     def encode_only(self, vox_seq, skeleton: SkeletonArrays,
                     affinity_active: bool = True, sample_num: int = 10,
                     eps: Optional[torch.Tensor] = None,

@@ -50,7 +50,7 @@ from ..weights import (init_weights, load_detector_state,
 from .checkpoint import CheckpointManager, load_params_only
 from .scheduler import LossScheduler, MetricLogger
 from .state import create_train_state, reset_optimizer, set_learning_rate
-from .step import make_train_step
+from .step import make_generate_step, make_train_step
 
 # Steps between two reads of the step metrics to the host (train.py:255).
 _READBACK_EVERY = 50
@@ -86,6 +86,7 @@ class Trainer:
         self.train_log = MetricLogger()
         self.start_epoch = 0
         self._steps: dict = {}
+        self._gen_steps: dict = {}
         self.ckpt = None
         latest = None
         if logger_path is not None:
@@ -137,6 +138,20 @@ class Trainer:
                 s.module_actives["detector"], s.module_actives["learner"],
                 s.affinity_active)
         return self._steps[key]
+
+    def phase_generate_step(self):
+        """The generate step of the scheduler's current phase (made once),
+        or None while the learner is off, as the JAX training loop makes it
+        beside the phase's train step (``train.py:228``). That loop runs it
+        on the first validation batch; validation is not ported yet."""
+        s = self.sched
+        if not s.module_actives["learner"]:
+            return None
+        key = s.phase_key()
+        if key not in self._gen_steps:
+            self._gen_steps[key] = make_generate_step(
+                self.model, self.cfg, s.affinity_active)
+        return self._gen_steps[key]
 
     def phase_skeleton(self) -> Optional[SkeletonArrays]:
         """The skeleton the steps take, on the device (None until the

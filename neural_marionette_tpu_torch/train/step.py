@@ -16,7 +16,8 @@ state's generator, unless the caller hands it in (``eps``, one tensor per
 microbatch, as ``HSVRNNBVH.encode`` takes it), as the tests do to replay the
 JAX step's noise.
 
-``make_generate_step`` comes with the generation slice.
+``make_generate_step`` makes the generation the JAX training loop logs
+(``NeuralMarionette.generate`` on a batch, without gradients).
 """
 from __future__ import annotations
 
@@ -151,3 +152,22 @@ def make_eval_step(model: torch.nn.Module, cfg: MarionetteConfig,
         return metrics, tensors
 
     return eval_fn
+
+
+def make_generate_step(model: torch.nn.Module, cfg: MarionetteConfig,
+                       affinity_active: bool = True, sample_num: int = 10):
+    """``gen_step(batch, skeleton, generator=None, eps=None) -> dict`` of
+    ``NeuralMarionette.generate`` (``gen``, ``keypoints``, ``affinity``) on a
+    batch of points or voxels, cast to the model's dtype, under
+    ``torch.inference_mode()``. On a bfloat16 ``conv_kernel=True`` model
+    its routed convs run kernel K3. ``eps``: as ``HSVRNNBVH.generate``
+    takes it."""
+
+    @torch.inference_mode()
+    def gen_fn(batch, skeleton, generator=None, eps=None):
+        vox = _as_voxels(batch, cfg, model.dtype)
+        return model.generate(vox, skeleton, affinity_active=affinity_active,
+                              sample_num=sample_num, eps=eps,
+                              generator=generator)
+
+    return gen_fn

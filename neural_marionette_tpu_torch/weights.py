@@ -1,5 +1,5 @@
 """Weights: the JAX package's parameter tree -> the port's ``state_dict``,
-a reference detector ``.pth`` -> the port's detector, and random
+a reference ``.pth`` -> the port's detector or whole model, and random
 initialisation from a seed.
 
 The port's module tree uses the reference's ``state_dict`` key names, the
@@ -15,7 +15,8 @@ the port's own copy of those tables and runs them the other way:
 :func:`state_dict_from_jax` is the inverse of ``convert_reference_state_dict``.
 The reference's own ``network.state_dict()`` needs no table:
 :func:`load_reference_detector` copies its ``kypt_detector.`` entries
-straight into the port's detector.
+straight into the port's detector, :func:`load_reference_checkpoint` all
+of it into the whole model.
 """
 from __future__ import annotations
 
@@ -228,19 +229,15 @@ DETECTOR_PREFIX = "kypt_detector."
 
 
 @torch.no_grad()
-def load_detector_state(model: nn.Module, state: Mapping[str, Any],
-                        source: str = "state dict") -> None:
-    """Copy the ``kypt_detector.`` entries of ``state`` (reference key names,
-    the port's own) into ``model``'s detector in place; other entries are
-    ignored. Raises ``KeyError`` on a detector key that ``state`` lacks or
-    that the model does not have, ``ValueError`` on a shape that differs."""
-    own = {k: v for k, v in model.state_dict(keep_vars=True).items()
-           if k.startswith(DETECTOR_PREFIX)}
-    given = {k: v for k, v in state.items() if k.startswith(DETECTOR_PREFIX)}
+def _copy_checked(own: Mapping[str, torch.Tensor], given: Mapping[str, Any],
+                  what: str, source: str) -> None:
+    """Copy ``given`` into the tensors ``own`` in place. Raises ``KeyError``
+    on a key of ``own`` that ``given`` lacks or a key of ``given`` that
+    ``own`` lacks, ``ValueError`` on a shape that differs."""
     missing = sorted(own.keys() - given.keys())
     unmapped = sorted(given.keys() - own.keys())
     if missing or unmapped:
-        raise KeyError(f"{source}: detector keys missing {missing[:4]} "
+        raise KeyError(f"{source}: {what} keys missing {missing[:4]} "
                        f"({len(missing)}), unmapped {unmapped[:4]} "
                        f"({len(unmapped)})")
     for k, dst in own.items():
@@ -251,6 +248,18 @@ def load_detector_state(model: nn.Module, state: Mapping[str, Any],
         dst.copy_(src)
 
 
+def load_detector_state(model: nn.Module, state: Mapping[str, Any],
+                        source: str = "state dict") -> None:
+    """Copy the ``kypt_detector.`` entries of ``state`` (reference key names,
+    the port's own) into ``model``'s detector in place; other entries are
+    ignored. Raises ``KeyError`` on a detector key that ``state`` lacks or
+    that the model does not have, ``ValueError`` on a shape that differs."""
+    own = {k: v for k, v in model.state_dict(keep_vars=True).items()
+           if k.startswith(DETECTOR_PREFIX)}
+    given = {k: v for k, v in state.items() if k.startswith(DETECTOR_PREFIX)}
+    _copy_checked(own, given, "detector", source)
+
+
 def load_reference_detector(path: str, model: nn.Module) -> None:
     """Load the detector of a reference-layout ``.pth`` (a
     ``network.state_dict()``) into ``model``; its other keys are ignored.
@@ -258,6 +267,22 @@ def load_reference_detector(path: str, model: nn.Module) -> None:
     ``utils/torch_convert.py``."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     load_detector_state(model, state, source=path)
+
+
+def load_reference_checkpoint(path: str, model: nn.Module) -> None:
+    """Load a whole reference-layout ``.pth`` (``network.state_dict()``:
+    detector and dynamics) into ``model`` in place. Counterpart of
+    ``load_reference_checkpoint`` of the JAX package's
+    ``utils/torch_convert.py``, whose converter drops no key on purpose: it
+    maps every key of the reference's tree and raises on any other. So this
+    loader is strict on every key, detector and dynamics alike: a key the
+    model has and the file lacks, or one the file has and the model lacks,
+    raises ``KeyError``; a shape that differs ``ValueError``. (The two
+    reference keys the converter maps that the port's model never has,
+    ``kypt_detector.vox_to_kypt.initial_heatmaps`` and ``.sigmas``, belong
+    to options ``config.check_supported`` rejects.)"""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    _copy_checked(model.state_dict(keep_vars=True), state, "network", path)
 
 
 # ------------------------------------------------------------- random init

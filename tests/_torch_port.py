@@ -112,3 +112,52 @@ def jax_sample_eps(model, params, key, T, sample_num, B, Z):
     keys = jax.random.split(k0, T)
     return np.stack([np.asarray(jax.random.normal(k, (sample_num, B, Z)))
                      for k in keys])
+
+
+def _dyna_rng(model, params, key):
+    """The first ``make_rng("sample")`` of the dynamics module under the
+    ``"sample"`` key ``key``."""
+    return model.apply(params, method=lambda m: m.dyna_module.make_rng(
+        "sample"), rngs={"sample": key})
+
+
+def jax_generate_eps(model, params, key, Ttot, Tcond, sample_num, B=1,
+                     many=True):
+    """The noise ``HSVRNNBVH.generate_many`` (``many``) or ``generate``
+    draws from the ``"sample"`` key ``key``, in the port's layout:
+    conditioning draws (Tcond, S, B, Z) from ``split(fold_in(rng, 0),
+    Tcond)`` (dynamics.py:226/:546) and prior draws from
+    ``split(fold_in(rng, 1), Ttot-Tcond)`` (:249/:547), (Ttot-Tcond, S, Z)
+    for ``generate_many`` and (Ttot-Tcond, B, Z) for ``generate``."""
+    rng = _dyna_rng(model, params, key)
+    Z = model.cfg.nlatent_kypt
+    cond = [np.asarray(jax.random.normal(k, (sample_num, B, Z)))
+            for k in jax.random.split(jax.random.fold_in(rng, 0), Tcond)]
+    gen_shape = (sample_num, Z) if many else (B, Z)
+    gen = [np.asarray(jax.random.normal(k, gen_shape))
+           for k in jax.random.split(jax.random.fold_in(rng, 1),
+                                     Ttot - Tcond)]
+    return (np.stack(cond).astype(np.float32),
+            np.stack(gen).astype(np.float32))
+
+
+def jax_interpolate_eps(model, params, key, T, anchor_rate, sample_num):
+    """The noise ``HSVRNNBVH.interpolate`` draws from the ``"sample"`` key
+    ``key``, in the port's layout (posterior (T, S, Z), prior (T, S, Z)):
+    step t's key is ``fold_in(rng, t)`` (dynamics.py:296); an anchor step
+    draws its posterior sample from k1 and its prior sample from k2 of
+    ``split(key)`` (:319-327), an in-between step its prior sample from the
+    key itself (:309-313; its posterior row stays zero)."""
+    rng = _dyna_rng(model, params, key)
+    S, Z = sample_num, model.cfg.nlatent_kypt
+    post = np.zeros((T, S, Z), np.float32)
+    prior = np.zeros((T, S, Z), np.float32)
+    for t in range(T):
+        k = jax.random.fold_in(rng, t)
+        if t % anchor_rate == 0 or t == T - 1:
+            k1, k2 = jax.random.split(k)
+            post[t] = np.asarray(jax.random.normal(k1, (S, Z)))
+            prior[t] = np.asarray(jax.random.normal(k2, (S, Z)))
+        else:
+            prior[t] = np.asarray(jax.random.normal(k, (S, Z)))
+    return post, prior

@@ -56,8 +56,14 @@ _IMPORT_CHECK = """
 import importlib, pkgutil, sys
 import neural_marionette_tpu_torch as pkg
 import neural_marionette_tpu_torch.api as api
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                 pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+want = {pkg.__name__ + "." + n for n in (
+    "apps.common", "apps.generation", "apps.interpolation", "apps.retarget",
+    "retarget", "data.pipeline", "train.step", "weights")}
+assert want <= set(names), sorted(want - set(names))
 bad = [n for n in sys.modules if n == "jax" or n.startswith("jax.")
        or n == "neural_marionette_tpu"
        or n.startswith("neural_marionette_tpu.")]
@@ -66,22 +72,31 @@ import torch
 assert not torch.cuda.is_available()
 cfg = pkg.MarionetteConfig(grid_size=16, feat_dim=32, nkeypoints=6)
 from neural_marionette_tpu_torch.train import Trainer
-for entry in (api.Marionette.from_config, Trainer):
+import shutil, tempfile
+from neural_marionette_tpu_torch.apps.common import load_pretrained
+opt_dir = tempfile.mkdtemp()
+cfg.save_json(opt_dir + "/opt.json")
+for entry in (api.Marionette.from_config, Trainer, api.Marionette.load,
+              load_pretrained):
+    arg = opt_dir if entry in (api.Marionette.load, load_pretrained) else cfg
     try:
-        entry(cfg)
+        entry(arg)
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
     else:
         raise AssertionError(f"{entry} without a card did not raise")
+shutil.rmtree(opt_dir)
 print("clean")
 """
 
 
 def test_port_imports_no_jax_and_wants_a_card():
     """In a fresh process (this one has jax loaded by conftest): importing
-    every module of the port loads neither ``jax`` nor any module of
-    ``neural_marionette_tpu``, and the entry points (the serving model and
-    the trainer) given no device ask for CUDA and raise without a card."""
+    every module of the port (the apps, ``retarget`` and ``data.pipeline``
+    among them) loads neither ``jax`` nor any module of
+    ``neural_marionette_tpu``, and the entry points (the serving model, the
+    trainer and the loaders of an experiment directory) given no device ask
+    for CUDA and raise without a card."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
