@@ -8,7 +8,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. the card: its name and power limit, as ``nvidia-smi`` gives them;
 2. the build of every kernel in ``neural_marionette_tpu_torch/csrc/``, one
-   ``nvcc`` each, all at once, with their ``-Xptxas -v`` lines;
+   ``nvcc`` each, and of the host data library (``g++``), all at once,
+   with the kernels' ``-Xptxas -v`` lines;
 3. K1 (voxelizer) against its plain version and a numpy oracle on the card,
    equal to the bit, float32 and bfloat16, at G = 5, 16, 32 and 64 on the
    edge cases (out of range on each axis, NaN and +-inf, duplicates, ragged
@@ -83,19 +84,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
     forward and of the decoder, the two routes within stated bounds; and
     generation and interpolation card against CPU (float32, injected
     noise, selections equal or float32 near-ties) within stated
-    tolerances.
+    tolerances;
+15. the training CLI (``cli.train``) in-process at the AIST preset in
+    bfloat16 on an AIST++-layout tree the script writes (12 train and 4
+    test sequences of 40 frames x 20000 points, ~154 MB): the loader's
+    batches on the card (4 threads, prefetch) equal to the host's, two
+    epochs across the detector -> learner switch with validation
+    (semantic, voxel_chamfer) and a checkpoint each, then a resume for one
+    epoch on the conv route: the files ``train.py`` writes, finite, the
+    resume at the next epoch, and the launches of K1, K2 forward and
+    backward and K3 under each run; the loader's ms per batch at 0 and 4
+    threads, the detector and learner steps through the loader (p50, and
+    the busy share of three profiled steps), the validation's parts and
+    the recon occupancy, the epoch seconds; then the three demo CLIs
+    (``cli.vis_*``) from the run's directory, their ``.npy`` outputs
+    checked.
 
 It prints a ``{"kernels": [...]}`` line (K2 forward's record with its
-launches on the apps, K3's with its launches on the generate step), a
+launches on the apps, K3's with its launches on the generate step, K1's,
+K2's and K3's with their launches under the CLI), a
 ``{"conv3d_shapes": [...]}`` line, a ``{"stream": ...}`` and a
 ``{"stream_conv_kernel": ...}`` line, a ``{"profile": ...}`` line, a
-``{"train": ...}`` line, an ``{"apps": ...}`` line, the card's line, and
-last ``{"ok": true, "device": {...}}``. Without a card, or without the
+``{"train": ...}`` line, an ``{"apps": ...}`` line, a ``{"cli": ...}``
+line, the card's line, and last ``{"ok": true, "device": {...}}``. Without a card, or without the
 package beside it, it exits nonzero before printing a result.
 """
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -241,12 +258,13 @@ def phase_build():
     built = kernels.build()
     wall = time.perf_counter() - t0
     for name, info in built.items():
-        log(f"[build] {name}: nvcc {info['seconds']:.2f} s")
+        log(f"[build] {name}: {info['seconds']:.2f} s")
         for ln in info["log"].splitlines():
             if "registers" in ln or "bytes stack" in ln or "smem" in ln:
                 log(f"[build]   {ln.strip()}")
-    log(f"[build] all kernels in {wall:.2f} s (parallel nvcc)")
-    for name in kernels.SOURCES:
+    log(f"[build] all kernels and the host data library in {wall:.2f} s "
+        "(parallel nvcc and g++)")
+    for name in kernels.SOURCES + kernels.HOST_SOURCES:
         kernels.library(name)
     return wall
 
@@ -2297,6 +2315,427 @@ def phase_apps_reference(cfg, card_device):
     return errs
 
 
+# --------------------------------------------------------------------- cli
+CLI_SEQS = {"train": 12, "test": 4}   # sequences per split
+CLI_FRAMES, CLI_POINTS = 40, 20000    # prepare_aistpp.py's --n_points
+CLI_B, CLI_N, CLI_WORKERS = 4, 4096, 4
+# launches of the two CLI runs: per epoch 3 train steps, 1 eval step and 1
+# voxelization of the GT; the detector phase's steps run K2 backward, the
+# resumed epoch 48 routed convs a detector forward
+CLI_LAUNCHES = [{"voxelize": 10, "chamfer_fwd": 8, "chamfer_bwd": 3,
+                 "conv3d": 0},
+                {"voxelize": 5, "chamfer_fwd": 4, "chamfer_bwd": 0,
+                 "conv3d": 4 * ROUTED_CONVS}]
+# SMPL's kinematic tree (24 joints), the parents prepare_aistpp.py reads
+SMPL_PARENTS = (-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14,
+                16, 17, 18, 19, 20, 21)
+
+
+def write_aist_tree(root: Path, seed: int = 0) -> int:
+    """A dataset tree in the AIST++ prepared layout (prepare_aistpp.py):
+    ``aist_plusplus_smpl_joints/{surface,joints,root_aligns}/<split>/
+    <seq>.npy`` and ``gt_affinity.npy`` from the SMPL parents; float32
+    point clouds of a body-sized blob drifting over the clip, 24 joints
+    among them, a yaw per frame. Returns the bytes written."""
+    g = np.random.default_rng(seed)
+    base = root / "aist_plusplus_smpl_joints"
+    total = 0
+    for split, n in CLI_SEQS.items():
+        for sub in ("surface", "joints", "root_aligns"):
+            (base / sub / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            body = (g.normal(0.0, 0.25, (CLI_POINTS, 3))
+                    * np.array([0.3, 0.9, 0.2])).astype(np.float32)
+            t = np.arange(CLI_FRAMES, dtype=np.float32)[:, None, None]
+            drift = t * g.uniform(-0.01, 0.01, 3).astype(np.float32)
+            sway = 0.05 * np.sin(0.3 * t + body[None, :, 1:2] * 4)
+            pts = body[None] + drift
+            pts[..., 0:1] += sway
+            joints = pts[:, :24].copy()
+            yaw = 0.05 * np.arange(CLI_FRAMES) + i
+            c, sn = np.cos(yaw), np.sin(yaw)
+            rots = np.zeros((CLI_FRAMES, 3, 3), np.float32)
+            rots[:, 0, 0] = rots[:, 2, 2] = c
+            rots[:, 0, 2], rots[:, 2, 0], rots[:, 1, 1] = sn, -sn, 1
+            name = f"gBR_sBM_c{split[:2]}_d{i:02d}_mBR0_ch01.npy"
+            for sub, arr in (("surface", pts), ("joints", joints),
+                             ("root_aligns", rots)):
+                np.save(base / sub / split / name, arr)
+                total += arr.nbytes
+    aff = np.zeros((24, 24), np.float32)
+    for k, parent in enumerate(SMPL_PARENTS):
+        if parent >= 0:
+            aff[k, parent] = aff[parent, k] = 1.0
+    np.save(base / "gt_affinity.npy", aff)
+    return total + aff.nbytes
+
+
+def cli_argv(data, out, **extra):
+    """``cli.train`` flags: the AIST preset (every field ``adjust_config``
+    sets, given verbatim), then ``extra``."""
+    import dataclasses
+    from neural_marionette_tpu_torch import MarionetteConfig, adjust_config
+    plain = MarionetteConfig(dataset="aist")
+    preset = adjust_config(plain)
+    argv = []
+    for f in dataclasses.fields(preset):
+        v = getattr(preset, f.name)
+        if v != getattr(plain, f.name) or f.name == "dataset":
+            argv += [f"--{f.name}", str(v)]
+    fields = dict(data_root=data, output_root=out, exp_name="smoke",
+                  apply_adjust_config=0, nbatch=CLI_B, n_points=CLI_N,
+                  num_workers=CLI_WORKERS, is_eval=1, eval_voxel_chamfer=1,
+                  detector_start=0, detector_end=1, learner_start=1,
+                  affinity_anneal=0, save_every=1,
+                  compute_dtype="bfloat16")
+    fields.update(extra)
+    for k, v in fields.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def _cli_launches(run):
+    """(launches of K1, K2 fwd/bwd and K3 over ``run()``, its result):
+    the counters set to 0 just before and read just after."""
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops import voxelize as V
+    V.launches = L.launches = L.bwd_launches = K3.launches = 0
+    out = run()
+    return dict(voxelize=V.launches, chamfer_fwd=L.launches,
+                chamfer_bwd=L.bwd_launches, conv3d=K3.launches), out
+
+
+def _loader_ms(cfg, workers, epochs=2):
+    """Host ms per batch of the train loader at ``workers`` threads over
+    ``epochs`` epochs (the files are in the page cache)."""
+    from neural_marionette_tpu_torch.data import DataLoader, load_dataset
+    ds = load_dataset(True, cfg)
+    with DataLoader(ds, cfg.nbatch, seed=cfg.seed,
+                    num_workers=workers) as loader:
+        t0 = time.perf_counter()
+        n = 0
+        for epoch in range(epochs):
+            ds.log_epoch(epoch)
+            n += sum(1 for _ in loader)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _loader_steps(cfg, device, n_epochs=4, n_profiled=3):
+    """A bfloat16 ``Trainer`` stepping on the train loader through
+    ``prefetch_to_device``, as the CLI does: per phase (epoch 0 the
+    detector, epoch 1 the learner) ``n_epochs`` loader epochs of steps, the
+    card synchronised before each batch; then ``n_profiled`` steps under
+    the profiler, of a stream that already runs (one step outside the
+    profiler, one under a profiler that warms it).
+
+    Taking batch ``k`` from the prefetcher pulls batch ``k + 1`` from the
+    loader, and a pull that opens a loader epoch waits for its batch's
+    loads, which the loader queues only then. The timed steps are split by
+    that pull (``ms_epoch_start``: the gaps that hold one; the loader's
+    epochs here are 3 batches, the CLI's one a training epoch). The
+    profiled window holds none: the batch whose taking pulls an epoch's
+    first batch is taken just before it, so that the window reads the
+    steps inside an epoch."""
+    import itertools
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neural_marionette_tpu_torch.data import (DataLoader, load_dataset,
+                                                  prefetch_to_device)
+    from neural_marionette_tpu_torch.train import Trainer
+    ds = load_dataset(True, cfg)
+    trainer = Trainer(cfg, device=device, dtype="bfloat16")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    with DataLoader(ds, cfg.nbatch, seed=cfg.seed,
+                    num_workers=cfg.num_workers) as loader:
+        per = len(loader)
+        if per < n_profiled:
+            raise AssertionError(f"a loader epoch of {per} batches")
+
+        def stream(n):
+            return prefetch_to_device(
+                (b for _ in range(n) for b in loader), device=device)
+
+        for epoch, name in ((0, "detector"), (1, "learner")):
+            ds.log_epoch(epoch)
+            stamps = []
+            trainer.train_epoch(epoch, _timed(stream(n_epochs), stamps))
+            ms = np.diff(stamps) * 1e3
+            # gap j: the step of batch j, then taking batch j + 1, which
+            # pulls batch j + 2 from the loader
+            opens = [j for j in range(1, len(ms))
+                     if (j + 2) % per == 0 and j + 2 < len(ms)]
+            inner = [j for j in range(1, len(ms)) if j not in opens]
+            running = stream(2)
+            trainer.train_epoch(epoch, itertools.islice(running, 1))
+            with profile(activities=acts):
+                trainer.train_epoch(epoch, itertools.islice(running, 1))
+            # taking the next batch pulls the first of the loader's second
+            # epoch
+            first = next(running)
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                trainer.train_epoch(epoch, itertools.chain(
+                    [first], itertools.islice(running, n_profiled - 1)))
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            running.close()
+            busy_ms, share, _, _ = _busy(prof, wall_us)
+            out[name] = {"steps": len(ms), "step_ms": [float(x) for x in ms],
+                         "p50_ms_per_step": float(np.percentile(ms[1:], 50)),
+                         "mean_ms_per_step": float(ms[1:].mean()),
+                         "p50_ms_within_epoch":
+                             float(np.percentile(ms[inner], 50)),
+                         "ms_epoch_start": [float(ms[j]) for j in opens],
+                         "profiled_steps": n_profiled,
+                         "profiled_wall_ms_per_step":
+                             wall_us / 1e3 / n_profiled,
+                         "device_busy_ms_per_step": busy_ms / n_profiled,
+                         "device_busy_share": share}
+            log(f"[cli] {name} steps through the loader ({CLI_WORKERS} "
+                f"threads, prefetch to the card): ms "
+                f"{[round(float(x), 1) for x in ms]}, p50 "
+                f"{out[name]['p50_ms_per_step']:.2f} of {len(ms) - 1}, "
+                f"{out[name]['p50_ms_within_epoch']:.2f} of the "
+                f"{len(inner)} inside a loader epoch, those that pull an "
+                f"epoch's first batch {[round(float(ms[j]), 1) for j in opens]}; "
+                f"{n_profiled} profiled steps inside an epoch: wall "
+                f"{wall_us / 1e3 / n_profiled:.1f} ms, busy "
+                f"{busy_ms / n_profiled:.1f} ms a step, share {share:.3f}")
+    del trainer
+    return out
+
+
+def _semantic_informative(cfg, device):
+    """``Trainer.validate``'s semantic score on the validation loader with
+    weights whose keypoints follow the points (``_informative_weights``).
+    The CLI's seeded weights may leave every keypoint below the 0.2
+    intensity threshold, and then every GT joint maps to keypoint 0 and
+    the score is 1 by construction; here the histogram must spread over
+    more than one keypoint. Returns (score, keypoints hit)."""
+    import torch
+    from neural_marionette_tpu_torch.data import (DataLoader, load_dataset,
+                                                  prefetch_to_device)
+    from neural_marionette_tpu_torch.eval import semantic_final
+    from neural_marionette_tpu_torch.train import Trainer
+    trainer = Trainer(cfg, device=device, dtype="bfloat16")
+    _informative_weights(trainer.model, seed=0)
+    with DataLoader(load_dataset(False, cfg), cfg.nbatch, seed=cfg.seed,
+                    num_workers=CLI_WORKERS) as loader:
+        _, scores = trainer.validate(
+            0, prefetch_to_device(iter(loader), device=device), ["semantic"])
+    hist = scores["semantic"]
+    hit = int(np.count_nonzero(hist.sum(0)))
+    if hist.shape != (24, cfg.nkeypoints) or hit < 2:
+        raise AssertionError(f"semantic with informative weights: histogram "
+                             f"{hist.shape}, {hit} keypoints hit")
+    score = semantic_final(hist)
+    log(f"[cli] semantic with informative weights (validation loader, "
+        f"bf16): {score:.4f}, {hit} of {cfg.nkeypoints} keypoints hit")
+    del trainer
+    torch.cuda.empty_cache()
+    return score, hit
+
+
+def _check_loader_on_card(cfg, device):
+    """The validation and train loaders' batches on the card (4 threads,
+    prefetch) equal to the same batches built on the host (no threads)."""
+    import torch
+    from neural_marionette_tpu_torch.data import (DataLoader, load_dataset,
+                                                  prefetch_to_device)
+    n = 0
+    for train in (True, False):
+        host_ds, card_ds = load_dataset(train, cfg), load_dataset(train, cfg)
+        host = list(DataLoader(host_ds, cfg.nbatch, seed=1, num_workers=0))
+        with DataLoader(card_ds, cfg.nbatch, seed=1,
+                        num_workers=CLI_WORKERS) as loader:
+            card = list(prefetch_to_device(iter(loader), device=device))
+        if len(card) != len(host) or not host:
+            raise AssertionError(f"loader: {len(card)} batches on the card, "
+                                 f"{len(host)} on the host")
+        for c, h in zip(card, host):
+            if not isinstance(c, tuple) or c[0].device.type != "cuda":
+                raise AssertionError("loader: a batch is not a (points, "
+                                     "joints) tuple on the card")
+            for ct, ht in zip(c, h):
+                if not torch.equal(ct.cpu(), torch.from_numpy(ht)):
+                    raise AssertionError("loader: the card's batch differs "
+                                         "from the host's")
+            n += 1
+    return n
+
+
+def _check_cli_files(exp: Path):
+    """The files ``train.py`` writes, with its record keys; returns the
+    epoch records."""
+    for name in ("opt.json", "metrics.jsonl", "semantic_result.csv",
+                 "chamfer_result.csv", "affinity_result.json"):
+        if not (exp / name).is_file():
+            raise AssertionError(f"cli: {name} missing under {exp}")
+    records = [json.loads(ln) for ln in
+               (exp / "metrics.jsonl").read_text().splitlines()]
+    if [r["epoch"] for r in records] != [0, 1, 2]:
+        raise AssertionError(f"cli: epochs {[r['epoch'] for r in records]}")
+    for r in records:
+        if set(r) != {"epoch", "lr", "time", "train", "valid"} or not \
+                {"semantic", "voxel_chamfer"} <= set(r["valid"]):
+            raise AssertionError(f"cli: record keys {r}")
+        bad = [f"{p}/{k}" for p in ("train", "valid")
+               for k, v in r[p].items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"cli: epoch {r['epoch']} not finite: {bad}")
+    if sorted(os.listdir(exp / "epochs"), key=int) != ["0", "1", "2"]:
+        raise AssertionError(f"cli: checkpoints {os.listdir(exp / 'epochs')}")
+    hist = np.loadtxt(exp / "semantic_result.csv", delimiter=",")
+    if hist.shape != (24, 24) or not np.allclose(hist.sum(1), 1.0):
+        raise AssertionError(f"cli: semantic_result.csv {hist.shape}")
+    aff = json.loads((exp / "affinity_result.json").read_text())
+    if aff["gt_edges"] != 23:
+        raise AssertionError(f"cli: affinity_result.json {aff}")
+    return records, int(np.count_nonzero(hist.sum(0)))
+
+
+def _vis_outputs(exp: Path, work: Path, source: Path, G: int):
+    """The three demo CLIs on the card from the CLI's output directory:
+    generation on a sequence of the tree, interpolation and retargeting on
+    their synthetic fallbacks; their ``.npy`` outputs checked."""
+    from neural_marionette_tpu_torch.cli import (vis_generation,
+                                                 vis_interpolation,
+                                                 vis_retarget)
+    runs = {
+        "vis_generation": (vis_generation, ["--source_file", str(source)],
+                           {"gen_voxels.npy": (3, 30, G, G, G, 1),
+                            "keypoints.npy": (3, 30, 24, 4)}),
+        "vis_interpolation": (vis_interpolation,
+                              ["--source_file", str(work / "absent.npy")],
+                              {"interp_voxels.npy": (21, G, G, G, 1),
+                               "keypoints.npy": (21, 24, 4)}),
+        "vis_retarget": (vis_retarget,
+                         ["--source_file", str(work / "absent.npy"),
+                          "--target_file", str(work / "absent.obj")],
+                         {"retargeted_points.npy": (40, 4096, 3),
+                          "retargeted_keypoints.npy": (40, 24, 4)}),
+    }
+    ms = {}
+    for name, (mod, args, want) in runs.items():
+        out = work / name
+        t0 = time.perf_counter()
+        mod.main(["--exp_dir", str(exp), "--out_dir", str(out), *args])
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        for fname, shape in want.items():
+            arr = np.load(out / fname)
+            if arr.shape[:len(shape)] != shape or not np.isfinite(arr).all():
+                raise AssertionError(f"{name}: {fname} {arr.shape}")
+            if "voxels" in fname and not np.isin(arr, (0.0, 1.0)).all():
+                raise AssertionError(f"{name}: {fname} not binary")
+        log(f"[cli] {name}: {ms[name]:.0f} ms (load, run, write), outputs "
+            f"{sorted(os.listdir(out))}")
+    return ms
+
+
+def phase_cli(device, card):
+    """The training CLI in-process on the card at the AIST preset (full
+    width, bfloat16) on an AIST++-layout tree it writes (12 train and 4
+    test sequences of 40 frames, 20000 points a frame): two epochs across
+    the detector -> learner switch, checkpointing every epoch, with
+    validation (semantic and voxel_chamfer); then a resume for one more
+    epoch on the conv route. Checks its files, the resume, the launches of K1, K2
+    forward and backward and K3 under each run, and the loader's batches
+    on the card against the host's; measures the loader, the steps through
+    it, their busy share and the validation's parts; checks the semantic
+    score with informative weights; runs the demo CLIs from the output
+    directory."""
+    import torch
+    from neural_marionette_tpu_torch.cli import train as cli_train
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_aist_tree(work / "data")
+        log(f"[cli] AIST++ tree: {CLI_SEQS} sequences of {CLI_FRAMES} frames "
+            f"x {CLI_POINTS} points, {nbytes / 1e6:.1f} MB written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        argv = cli_argv(work / "data", work / "out", nepoch=2)
+        cfg, _ = cli_train.parse_args(argv)
+        cfg = cli_train.prepare_config(cfg)
+        n_checked = _check_loader_on_card(cfg, device)
+        loader_ms = {w: _loader_ms(cfg, w) for w in (0, CLI_WORKERS)}
+        log(f"[cli] loader: {n_checked} batches on the card equal to the "
+            f"host's; ms per batch {loader_ms[0]:.1f} at 0 threads, "
+            f"{loader_ms[CLI_WORKERS]:.1f} at {CLI_WORKERS}")
+
+        t0 = time.perf_counter()
+        first_launches, first = _cli_launches(
+            lambda: cli_train.train(*cli_train.parse_args(argv)))
+        first_s = time.perf_counter() - t0
+        first_valid = dict(first.validation_stats)
+        del first
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed_launches, resumed = _cli_launches(
+            lambda: cli_train.train(*cli_train.parse_args(
+                cli_argv(work / "data", work / "out", nepoch=3,
+                         conv_kernel=1))))
+        resumed_s = time.perf_counter() - t0
+        if resumed.start_epoch != 2:
+            raise AssertionError(f"cli: resumed at {resumed.start_epoch}")
+        resumed_valid = dict(resumed.validation_stats)
+        del resumed
+        torch.cuda.empty_cache()
+        if [first_launches, resumed_launches] != CLI_LAUNCHES:
+            raise AssertionError(f"cli launches {first_launches}, "
+                                 f"{resumed_launches}, want {CLI_LAUNCHES}")
+        exp = work / "out" / cfg.training_id / "smoke"
+        records, cli_hit = _check_cli_files(exp)
+        for tag, st in (("epochs 0-1", first_valid),
+                        ("epoch 2, conv route", resumed_valid)):
+            log(f"[cli] validation ({tag}), ms per batch: eval step "
+                f"{st['eval_step_ms_per_batch']:.1f}, semantic "
+                f"{st['semantic_ms_per_batch']:.1f}, voxel_chamfer "
+                f"{st['voxel_chamfer_ms_per_batch']:.1f}; recon occupancy "
+                f"{st['recon_occupancy']:.4f}")
+        log(f"[cli] epochs: " + ", ".join(
+            f"{r['epoch']} {r['time']:.2f} s (semantic "
+            f"{r['valid']['semantic']:.4f}, voxel_chamfer "
+            f"{r['valid']['voxel_chamfer']:.1f})" for r in records)
+            + f"; runs {first_s:.1f} s and {resumed_s:.1f} s; launches "
+            f"{first_launches}, resumed on the conv route "
+            f"{resumed_launches}")
+        log(f"[cli] semantic_result.csv: {cli_hit} of {cfg.nkeypoints} "
+            f"keypoints hit" + (" (degenerate: every keypoint below the "
+                                "intensity threshold)" if cli_hit == 1
+                                else ""))
+        semantic = _semantic_informative(cfg, device)
+        steps = _loader_steps(cfg, device)
+        vis_ms = _vis_outputs(
+            exp, work, next((work / "data" / "aist_plusplus_smpl_joints" /
+                             "surface" / "test").iterdir()), cfg.grid_size)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[cli] phase {phase_s:.1f} s")
+    launches = {k: first_launches[k] + resumed_launches[k]
+                for k in first_launches}
+    return {"dataset_mb": nbytes / 1e6, "sequences": CLI_SEQS,
+            "frames": CLI_FRAMES, "points": CLI_POINTS, "B": CLI_B,
+            "N": CLI_N, "workers": CLI_WORKERS, "dtype": "bfloat16",
+            "loader_ms_per_batch": {str(k): v for k, v in loader_ms.items()},
+            "loader_batches_checked": n_checked,
+            "steps_through_loader": steps,
+            "validation": {"epochs_0_1": first_valid,
+                           "epoch_2_conv_route": resumed_valid,
+                           "keypoints_hit_cli": cli_hit,
+                           "semantic_informative": semantic[0],
+                           "keypoints_hit_informative": semantic[1]},
+            "epoch_s": [r["time"] for r in records],
+            "run_s": [first_s, resumed_s],
+            "launches": launches,
+            "launches_per_run": [first_launches, resumed_launches],
+            "vis_ms": vis_ms, "phase_s": phase_s, "card": card}
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not (ROOT / "neural_marionette_tpu_torch" / "csrc").is_dir():
@@ -2393,6 +2832,8 @@ def main() -> int:
     apps["generate_step"] = phase_generate_step(cfg, device)
     apps["reference"] = phase_apps_reference(cfg, device)
     torch.cuda.empty_cache()
+    cli = phase_cli(device, card)
+    torch.cuda.empty_cache()
     records = phase_timing(device, G, K, launches, errs)
     for rec in conv_records:
         rec["launches"] = launches[rec["name"]]
@@ -2409,6 +2850,8 @@ def main() -> int:
         elif rec["name"] == "conv3d":
             rec["launches_generate_step"] = \
                 apps["generate_step"]["conv_kernel"]["launches"]["conv3d"]
+        if rec["name"] in cli["launches"]:
+            rec["launches_cli"] = cli["launches"][rec["name"]]
 
     stream = stream_record(ms, STREAM_WINDOWS, peak, card)
     stream_c = stream_record(ms_c, STREAM_WINDOWS, peak_c, card,
@@ -2427,6 +2870,7 @@ def main() -> int:
     print(json.dumps({"profile": profile}))
     print(json.dumps({"train": train}))
     print(json.dumps({"apps": apps}))
+    print(json.dumps({"cli": cli}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

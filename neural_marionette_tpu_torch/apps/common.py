@@ -5,11 +5,11 @@ Counterpart of ``neural_marionette_tpu/apps/common.py`` (reference demo
 preamble, vis_generation.py:44-90). The port's :class:`api.Marionette`
 plays the role of the JAX package's ``DemoContext``: the configuration,
 the model with its weights on one device, and the skeleton.
-``synthetic_clip`` comes with the data layer.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -75,6 +75,25 @@ def load_clip(file: str, cfg: MarionetteConfig, start: int = 0,
     vox = np.stack([voxelize_np(x[t], cfg.grid_size)
                     for t in range(x.shape[0])])
     return vox.astype(np.float32), x.astype(np.float32)
+
+
+def synthetic_clip(cfg: MarionetteConfig, seq_len: Optional[int] = None,
+                   seed: int = 0):
+    """Fallback clip when the demo data is absent (the demo .npy is a
+    missing large blob upstream as well): (voxels (Ttot, G, G, G, 1),
+    points (Ttot, 4096, 3)), a ``Synthetic`` chain of ``nkeypoints // 3``
+    bones (at least 3) voxelized on the host."""
+    from ..data.datasets import Synthetic
+    ds = Synthetic(True, cfg.replace(random_crop=0),
+                   n_sequences=1, seq_len=seq_len or cfg.Ttot * 2,
+                   n_bones=max(cfg.nkeypoints // 3, 3), n_points=4096)
+    ds.log_epoch(seed)
+    item = ds[0]
+    pts = item[0] if isinstance(item, tuple) else item
+    pts = pts[:cfg.Ttot]
+    vox = np.stack([voxelize_np(pts[t], cfg.grid_size)
+                    for t in range(pts.shape[0])])
+    return vox.astype(np.float32), pts
 
 
 def detect_and_extract_skeleton(m: Marionette, vox_clip: np.ndarray

@@ -1,0 +1,59 @@
+"""Motion interpolation demo CLI (the JAX package's
+``vis_interpolation.py``).
+
+    python -m neural_marionette_tpu_torch.cli.vis_interpolation \\
+        --exp_dir pretrained/aist [--platform cpu]
+
+Anchors every ``anchor_rate`` frames of a ``Ttot``-frame clip and fills
+the in-between motion with prior rollouts selected to land near the
+anchors; writes the ``.npy`` outputs (``apps.interpolation.save_outputs``).
+Falls back to a synthetic clip when the source ``.npy`` is absent.
+"""
+import argparse
+import os
+import sys
+
+import numpy as np
+
+from ..api import Marionette
+from ..apps.common import load_clip, synthetic_clip
+from ..apps.interpolation import run_interpolation, save_outputs
+from . import platform_device
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--exp_dir", type=str, default="pretrained/aist")
+    parser.add_argument("--source_file", type=str,
+                        default="data/demo/source/"
+                                "gHO_sBM_cAll_d20_mHO1_ch05.npy")
+    parser.add_argument("--Ttot", type=int, default=21)
+    parser.add_argument("--anchor_rate", type=int, default=10)
+    parser.add_argument("--sample_num", type=int, default=10000,
+                        help="parallel in-between rollouts (reference "
+                             "uses 10000)")
+    parser.add_argument("--seed", type=int, default=2)
+    parser.add_argument("--out_dir", type=str,
+                        default="output/demo/interpolation")
+    parser.add_argument("--platform", type=str, default="",
+                        help="cpu runs on the CPU; otherwise the card")
+    args = parser.parse_args(argv)
+    device = platform_device(args.platform)
+
+    np.random.seed(args.seed)
+    m = Marionette.load(args.exp_dir, device=device, Ttot=args.Ttot)
+    if os.path.exists(args.source_file):
+        vox, _ = load_clip(args.source_file, m.cfg)
+    else:
+        print(f"{args.source_file} not found; using a synthetic clip")
+        vox, _ = synthetic_clip(m.cfg, seed=args.seed)
+
+    result = run_interpolation(m, vox, anchor_rate=args.anchor_rate,
+                               sample_num=args.sample_num, seed=args.seed)
+    save_outputs(result, args.out_dir)
+    print(f"wrote interpolation to {args.out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,101 @@
+"""ctypes binding of the port's host data library (``csrc/nm_host.cpp``).
+
+Counterpart of ``neural_marionette_tpu/data/native.py``. The library is
+built by ``kernels.py`` with ``g++`` into ``_build/`` at first use. Where
+the JAX binding falls back to NumPy when the build fails, this one raises:
+a failed build is a fault to see, not a slower path. The NumPy functions
+named in each docstring are the plain versions the tests hold it against.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import numpy as np
+
+from .. import kernels
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()   # the loader's threads may ask for it at once
+
+
+def library() -> ctypes.CDLL:
+    """The loaded library with its signatures; built on first use, raises
+    if it cannot be built."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = kernels.library("nm_host")
+            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+            i64 = ctypes.c_int64
+            lib.nm_voxelize_batch.argtypes = [f32p, i64, i64, ctypes.c_int,
+                                              f32p]
+            lib.nm_voxelize_batch.restype = None
+            lib.nm_normalize_episodic.argtypes = [
+                f32p, i64, i64, ctypes.c_float, ctypes.c_float,
+                ctypes.c_float, ctypes.c_void_p, i64]
+            lib.nm_normalize_episodic.restype = None
+            lib.nm_crop_strided.argtypes = [f32p, f32p, i64, i64, i64, i64]
+            lib.nm_crop_strided.restype = None
+            lib.nm_version.argtypes = []
+            lib.nm_version.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _frames(points: np.ndarray) -> np.ndarray:
+    pts = np.ascontiguousarray(points, dtype=np.float32)
+    if pts.ndim != 3 or pts.shape[-1] != 3:
+        raise ValueError(f"expected (F, N, 3) points, got {pts.shape}")
+    return pts
+
+
+def voxelize_batch(points: np.ndarray, grid_size: int) -> np.ndarray:
+    """(F, N, 3) float32 -> (F, G, G, G, 1) float32 occupancy, one thread
+    per frame. Plain version: ``ops.voxelize.voxelize_np`` per frame (the
+    index clamp: an out-of-range point marks the border voxel)."""
+    if grid_size < 1:
+        raise ValueError(f"grid_size must be positive, got {grid_size}")
+    pts = _frames(points)
+    F, N, _ = pts.shape
+    out = np.empty((F, grid_size ** 3), dtype=np.float32)
+    library().nm_voxelize_batch(pts, F, N, grid_size, out)
+    return out.reshape(F, grid_size, grid_size, grid_size, 1)
+
+
+def normalize_episodic(seq: np.ndarray, scale: float = 1.0,
+                       x_trans: float = 0.0, z_trans: float = 0.0,
+                       joints: Optional[np.ndarray] = None):
+    """``data.pipeline.episodic_normalization`` in float32 (the plain
+    version computes in float64): a normalized copy of ``seq`` (T, N, 3),
+    and of ``joints`` (T, K, 3) when given."""
+    out = _frames(seq).copy()
+    T, N, _ = out.shape
+    lib = library()
+    if joints is None:
+        lib.nm_normalize_episodic(out, T, N, scale, x_trans, z_trans, None, 0)
+        return out
+    j = _frames(joints).copy()
+    if j.shape[0] != T:
+        raise ValueError(f"joints {j.shape} and points {out.shape} differ "
+                         "in frames")
+    lib.nm_normalize_episodic(out, T, N, scale, x_trans, z_trans,
+                              j.ctypes.data_as(ctypes.c_void_p), j.shape[1])
+    return out, j
+
+
+def crop_strided(seq: np.ndarray, start: int, T: int,
+                 sample_rate: int = 1) -> np.ndarray:
+    """``data.pipeline.crop_sequence`` for a window that fits: frames
+    ``start, start + sample_rate, ...`` (T of them) of ``seq`` (T_in, ...),
+    as a float32 copy."""
+    src = np.ascontiguousarray(seq, dtype=np.float32)
+    if start < 0 or T < 0 or sample_rate < 1 or \
+            (T and start + (T - 1) * sample_rate >= src.shape[0]):
+        raise ValueError(f"window start {start}, T {T}, rate {sample_rate} "
+                         f"does not fit {src.shape[0]} frames")
+    out = np.empty((T,) + src.shape[1:], dtype=np.float32)
+    frame = int(np.prod(src.shape[1:], dtype=np.int64))
+    library().nm_crop_strided(src, out, start, T, sample_rate, frame)
+    return out

@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the hand-written CUDA kernels of ``csrc/`` and the host
+data library.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on first use into its own
-shared library with a plain C interface, loaded through ``ctypes``. The
-libraries land in ``_build/`` beside this file (git-ignored), under a name
-that carries a hash of the source, so an edited kernel is rebuilt and a
-stale one is never loaded. All sources build in parallel, one ``nvcc``
-process each.
+shared library with a plain C interface, loaded through ``ctypes``; the
+host library ``csrc/nm_host.cpp`` (``data/native.py``) is compiled the same
+way by ``g++``. The libraries land in ``_build/`` beside this file
+(git-ignored), under a name that carries a hash of the source and the
+flags, so an edited source is rebuilt and a stale one is never loaded. All
+sources build in parallel, one compiler process each.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
@@ -26,10 +28,12 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("voxelize", "chamfer", "conv3d", "groupnorm")
+HOST_SOURCES = ("nm_host",)   # csrc/<name>.cpp, built by g++
 
 # No --use_fast_math: the voxelizer depends on true IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of each library: argument types (every one returns int)
@@ -57,6 +61,8 @@ _SIGNATURES = {
         "nm_groupnorm_act": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 5
                             + [_L] * 10 + [_I, _P],
     },
+    # the host library returns void; its signatures live in data/native.py
+    "nm_host": {},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -72,29 +78,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source file of ``name`` and its compiler's flags."""
+    if name in HOST_SOURCES:
+        return CSRC / f"{name}.cpp", GXX_FLAGS
+    return CSRC / f"{name}.cu", NVCC_FLAGS
+
+
+def _compiler(name: str) -> str:
+    if name not in HOST_SOURCES:
+        return _nvcc()
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the host data library cannot be "
+                           "built")
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    src, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES) -> dict[str, dict]:
+def build(names=SOURCES + HOST_SOURCES) -> dict[str, dict]:
     """Compile every missing library of ``names`` in parallel.
 
-    Returns ``{name: {"seconds": wall time of its nvcc, "log": nvcc's
-    output (the -Xptxas -v register and shared-memory lines)}}`` for the
-    sources compiled by this call. Raises if any compile fails."""
+    Returns ``{name: {"seconds": wall time of its compiler, "log": the
+    compiler's output (nvcc's -Xptxas -v register and shared-memory
+    lines)}}`` for the sources compiled by this call. Raises if any
+    compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
+        src, flags = _source(name)
+        compiler = _compiler(name)
         fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".so",
                                    dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *flags, "-o", tmp, str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -103,7 +129,8 @@ def build(names=SOURCES) -> dict[str, dict]:
         log, _ = proc.communicate()
         results[name] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{name}: {Path(proc.args[0]).name} exited "
+                          f"{proc.returncode}\n{log}")
             Path(tmp).unlink(missing_ok=True)
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
@@ -113,7 +140,8 @@ def build(names=SOURCES) -> dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -121,8 +149,9 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build((name,))
     lib = ctypes.CDLL(str(path))
-    lib.nm_error_string.argtypes = [ctypes.c_int]
-    lib.nm_error_string.restype = ctypes.c_char_p
+    if name not in HOST_SOURCES:
+        lib.nm_error_string.argtypes = [ctypes.c_int]
+        lib.nm_error_string.restype = ctypes.c_char_p
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int

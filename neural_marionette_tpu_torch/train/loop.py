@@ -7,7 +7,10 @@ package's ``train.py`` (its epoch loop, ``train.py:192-267``).
         print(record["epoch"], record["train"]["total_loss"])
 
 ``batches`` yields ``(B, T, N, 3)`` float32 point batches (numpy arrays or
-tensors); they are voxelized on the device. Per epoch the trainer anneals
+tensors; a tensor already on the trainer's device is used without a copy),
+or ``(points, joints)`` tuples as the loader of an ``is_eval`` dataset
+yields them (the points train, as ``train.py:249``); the points are
+voxelized on the device. Per epoch the trainer anneals
 the scheduler, extracts the skeleton once when the learner first turns on
 (on the host, ``skeleton.extract_skeleton``, from the trained affinity),
 sets the staged learning rate (and resets Adam when
@@ -29,28 +32,32 @@ the same path plus ``.pth`` in the reference's layout
 values; the schedule keeps the detector frozen from epoch 0, and the
 skeleton is extracted from the loaded affinity as the learner turns on.
 
-The dataset families, the loader, validation and the CLI come in later
-slices.
+:meth:`Trainer.validate` runs the phase's eval step over validation
+batches and scores them (``eval.py``), as the JAX ``train.py:271-306``
+does; the training CLI (``cli/train.py``) puts the loaders, validation,
+the logs and the result files around the trainer.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..api import _DTYPES, resolve_device
 from ..config import MarionetteConfig
+from ..eval import evaluate
 from ..models import NeuralMarionette, SkeletonArrays
+from ..ops.voxelize import voxelize
 from ..skeleton import Skeleton, extract_skeleton
 from ..weights import (init_weights, load_detector_state,
                        load_reference_detector)
 from .checkpoint import CheckpointManager, load_params_only
 from .scheduler import LossScheduler, MetricLogger
 from .state import create_train_state, reset_optimizer, set_learning_rate
-from .step import make_generate_step, make_train_step
+from .step import make_eval_step, make_generate_step, make_train_step
 
 # Steps between two reads of the step metrics to the host (train.py:255).
 _READBACK_EVERY = 50
@@ -84,8 +91,17 @@ class Trainer:
             torch.Generator(self.device).manual_seed(cfg.seed + 2))
         self.skeleton: Optional[Skeleton] = None
         self.train_log = MetricLogger()
+        self.valid_log = MetricLogger()
+        #: running scores of the eval metrics over every validation so far
+        #: (the semantic histogram, the voxel_chamfer values), as the JAX
+        #: ``train.py`` keeps them across epochs
+        self.eval_scores: dict = {}
+        #: host ms of the last :meth:`validate`'s parts, and the share of
+        #: recon voxels at or above 0.5 that ``voxel_chamfer`` saw
+        self.validation_stats: dict = {}
         self.start_epoch = 0
         self._steps: dict = {}
+        self._eval_steps: dict = {}
         self._gen_steps: dict = {}
         self.ckpt = None
         latest = None
@@ -117,10 +133,18 @@ class Trainer:
 
     # ------------------------------------------------------------ helpers
     def _to_device(self, batch) -> torch.Tensor:
-        host = torch.as_tensor(np.asarray(batch, dtype=np.float32))
+        """The points of a batch as a float32 tensor on the steps' device:
+        the first element of a ``(points, joints)`` tuple; a tensor that is
+        already there as it is, without a copy."""
+        if isinstance(batch, tuple):
+            batch = batch[0]
+        if isinstance(batch, torch.Tensor):
+            return batch.to(self.device, torch.float32)
+        host = torch.from_numpy(np.ascontiguousarray(batch,
+                                                     dtype=np.float32))
         if self.device.type == "cuda":
             return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
+        return host
 
     def extract_skeleton(self) -> Skeleton:
         """The skeleton of the current affinity, on the host."""
@@ -139,11 +163,23 @@ class Trainer:
                 s.affinity_active)
         return self._steps[key]
 
+    def phase_eval_step(self):
+        """The eval step of the scheduler's current phase (made once)."""
+        key = self.sched.phase_key()
+        if key not in self._eval_steps:
+            s = self.sched
+            self._eval_steps[key] = make_eval_step(
+                self.model, self.cfg, s.active_weights(),
+                s.module_actives["detector"], s.module_actives["learner"],
+                s.affinity_active)
+        return self._eval_steps[key]
+
     def phase_generate_step(self):
         """The generate step of the scheduler's current phase (made once),
         or None while the learner is off, as the JAX training loop makes it
         beside the phase's train step (``train.py:228``). That loop runs it
-        on the first validation batch; validation is not ported yet."""
+        on the first validation batch for its GIFs, which are not ported
+        yet."""
         s = self.sched
         if not s.module_actives["learner"]:
             return None
@@ -160,7 +196,8 @@ class Trainer:
             return None
         return SkeletonArrays.from_skeleton(self.skeleton, self.device)
 
-    def _flush(self, pending: list) -> None:
+    def _flush(self, pending: list, log: Optional[MetricLogger] = None
+               ) -> None:
         """Read the pending steps' metrics in one copy to the host."""
         if not pending:
             return
@@ -168,8 +205,15 @@ class Trainer:
         rows = torch.stack([torch.stack([m[k].float() for k in keys])
                             for m in pending]).cpu().numpy()
         for row in rows:
-            self.train_log.add_dict(dict(zip(keys, row)))
+            (log or self.train_log).add_dict(dict(zip(keys, row)))
         pending.clear()
+
+    def _enter_epoch(self, epoch_id: int) -> None:
+        """Anneal the scheduler to ``epoch_id``; extract the skeleton once,
+        when the learner first turns on."""
+        self.sched.anneal(epoch_id)
+        if self.sched.module_actives["learner"] and self.skeleton is None:
+            self.skeleton = self.extract_skeleton()
 
     # --------------------------------------------------------------- loop
     def train_epoch(self, epoch_id: int, batches: Iterable) -> dict:
@@ -177,9 +221,7 @@ class Trainer:
         seconds, the mean of each metric over the steps, phase)."""
         t0 = time.time()
         sched = self.sched
-        sched.anneal(epoch_id)
-        if sched.module_actives["learner"] and self.skeleton is None:
-            self.skeleton = self.extract_skeleton()
+        self._enter_epoch(epoch_id)
         sk = self.phase_skeleton()
         step = self.phase_step()
         lr = sched.learning_rate(epoch_id)
@@ -201,6 +243,67 @@ class Trainer:
             self.ckpt.save(epoch_id, self.state, self.skeleton)
         return record
 
+    def validate(self, epoch_id: int, batches: Iterable,
+                 eval_metrics: Sequence[str] = (),
+                 eps: Optional[Sequence] = None) -> tuple[dict, dict]:
+        """The phase's eval step on each of ``batches`` (points, or
+        ``(points, gt_joints)`` tuples), then the ``eval_metrics``
+        (``"semantic"``: the keypoints against the GT joints, on batches
+        that carry them; ``"voxel_chamfer"``: the recon against the points'
+        voxels, kernel K1 on a card), accumulated into
+        :attr:`eval_scores` as the JAX ``train.py:271-306`` does.
+
+        Batch ``i`` draws its sample noise from a generator seeded from
+        ``(cfg.seed, i)`` (the JAX loop's ``fold_in(PRNGKey(seed), i)``),
+        or takes ``eps[i]`` (as ``HSVRNNBVH.encode`` takes it).
+        Returns the means over the batches of the step's metrics and of
+        each metric's batch score, and the running scores."""
+        self._enter_epoch(epoch_id)
+        sk = self.phase_skeleton()
+        step = self.phase_eval_step()
+        G = self.cfg.grid_size
+        ms = {"eval_step": 0.0, "semantic": 0.0, "voxel_chamfer": 0.0}
+        occupancy, n = 0.0, 0
+        for batch_id, batch in enumerate(batches):
+            points, gt = batch if isinstance(batch, tuple) else (batch, None)
+            pts = self._to_device(points)
+            seed = int(np.random.SeedSequence(
+                (self.cfg.seed, batch_id)).generate_state(1)[0])
+            t0 = time.perf_counter()
+            metrics, tensors = step(
+                pts, sk, generator=torch.Generator(self.device).manual_seed(
+                    seed), eps=None if eps is None else eps[batch_id])
+            self._flush([metrics], self.valid_log)
+            t1 = time.perf_counter()
+            ms["eval_step"] += t1 - t0
+            for name in eval_metrics:
+                if name == "semantic":
+                    if gt is None:
+                        continue
+                    params = dict(
+                        keypoints=tensors["keypoints"].float().cpu().numpy(),
+                        gt_keypoints=_host(gt))
+                else:
+                    recon = tensors["recon"]
+                    # a host read: the card is idle from here
+                    occupancy += float((recon >= 0.5).float().mean())
+                    t1 = time.perf_counter()
+                    params = dict(voxel=voxelize(pts, G), recon=recon)
+                out = evaluate(name, self.eval_scores.get(name), params)
+                self.eval_scores[name] = out["scores"]
+                self.valid_log.add(name, out["scores_log"])
+                t2 = time.perf_counter()
+                ms[name] += t2 - t1
+                t1 = t2
+            n += 1
+        self.validation_stats = {
+            "batches": n,
+            **{f"{k}_ms_per_batch": v * 1e3 / max(n, 1)
+               for k, v in ms.items()},
+            "recon_occupancy": (occupancy / n if n and "voxel_chamfer"
+                                in eval_metrics else None)}
+        return self.valid_log.reset(), self.eval_scores
+
     def fit(self, batches: Iterable,
             nepoch: Optional[int] = None) -> Iterator[dict]:
         """Epochs ``start_epoch .. nepoch-1`` (default ``cfg.nepoch``) over
@@ -209,3 +312,10 @@ class Trainer:
                               self.cfg.nepoch if nepoch is None else nepoch):
             yield self.train_epoch(epoch_id, batches)
             self.start_epoch = epoch_id + 1
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or array as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)

@@ -62,7 +62,10 @@ for name in names:
     importlib.import_module(name)
 want = {pkg.__name__ + "." + n for n in (
     "apps.common", "apps.generation", "apps.interpolation", "apps.retarget",
-    "retarget", "data.pipeline", "train.step", "weights")}
+    "retarget", "data.pipeline", "train.step", "weights", "data.datasets",
+    "data.loader", "data.native", "eval", "cli.train", "cli.vis_generation",
+    "cli.vis_interpolation", "cli.vis_retarget", "utils.console",
+    "utils.preemption")}
 assert want <= set(names), sorted(want - set(names))
 bad = [n for n in sys.modules if n == "jax" or n.startswith("jax.")
        or n == "neural_marionette_tpu"
@@ -86,17 +89,24 @@ for entry in (api.Marionette.from_config, Trainer, api.Marionette.load,
     else:
         raise AssertionError(f"{entry} without a card did not raise")
 shutil.rmtree(opt_dir)
+from neural_marionette_tpu_torch.data import prefetch_to_device
+try:
+    next(prefetch_to_device(iter([])))
+except RuntimeError as e:
+    assert "no CUDA device" in str(e), e
+else:
+    raise AssertionError("prefetch_to_device without a card did not raise")
 print("clean")
 """
 
 
 def test_port_imports_no_jax_and_wants_a_card():
     """In a fresh process (this one has jax loaded by conftest): importing
-    every module of the port (the apps, ``retarget`` and ``data.pipeline``
-    among them) loads neither ``jax`` nor any module of
-    ``neural_marionette_tpu``, and the entry points (the serving model, the
-    trainer and the loaders of an experiment directory) given no device ask
-    for CUDA and raise without a card."""
+    every module of the port (the apps, ``retarget``, the data layer,
+    ``eval`` and the CLIs among them) loads neither ``jax`` nor any module
+    of ``neural_marionette_tpu``, and the entry points (the serving model,
+    the trainer, the loaders of an experiment directory and the prefetcher)
+    given no device ask for CUDA and raise without a card."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
