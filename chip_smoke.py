@@ -96,9 +96,36 @@ Phases, each of which fails the run (nonzero exit, no result line):
     backward and K3 under each run; the loader's ms per batch at 0 and 4
     threads, the detector and learner steps through the loader (p50, and
     the busy share of three profiled steps), the validation's parts and
-    the recon occupancy, the epoch seconds; then the three demo CLIs
-    (``cli.vis_*``) from the run's directory, their ``.npy`` outputs
-    checked.
+    the recon occupancy, the epoch seconds; the GIF logging of every epoch
+    (all below 10): ``gifs/<epoch>/`` holds the tracked keypoints and
+    recon of the first validation batch's 4 clips, and the generated ones
+    (the generate step on that batch) only in the learner epochs, each GIF
+    decoded by this script's own reader (10 frames, 150 ms, looping), its
+    ms per epoch printed beside the epoch seconds; the launches of each run
+    count the logging's K1 call per epoch and the generate step's K1, K2
+    forward and K3 calls (``CLI_LAUNCHES``, each count derived there); one
+    epoch with ``--debug_nans 1`` that completes, and a ``Trainer`` of that
+    configuration with a parameter poisoned with NaN that must raise
+    ``FloatingPointError``; then the three demo CLIs (``cli.vis_*``) from
+    the run's directory, their ``.npy`` outputs checked;
+16. the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
+    2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
+    skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
+    camera (1025 x 958), each equal to the bit to the port's CPU run of the
+    same inputs, their PNGs read back equal to ``to_uint8``;
+    ``vis_keypoints`` (arrows and lines) and ``vis_recon`` at the CLI's
+    shape (4 videos x 10 frames, K 24, G 64) equal to the bit to the CPU,
+    their GIFs decoded equal to the frames; the generation and
+    interpolation output sets of the apps phase's results and the retarget
+    sets (10 frames) of its 4096-point surfel target and of a textured OBJ
+    the script writes (a PNG texture), every PNG and GIF decoded by this
+    script's own readers (zlib; LZW): frame counts, sizes, delays, loops,
+    each GIF frame within 3/255 mean of its PNG; ms per ``vis_*`` call, per
+    rendered frame and per retarget set, split into host (normals,
+    samples), card and PNG/GIF encoding; ``extract_skeleton_device`` on the
+    card equal to the bit to the host extraction on the train phase's
+    trained affinity and on seeded random and tie-heavy affinities at K
+    24, its ms and device operations a call.
 
 It prints a ``{"kernels": [...]}`` line (K2 forward's record with its
 launches on the apps, K3's with its launches on the generate step, K1's,
@@ -106,8 +133,9 @@ K2's and K3's with their launches under the CLI), a
 ``{"conv3d_shapes": [...]}`` line, a ``{"stream": ...}`` and a
 ``{"stream_conv_kernel": ...}`` line, a ``{"profile": ...}`` line, a
 ``{"train": ...}`` line, an ``{"apps": ...}`` line, a ``{"cli": ...}``
-line, the card's line, and last ``{"ok": true, "device": {...}}``. Without a card, or without the
-package beside it, it exits nonzero before printing a result.
+line, a ``{"render": ...}`` line, the card's line, and last
+``{"ok": true, "device": {...}}``. Without a card, or without the package
+beside it, it exits nonzero before printing a result.
 """
 from __future__ import annotations
 
@@ -1087,7 +1115,9 @@ def phase_train(cfg, device, card, detector_dir, n_steps=12,
     counters: K1 and K2 forward once per microbatch, K2 backward once per
     detector-phase microbatch and never in the learner phase. Returns
     (the ``train`` record, the launches of the detector phase, the
-    detector's parameters as checkpointed)."""
+    detector's parameters as checkpointed, the trained affinity; the
+    skeleton the trainer extracted on the card is checked equal to the
+    host extraction of it)."""
     import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1178,6 +1208,21 @@ def phase_train(cfg, device, card, detector_dir, n_steps=12,
             log(f"[train] {name} phase {k['ms_per_step']:8.3f} ms "
                 f"{k['calls_per_step']:6.1f} per step: {k['name']}")
 
+    # the trained affinity (frozen in the learner phase) and the skeleton
+    # the trainer extracted from it on the card as the learner turned on
+    from neural_marionette_tpu_torch.skeleton import extract_skeleton
+    with torch.no_grad():
+        affinity = trainer.model.kypt_detector.get_affinity().float().cpu()
+    affinity = affinity.numpy()
+    host_sk = extract_skeleton(affinity)
+    for f in ("A", "priority_values", "priority_indices", "parents"):
+        if not np.array_equal(getattr(trainer.skeleton, f),
+                              getattr(host_sk, f)):
+            raise AssertionError(f"train: the skeleton extracted on the card "
+                                 f"differs from the host's in {f}")
+    log(f"[train] skeleton extracted on the card equal to the host's: "
+        f"parents {trainer.skeleton.parents.tolist()}")
+
     # one detector-phase step with grad_accum=2: two microbatches of 2
     acc = Trainer(dataclasses.replace(cfg, grad_accum=2), device=device,
                   dtype="bfloat16")
@@ -1196,7 +1241,7 @@ def phase_train(cfg, device, card, detector_dir, n_steps=12,
     log(f"[train] grad_accum=2 step: {ms[0]:.1f} ms (first, unwarmed), peak "
         f"{peak:.2f} GiB, launches {counts}")
     return ({"B": SERVE_B, "T": SERVE_T, "N": SERVE_N, "dtype": "bfloat16",
-             "phases": phases, "card": card}, det_launches, saved)
+             "phases": phases, "card": card}, det_launches, saved, affinity)
 
 
 def phase_train_conv(cfg, device, n_steps=(4, 3)):
@@ -2014,7 +2059,7 @@ def _timed_call(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_apps(cfg, device):
+def phase_apps(cfg, device, keep=None):
     """Generation, interpolation and retargeting through the port's
     ``Marionette`` at the full AIST width in float32, with seeded
     informative weights, each called twice (ms of both calls; the first
@@ -2026,7 +2071,9 @@ def phase_apps(cfg, device):
     voxels in {0, 1}, anchors and frozen intensities, skin weights summing
     to 1, R orthonormal, and K2 forward launched once per detector forward
     (counted by a hook on the detector), K1 and K3 never (the apps
-    voxelize on the host, and float32 takes no conv route)."""
+    voxelize on the host, and float32 takes no conv route). ``keep``
+    receives the second round's results, the clips and the marionette, for
+    the render phase."""
     import torch
     from neural_marionette_tpu_torch.ops import conv3d as K3
     from neural_marionette_tpu_torch.ops import losses as L
@@ -2110,6 +2157,9 @@ def phase_apps(cfg, device):
     log(f"[apps] ms (first, second call): "
         + ", ".join(f"{k} {v[0]:.1f}/{v[1]:.1f}" for k, v in ms.items()))
     log(f"[apps] launches {launches}; R orthonormal to {orth:.1e}")
+    if keep is not None:
+        keep.update(gen=gen, itp=itp, ret=ret["ours"], clip20=clip20,
+                    source=source, target=target, marionette=m)
     del m
     torch.cuda.empty_cache()
     return out
@@ -2319,13 +2369,22 @@ def phase_apps_reference(cfg, card_device):
 CLI_SEQS = {"train": 12, "test": 4}   # sequences per split
 CLI_FRAMES, CLI_POINTS = 40, 20000    # prepare_aistpp.py's --n_points
 CLI_B, CLI_N, CLI_WORKERS = 4, 4096, 4
-# launches of the two CLI runs: per epoch 3 train steps, 1 eval step and 1
-# voxelization of the GT; the detector phase's steps run K2 backward, the
-# resumed epoch 48 routed convs a detector forward
-CLI_LAUNCHES = [{"voxelize": 10, "chamfer_fwd": 8, "chamfer_bwd": 3,
+# launches of the two CLI runs. Every epoch: 3 train steps (K1 and K2
+# forward each; K2 backward in the detector phase only), 1 eval step (K1,
+# K2 forward), the GT voxels of voxel_chamfer (K1) and the GIF logging's
+# voxels of the first validation batch (K1; every epoch below 10 logs).
+# A learner epoch adds the generate step on that batch (K1 for its voxels,
+# K2 forward in its detector forward). So K1 6 (detector epoch) + 7
+# (learner epoch) = 13 and K2 forward 4 + 5 = 9 in the first run; K1 7 and
+# K2 forward 5 in the resumed learner epoch, whose conv route puts 48
+# convs a detector forward on K3 (3 train steps and the eval step) and
+# ROUTED_CONVS + ROUTED_DECODER_CONVS = 52 in the generate step.
+CLI_LAUNCHES = [{"voxelize": 6 + 7, "chamfer_fwd": 4 + 5, "chamfer_bwd": 3,
                  "conv3d": 0},
-                {"voxelize": 5, "chamfer_fwd": 4, "chamfer_bwd": 0,
-                 "conv3d": 4 * ROUTED_CONVS}]
+                {"voxelize": 7, "chamfer_fwd": 5, "chamfer_bwd": 0,
+                 "conv3d": 4 * ROUTED_CONVS + ROUTED_CONVS
+                 + ROUTED_DECODER_CONVS}]
+CLI_GIF_VIDEOS = 4   # min(log_gif_num 4 of the AIST preset, B 4)
 # SMPL's kinematic tree (24 joints), the parents prepare_aistpp.py reads
 SMPL_PARENTS = (-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14,
                 16, 17, 18, 19, 20, 21)
@@ -2600,7 +2659,8 @@ def _check_cli_files(exp: Path):
 def _vis_outputs(exp: Path, work: Path, source: Path, G: int):
     """The three demo CLIs on the card from the CLI's output directory:
     generation on a sequence of the tree, interpolation and retargeting on
-    their synthetic fallbacks; their ``.npy`` outputs checked."""
+    their synthetic fallbacks; their ``.npy`` outputs checked, their
+    renders present (decoded in the render phase)."""
     from neural_marionette_tpu_torch.cli import (vis_generation,
                                                  vis_interpolation,
                                                  vis_retarget)
@@ -2630,9 +2690,77 @@ def _vis_outputs(exp: Path, work: Path, source: Path, G: int):
                 raise AssertionError(f"{name}: {fname} {arr.shape}")
             if "voxels" in fname and not np.isin(arr, (0.0, 1.0)).all():
                 raise AssertionError(f"{name}: {fname} not binary")
-        log(f"[cli] {name}: {ms[name]:.0f} ms (load, run, write), outputs "
-            f"{sorted(os.listdir(out))}")
+        pngs, gifs = len(list(out.rglob("*.png"))), len(list(out.rglob(
+            "*.gif")))
+        if not pngs or not gifs:
+            raise AssertionError(f"{name}: {pngs} PNGs, {gifs} GIFs")
+        log(f"[cli] {name}: {ms[name]:.0f} ms (load, run, write, render), "
+            f"{pngs} PNGs and {gifs} GIFs, outputs {sorted(os.listdir(out))}")
     return ms
+
+
+def _check_cli_gifs(exp: Path, T: int):
+    """``gifs/<epoch>/`` of every epoch: the tracked keypoints and recon,
+    and the generated ones only in the learner epochs (1 and 2), each GIF
+    decoded by this script's reader: T frames of 192 x 192 (keypoints) or
+    192 x 384 (recon), 150 ms a frame, looping. Returns the GIFs read."""
+    n = 0
+    for epoch, learner in ((0, False), (1, True), (2, True)):
+        want = {f"{grp}_{what}_{i}.gif" for grp in
+                (("track", "gen") if learner else ("track",))
+                for what in ("keypoints", "recon")
+                for i in range(CLI_GIF_VIDEOS)}
+        gif_dir = exp / "gifs" / str(epoch)
+        if set(os.listdir(gif_dir)) != want:
+            raise AssertionError(f"cli gifs of epoch {epoch}: "
+                                 f"{sorted(os.listdir(gif_dir))}")
+        for name in sorted(want):
+            frames, delays, loop = read_gif_file(gif_dir / name)
+            shape = (T, 192, 384 if "recon" in name else 192, 3)
+            if frames.shape != shape or delays != [VIDEO_DELAY_CS] * T \
+                    or loop != 0:
+                raise AssertionError(f"cli {name} of epoch {epoch}: "
+                                     f"{frames.shape}, delays {delays}")
+            n += 1
+    return n
+
+
+def _check_debug_nans(work: Path, device):
+    """``--debug_nans 1``: one epoch of the CLI that completes, checked
+    every step; then a ``Trainer`` of that configuration with a parameter
+    poisoned with NaN, stepping on the CLI's loader, must raise
+    ``FloatingPointError``. Returns (the run's seconds, the error)."""
+    import torch
+    from neural_marionette_tpu_torch.cli import train as cli_train
+    from neural_marionette_tpu_torch.data import (DataLoader, load_dataset,
+                                                  prefetch_to_device)
+    from neural_marionette_tpu_torch.train import Trainer
+    argv = cli_argv(work / "data", work / "out_nans", nepoch=1,
+                    debug_nans=1, exp_name="smoke_nans")
+    t0 = time.perf_counter()
+    cli_train.train(*cli_train.parse_args(argv))
+    run_s = time.perf_counter() - t0
+    cfg = cli_train.prepare_config(cli_train.parse_args(argv)[0])
+    trainer = Trainer(cfg, device=device, dtype="bfloat16")
+    name, p = next((n, p) for n, p in trainer.model.named_parameters()
+                   if n.startswith("kypt_detector.") and p.ndim > 1)
+    with torch.no_grad():
+        p.view(-1)[0] = float("nan")
+    ds = load_dataset(True, cfg)
+    with DataLoader(ds, cfg.nbatch, seed=cfg.seed,
+                    num_workers=CLI_WORKERS) as loader:
+        try:
+            trainer.train_epoch(0, prefetch_to_device(iter(loader),
+                                                      device=device))
+        except FloatingPointError as e:
+            err = str(e)
+        else:
+            raise AssertionError(f"debug_nans: a NaN in {name} did not raise")
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"[cli] --debug_nans 1: one epoch completes in {run_s:.1f} s; {name} "
+        f"poisoned with NaN raises FloatingPointError: {err[:200]}")
+    return run_s, err
 
 
 def phase_cli(device, card):
@@ -2641,12 +2769,12 @@ def phase_cli(device, card):
     test sequences of 40 frames, 20000 points a frame): two epochs across
     the detector -> learner switch, checkpointing every epoch, with
     validation (semantic and voxel_chamfer); then a resume for one more
-    epoch on the conv route. Checks its files, the resume, the launches of K1, K2
-    forward and backward and K3 under each run, and the loader's batches
-    on the card against the host's; measures the loader, the steps through
-    it, their busy share and the validation's parts; checks the semantic
-    score with informative weights; runs the demo CLIs from the output
-    directory."""
+    epoch on the conv route. Checks its files and GIFs, the resume, the
+    launches of K1, K2 forward and backward and K3 under each run, and the
+    loader's batches on the card against the host's; measures the loader,
+    the steps through it, their busy share, the validation's parts and the
+    GIF logging; checks the semantic score with informative weights and
+    ``--debug_nans 1``; runs the demo CLIs from the output directory."""
     import torch
     from neural_marionette_tpu_torch.cli import train as cli_train
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
@@ -2671,6 +2799,7 @@ def phase_cli(device, card):
             lambda: cli_train.train(*cli_train.parse_args(argv)))
         first_s = time.perf_counter() - t0
         first_valid = dict(first.validation_stats)
+        gif_ms = dict(first.gif_ms)
         del first
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2682,6 +2811,7 @@ def phase_cli(device, card):
         if resumed.start_epoch != 2:
             raise AssertionError(f"cli: resumed at {resumed.start_epoch}")
         resumed_valid = dict(resumed.validation_stats)
+        gif_ms.update(resumed.gif_ms)
         del resumed
         torch.cuda.empty_cache()
         if [first_launches, resumed_launches] != CLI_LAUNCHES:
@@ -2689,6 +2819,11 @@ def phase_cli(device, card):
                                  f"{resumed_launches}, want {CLI_LAUNCHES}")
         exp = work / "out" / cfg.training_id / "smoke"
         records, cli_hit = _check_cli_files(exp)
+        n_gifs = _check_cli_gifs(exp, cfg.Ttot)
+        log(f"[cli] GIF logging, ms per epoch: " + ", ".join(
+            f"{e} {v:.0f}" for e, v in sorted(gif_ms.items()))
+            + f" (beside the epoch seconds below); {n_gifs} GIFs decoded")
+        nans_s, nans_err = _check_debug_nans(work, device)
         for tag, st in (("epochs 0-1", first_valid),
                         ("epoch 2, conv route", resumed_valid)):
             log(f"[cli] validation ({tag}), ms per batch: eval step "
@@ -2730,10 +2865,479 @@ def phase_cli(device, card):
                            "semantic_informative": semantic[0],
                            "keypoints_hit_informative": semantic[1]},
             "epoch_s": [r["time"] for r in records],
+            "gif_logging_ms": [gif_ms[e] for e in sorted(gif_ms)],
+            "gifs_checked": n_gifs,
+            "debug_nans": {"run_s": nans_s, "poisoned_error": nans_err},
             "run_s": [first_s, resumed_s],
             "launches": launches,
             "launches_per_run": [first_launches, resumed_launches],
             "vis_ms": vis_ms, "phase_s": phase_s, "card": card}
+
+
+# ------------------------------------------------------------------ render
+RENDER_DELAY_CS, VIDEO_DELAY_CS = 10, 15   # GIF delays, hundredths of a s
+VIS_SHAPE = dict(videos=4, T=10)           # the CLI's logged batch
+MESH_RES = 158                             # sphere_mesh: 4 * 158^2 ~ 1e5 faces
+
+
+def read_png_file(path):
+    """An 8-bit RGB PNG as (H, W, 3) uint8, with this script's own reader
+    (zlib; the port writes every row unfiltered, and any other filter
+    fails the check)."""
+    import struct
+    import zlib
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    W, H, depth, ctype = hdr[:4]
+    if (depth, ctype) != (8, 2):
+        raise AssertionError(f"{path}: bit depth {depth}, colour type {ctype}")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(H, 1 + 3 * W)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a filtered row")
+    return rows[:, 1:].reshape(H, W, 3)
+
+
+def _lzw_decode(data, mcs, n):
+    """GIF's LZW code stream -> ``n`` palette indices."""
+    clear, eoi = 1 << mcs, (1 << mcs) + 1
+    base = [bytes([i]) for i in range(clear)] + [b"", b""]
+    table, size, prev = list(base), mcs + 1, None
+    out = bytearray()
+    acc = bits = i = 0
+    while True:
+        while bits < size:
+            acc |= data[i] << bits
+            i += 1
+            bits += 8
+        code = acc & ((1 << size) - 1)
+        acc >>= size
+        bits -= size
+        if code == clear:
+            table, size, prev = list(base), mcs + 1, None
+            continue
+        if code == eoi:
+            break
+        if code < len(table):
+            entry = table[code]
+            if prev is not None and len(table) < 4096:
+                table.append(prev + entry[:1])
+        else:
+            entry = prev + prev[:1]
+            table.append(entry)
+        out += entry
+        prev = entry
+        if len(table) == 1 << size and size < 12:
+            size += 1
+    if len(out) != n:
+        raise AssertionError(f"LZW: {len(out)} indices, want {n}")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def read_gif_file(path):
+    """A GIF89a as (frames (n, H, W, 3) uint8, delays in hundredths, loop
+    count), with this script's own reader (LZW in Python)."""
+    import struct
+    data = Path(path).read_bytes()
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"{path}: not a GIF89a")
+    W, H, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+
+    def blocks(pos):
+        out = bytearray()
+        while data[pos]:
+            out += data[pos + 1:pos + 1 + data[pos]]
+            pos += 1 + data[pos]
+        return bytes(out), pos + 1
+
+    frames, delays, loop, delay = [], [], None, None
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        if kind == 0x21:
+            label = data[pos + 1]
+            body, pos = blocks(pos + 2)
+            if label == 0xF9:
+                delay = struct.unpack("<H", body[1:3])[0]
+            elif label == 0xFF and body.startswith(b"NETSCAPE2.0"):
+                loop = struct.unpack("<H", body[12:14])[0]
+        elif kind == 0x2C:
+            x, y, w, h, p = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+            if (x, y, w, h) != (0, 0, W, H) or p & 0x40 or not p & 0x80:
+                raise AssertionError(f"{path}: frame {len(frames)} layout")
+            pos += 10
+            ncol = 2 << (p & 7)
+            table = np.frombuffer(data[pos:pos + 3 * ncol], np.uint8)
+            pos += 3 * ncol
+            mcs = data[pos]
+            body, pos = blocks(pos + 1)
+            idx = _lzw_decode(body, mcs, W * H)
+            frames.append(table.reshape(-1, 3)[idx].reshape(H, W, 3))
+            delays.append(delay)
+        else:
+            raise AssertionError(f"{path}: block {kind:#x}")
+    return np.stack(frames), delays, loop
+
+
+def check_render_files(root, n_frames, pngs_of=None):
+    """Every PNG (size 1025 x 958 unless under ``gifs/``) and GIF under
+    ``root`` decoded by this script's readers: each GIF loops, with the
+    delay of its kind (100 ms renders, 150 ms videos) and ``n_frames[name]``
+    frames when given; a GIF whose frames have PNGs (``pngs_of[gif]`` = the
+    PNG directory) within 3/255 mean of them (the palette's error).
+    Returns the counts."""
+    root = Path(root)
+    counts = {"png": 0, "gif": 0, "gif_frames": 0}
+    for png in sorted(root.rglob("*.png")):
+        img = read_png_file(png)
+        if img.shape != (958, 1025, 3):
+            raise AssertionError(f"{png}: {img.shape}")
+        counts["png"] += 1
+    for gif in sorted(root.rglob("*.gif")):
+        name = str(gif.relative_to(root))
+        frames, delays, loop = read_gif_file(gif)
+        want = VIDEO_DELAY_CS if name.startswith("gifs") else RENDER_DELAY_CS
+        if loop != 0 or delays != [want] * len(frames):
+            raise AssertionError(f"{name}: loop {loop}, delays {delays}")
+        if name in (n_frames or {}) and len(frames) != n_frames[name]:
+            raise AssertionError(f"{name}: {len(frames)} frames, want "
+                                 f"{n_frames[name]}")
+        for png in sorted((root / (pngs_of or {}).get(name, "-")).glob(
+                "*.png")):
+            err = np.abs(frames[int(png.stem)].astype(np.float64)
+                         - read_png_file(png)).mean() / 255
+            if not err <= 3 / 255:
+                raise AssertionError(f"{name} frame {png.stem}: {err:.4f}")
+        counts["gif"] += 1
+        counts["gif_frames"] += len(frames)
+    return counts
+
+
+def _sync_ms(fn):
+    """(result, host ms of ``fn()``, the card synchronised around it)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _equal_on_card_and_cpu(what, fn, device):
+    """``fn(device)`` on the card and on the CPU equal to the bit; returns
+    the card's result and its ms (second call, synchronised)."""
+    import torch
+    card = fn(device)
+    card, ms = _sync_ms(lambda: fn(device))
+    host = fn(torch.device("cpu"))
+    if not torch.equal(card.cpu(), host):
+        bad = (card.cpu() != host).any(-1).float().mean()
+        raise AssertionError(f"render {what}: the card's image differs from "
+                             f"the CPU's on {float(bad):.2e} of the pixels")
+    return card, ms
+
+
+def _render_raster(device, work):
+    """The raster on the card equal to the bit to the port's CPU run of the
+    same inputs, at the reference camera: splat (px 1 and 2, onto a given
+    frame), the surfels of a 64^3 clip's 10 frames (estimated normals, the
+    generation colours), the skeleton meshes of 10 frames (K 24) and a
+    mesh of ~1e5 faces; the frames written as PNGs and read back equal to
+    ``to_uint8``. Returns the card's ms."""
+    import torch
+    from neural_marionette_tpu_torch.ops.voxelize import voxelize_np
+    from neural_marionette_tpu_torch.skeleton import extract_skeleton
+    from neural_marionette_tpu_torch.viz import raster as R
+    from neural_marionette_tpu_torch.viz.image_files import save_png, to_uint8
+    cam = R.default_camera()
+    g = np.random.default_rng(91)
+    ms = {}
+    pts = g.uniform(-0.8, 0.8, (20000, 3))
+    cols = g.uniform(size=(20000, 3))
+    base = g.uniform(size=(cam.H, cam.W, 3)).astype(np.float32)
+    for px in (1, 2):
+        _, ms[f"splat_px{px}_20000"] = _equal_on_card_and_cpu(
+            f"splat px {px}", lambda d: R.splat(
+                cam, pts, cols, img=torch.as_tensor(base, device=d), px=px,
+                device=d), device)
+    clip = motion_points(10, APP_N, seed=92)
+    G = 64
+    vox = np.stack([voxelize_np(f, G) for f in clip])
+    coords = [np.stack(np.nonzero(v[..., 0]), -1) / ((G - 1) / 2) - 1
+              for v in vox]
+    t0 = time.perf_counter()
+    normals = [R.estimate_normals(c) for c in coords]
+    ms["estimate_normals_per_frame"] = (time.perf_counter() - t0) * 1e3 / 10
+    colors = [np.array([[0.6, 1.0, 0.6]]) * (0.2 + 0.8 * (c[:, 2:] + 1) / 2)
+              for c in coords]
+    frame = np.concatenate([np.full(len(c), t) for t, c in enumerate(coords)])
+
+    def surfels(d):
+        return R.render_surfels_frames(
+            cam, torch.as_tensor(np.concatenate(coords), device=d),
+            torch.as_tensor(np.concatenate(normals), device=d),
+            torch.as_tensor(np.concatenate(colors), device=d),
+            torch.as_tensor(frame, device=d), R.blank(cam, 10, device=d))
+    surf, t = _equal_on_card_and_cpu("surfels", surfels, device)
+    ms["surfels_per_frame"] = t / 10
+    sk = extract_skeleton(g.uniform(size=(2, 24, 24, 1)).astype(np.float32))
+    kps = g.uniform(-0.6, 0.6, (10, 24, 3))
+    meshes = [dict(zip(("verts", "faces", "vert_colors"),
+                       R.skeleton_geometry(kp, sk.parents))) for kp in kps]
+    skel, t = _equal_on_card_and_cpu("skeleton meshes", lambda d: (
+        R.render_mesh_frames(cam, meshes, R.blank(cam, 10, device=d))),
+        device)
+    ms["skeleton_mesh_per_frame"] = t / 10
+    v, f = R.sphere_mesh(0.6, res=MESH_RES)
+    vc = g.uniform(size=(len(v), 3)).astype(np.float32)
+    big, ms["mesh_1e5_faces"] = _equal_on_card_and_cpu(
+        "mesh", lambda d: R.render_mesh(cam, v, f, vert_colors=vc, device=d),
+        device)
+    samples = R.mesh_batch(cam, [dict(verts=v, faces=f, vert_colors=vc)])
+    _, ms["mesh_1e5_faces_device"] = _sync_ms(lambda: R.shade_splat(
+        cam, *samples, R.blank(cam, 1, device=device)))
+    for name, img in (("surfels", surf[0]), ("skeleton", skel[0]),
+                      ("mesh", big)):
+        path = work / f"raster_{name}.png"
+        t0 = time.perf_counter()
+        save_png(img, str(path))
+        ms[f"png_{name}"] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(read_png_file(path), to_uint8(img)):
+            raise AssertionError(f"render: {name} PNG differs from to_uint8")
+    log(f"[render] raster on the card equal to the bit to the CPU (splat px "
+        f"1/2, surfels of 10 frames of a 64^3 clip, 10 skeleton meshes, a "
+        f"mesh of {len(f)} faces); PNGs lossless; card ms " + ", ".join(
+            f"{k} {x:.1f}" for k, x in ms.items()))
+    return dict(ms, mesh_faces=int(len(f)),
+                mesh_samples=int(len(samples[0])))
+
+
+def _vis_inputs(G, K, seed=93):
+    """The CLI's logged batch at the AIST preset: 4 clips of 10 frames of
+    64^3 voxels, their keypoints (K 24) inside the blob, an affinity, a
+    skeleton adjacency and a recon."""
+    from neural_marionette_tpu_torch.ops.voxelize import voxelize_np
+    from neural_marionette_tpu_torch.skeleton import extract_skeleton
+    g = np.random.default_rng(seed)
+    n, T = VIS_SHAPE["videos"], VIS_SHAPE["T"]
+    pts = serving_points(n, T, SERVE_N, seed)
+    vox = np.stack([np.stack([voxelize_np(pts[b, t], G) for t in range(T)])
+                    for b in range(n)])
+    kp = np.concatenate([g.uniform(-0.5, 0.5, (n, T, K, 3)),
+                         g.uniform(0, 1, (n, T, K, 1))], -1)
+    aff = g.uniform(size=(2, K, K, 1)).astype(np.float32)
+    recon = np.clip(vox + g.uniform(-0.6, 0.6, vox.shape), 0, 1)
+    return vox, kp.astype(np.float32), aff, extract_skeleton(aff).A, recon
+
+
+def _render_vis(device, work, G, K):
+    """``vis_keypoints`` (affinity arrows and adjacency lines) and
+    ``vis_recon`` on the card at the CLI's shape against the CPU: equal to
+    the bit (the compositing is float32 products and sums, one operation a
+    kernel), their GIFs decoded with 150 ms delays, equal to the frames
+    where a frame has at most 256 colours, else within 3/255 mean (the
+    palette's error); ms per call on the card (the second call)."""
+    import torch
+    from neural_marionette_tpu_torch.viz import visualize as PV
+    vox, kp, aff, A, recon = _vis_inputs(G, K)
+    exact = inexact = 0
+    calls = {
+        "keypoints_affinity": lambda d, **k: PV.vis_keypoints(
+            vox, kp, affinity=aff, log_num=4, group="track", device=d, **k),
+        "keypoints_A": lambda d, **k: PV.vis_keypoints(
+            vox, kp, affinity=A, mode="A", log_num=4, group="gen", Tcond=3,
+            device=d, **k),
+        "recon": lambda d, **k: PV.vis_recon(
+            vox, recon, log_num=4, group="track", Tcond=3, device=d, **k)}
+    ms = {}
+    for name, fn in calls.items():
+        fn(device)
+        card, ms[name] = _sync_ms(lambda: fn(device))
+        host = fn(torch.device("cpu"))
+        if not np.array_equal(card, host):
+            raise AssertionError(f"vis {name}: card and CPU differ on "
+                                 f"{np.any(card != host, -1).mean():.2e}")
+        out = work / "vis" / name
+        fn(device, logger_path=str(out), nepoch=0)
+        for gif in sorted((out / "gifs" / "0").glob("*.gif")):
+            frames, delays, loop = read_gif_file(gif)
+            i = int(gif.stem.rsplit("_", 1)[1])
+            if frames.shape != card[i].shape or delays != [
+                    VIDEO_DELAY_CS] * len(frames) or loop != 0:
+                raise AssertionError(f"vis {gif.name}: {frames.shape}, "
+                                     f"delays {delays}")
+            for t, (got, want) in enumerate(zip(frames, card[i])):
+                few = len(np.unique(want.reshape(-1, 3), axis=0)) <= 256
+                err = np.abs(got.astype(np.float64) - want).mean() / 255
+                if (few and err) or err > 3 / 255:
+                    raise AssertionError(f"vis {gif.name} frame {t}: mean "
+                                         f"error {err:.4f}")
+                exact += few
+                inexact += not few
+    log(f"[render] vis on the card equal to the bit to the CPU at 4 videos x "
+        f"10 frames, K {K}, G {G}; GIF frames decoded: {exact} equal (at most "
+        f"256 colours), {inexact} within 3/255; ms per call "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    return dict(ms_per_call=ms, gif_frames_equal=exact,
+                gif_frames_within_3_255=inexact)
+
+
+def _textured_target(work, res=70):
+    """A textured OBJ the script writes: a UV sphere (4 * res^2 faces) with
+    UVs, an MTL and a 64 x 64 PNG texture (the port's writer)."""
+    from neural_marionette_tpu_torch.viz import raster as R
+    from neural_marionette_tpu_torch.viz.image_files import write_png
+    work.mkdir(parents=True, exist_ok=True)
+    v, f = R.sphere_mesh(0.5, res=res)
+    v = v * np.array([0.5, 1.0, 0.4])
+    th = np.arctan2(v[:, 1], v[:, 0]) / (2 * np.pi) + 0.5
+    lines = ["mtllib target.mtl"]
+    lines += [f"v {a:.6f} {b:.6f} {c:.6f}" for a, b, c in v]
+    lines += [f"vt {a:.5f} {b:.5f}" for a, b in
+              zip(th, (v[:, 2] / 0.2 + 1) / 2)]
+    lines += [f"f {a + 1}/{a + 1} {b + 1}/{b + 1} {c + 1}/{c + 1}"
+              for a, b, c in f]
+    (work / "target.obj").write_text("\n".join(lines) + "\n")
+    (work / "target.mtl").write_text("newmtl m\nmap_Kd texture.png\n")
+    y, x = np.mgrid[0:64, 0:64]
+    tex = np.stack([x * 4, y * 4, (x ^ y) * 4], -1).astype(np.uint8)
+    write_png(tex, str(work / "texture.png"))
+    return work / "target.obj", len(f)
+
+
+def phase_render(cfg, device, card, apps_keep, trained_affinity):
+    """The renders on the card (``viz/``, the demos' render sets) and the
+    device skeleton extraction; see the module docstring, phase 16."""
+    import torch
+    from neural_marionette_tpu_torch.apps import generation as AG
+    from neural_marionette_tpu_torch.apps import interpolation as AI
+    from neural_marionette_tpu_torch.apps import retarget as AR
+    G, K = cfg.grid_size, cfg.nkeypoints
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_render_"))
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    try:
+        out["raster"] = _render_raster(device, work)
+        out["vis"] = _render_vis(device, work, G, K)
+        # the apps phase's generated clip and interpolation, as the demos
+        # save them
+        gen, itp, clip20 = (apps_keep[k] for k in ("gen", "itp", "clip20"))
+        d = work / "generation"
+        stats, t = _sync_ms(lambda: AG.save_outputs(
+            gen, str(d), vox_cond=clip20[:5], Tcond=5, device=device))
+        S, T = gen["gen_voxels"].shape[:2]
+        files = check_render_files(
+            d, {f"gen_result_{s}.gif": T for s in range(S)},
+            {f"gen_result_{s}.gif": f"gen_result_imgs_{s}" for s in range(S)})
+        rg = stats["render_generation"]
+        out["generation"] = {
+            "ms": t, "frames": rg["frames"], "ms_per_frame": {
+                k: rg[k] / rg["frames"]
+                for k in ("normals_ms", "render_ms", "encode_ms")},
+            "vis_keypoints_ms": stats["vis_keypoints_ms"],
+            "vis_recon_ms": stats["vis_recon_ms"], "files": files,
+            "voxels_per_frame": float(gen["gen_voxels"].sum() / (S * T))}
+        d = work / "interpolation"
+        stats, t = _sync_ms(lambda: AI.save_outputs(
+            itp, str(d), vox_clip=clip20, device=device))
+        out["interpolation"] = {"ms": t, "files": check_render_files(
+            d, {"interp_result_0.gif": 20},
+            {"interp_result_0.gif": "interp_result_imgs_0"})}
+        # the retarget sets: the apps phase's surfel target, then a
+        # textured mesh target the script writes
+        m = apps_keep["marionette"]
+        sets = ("source", "smooth", "skeleton", "overlay")
+        for kind in ("surfels", "textured_mesh"):
+            if kind == "surfels":
+                ret, points, mesh = apps_keep["ret"], apps_keep["target"], None
+                faces = 0
+            else:
+                obj, faces = _textured_target(work / "obj")
+                points, mesh = AR.load_target_points(str(obj),
+                                                     return_mesh=True)
+                if mesh["texture"] is None or mesh["uv"] is None:
+                    raise AssertionError("render: the OBJ's texture not read")
+                ret = m.retarget(apps_keep["source"], points)
+            d = work / f"retarget_{kind}"
+            stats, t = _sync_ms(lambda: AR.save_outputs(
+                ret, str(d), source_vox=apps_keep["source"],
+                target_mesh=mesh, target_points=points, device=device))
+            names = sets + (("textured",) if mesh else ())
+            files = check_render_files(
+                d, {f"{s}.gif": 10 for s in names},
+                {f"{s}.gif": f"{s}_imgs" for s in names})
+            if files["gif"] != len(names) or files["png"] != \
+                    10 * len(names) + 2:
+                raise AssertionError(f"retarget {kind}: files {files}")
+            out[f"retarget_{kind}"] = {"ms": t, "points": int(len(points)),
+                                       "faces": int(faces), "sets": names,
+                                       "split_ms": stats, "files": files}
+        out["skeleton_device"] = _render_skeleton(device, trained_affinity)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    g_ = out["generation"]
+    log(f"[render] generation: {g_['frames']} frames at 1025 x 958, "
+        f"{g_['ms']:.0f} ms; per frame host normals "
+        f"{g_['ms_per_frame']['normals_ms']:.1f}, card "
+        f"{g_['ms_per_frame']['render_ms']:.1f}, PNG/GIF "
+        f"{g_['ms_per_frame']['encode_ms']:.1f} ms; files {g_['files']}")
+    for kind in ("surfels", "textured_mesh"):
+        r = out[f"retarget_{kind}"]
+        log(f"[render] retarget sets ({kind}, 10 frames onto {r['points']} "
+            f"points): {r['ms']:.0f} ms, split {r['split_ms']}, files "
+            f"{r['files']}")
+    log(f"[render] phase {out['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _render_skeleton(device, trained_affinity):
+    """``extract_skeleton_device`` on the card equal to the bit to the host
+    extraction on the train phase's trained affinity and on seeded random
+    and tie-heavy affinities at K 24; its ms and device operations a
+    call."""
+    import torch
+    from neural_marionette_tpu_torch.skeleton import extract_skeleton
+    from neural_marionette_tpu_torch.skeleton_device import (
+        extract_skeleton_device, extract_skeleton_host_api)
+    cases = {"trained": trained_affinity}
+    for s in range(5):
+        g = np.random.default_rng(200 + s)
+        cases[f"random{s}"] = g.uniform(size=(2, 24, 24, 1)).astype(
+            np.float32)
+        tie = (g.integers(0, 3, size=(2, 24, 24, 1)) / 2.0).astype(np.float32)
+        cases[f"ties{s}"] = tie + g.uniform(0, 1e-3, tie.shape).astype(
+            np.float32)
+    for name, aff in cases.items():
+        host = extract_skeleton(aff)
+        dev = extract_skeleton_host_api(aff, device=device)
+        for f in ("A", "priority_values", "priority_indices", "parents"):
+            a, b = getattr(host, f), getattr(dev, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"skeleton {name}: {f} {b} on the card, "
+                                     f"{a} on the host")
+    aff = torch.as_tensor(trained_affinity, device=device)
+    extract_skeleton_device(aff)
+    ms = min(_sync_ms(lambda: extract_skeleton_device(aff))[1]
+             for _ in range(3))
+    # None when the profiler recorded no device operation at all
+    ops = len(device_events(lambda: extract_skeleton_device(aff), n=1)) \
+        or None
+    log(f"[render] extract_skeleton_device on the card equal to the bit to "
+        f"the host on {len(cases)} affinities (trained, random, tie-heavy, K "
+        f"24): {ms:.1f} ms a call, {ops} device operations")
+    return {"cases": len(cases), "ms": ms, "device_ops_per_call": ops}
 
 
 # -------------------------------------------------------------------- main
@@ -2816,7 +3420,7 @@ def main() -> int:
     phase_reference(cfg, seed=0, card_device=device)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        train, det_launches, saved = phase_train(
+        train, det_launches, saved, trained_affinity = phase_train(
             cfg, device, card, work / "detector" / "aist_detector")
         launches["chamfer_bwd"] = det_launches["chamfer_bwd"]
         torch.cuda.empty_cache()
@@ -2828,18 +3432,25 @@ def main() -> int:
     train["conv_kernel"] = phase_train_conv(cfg, device)
     torch.cuda.empty_cache()
     phase_train_reference(cfg, seed=0, card_device=device)
-    apps = phase_apps(cfg, device)
+    apps_keep = {}
+    apps = phase_apps(cfg, device, apps_keep)
     apps["generate_step"] = phase_generate_step(cfg, device)
     apps["reference"] = phase_apps_reference(cfg, device)
     torch.cuda.empty_cache()
-    cli = phase_cli(device, card)
-    torch.cuda.empty_cache()
+    # the phases that read device events from the profiler come before the
+    # renders: in two runs after them the profiler recorded 0 and 1 of K1's
+    # 10 launches (timing phase)
     records = phase_timing(device, G, K, launches, errs)
     for rec in conv_records:
         rec["launches"] = launches[rec["name"]]
     records += conv_records
     profile = phase_profile(marionette)
     profile["conv_kernel"] = phase_profile(marionette, conv_kernel=True)
+    cli = phase_cli(device, card)
+    torch.cuda.empty_cache()
+    render = phase_render(cfg, device, card, apps_keep, trained_affinity)
+    del apps_keep
+    torch.cuda.empty_cache()
     k3_dev = sum(k["device_ms_per_call"] * k["calls_per_window"]
                  for k in profile["conv_kernel"]["port_kernels"]
                  if "conv3d_kernel" in k["name"])
@@ -2871,6 +3482,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"apps": apps}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"render": render}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ import torch
 from .config import MarionetteConfig
 from .models import NeuralMarionette, SkeletonArrays
 from .ops.voxelize import voxelize, voxelize_np
-from .skeleton import Skeleton, extract_skeleton
+from .skeleton import Skeleton
 from .weights import init_weights, state_dict_from_jax
 
 
@@ -94,11 +94,13 @@ class Marionette:
 
     def extract_skeleton(self) -> Skeleton:
         """Skeleton from the learned affinity (it depends on the weights
-        only), extracted once and cached."""
+        only), extracted once on the marionette's device
+        (``skeleton_device``) and cached."""
         if self.skeleton is None:
+            from .skeleton_device import extract_skeleton_host_api
             with torch.inference_mode():
                 aff = self.model.kypt_detector.get_affinity()
-            self.skeleton = extract_skeleton(aff.cpu().numpy())
+                self.skeleton = extract_skeleton_host_api(aff)
         return self.skeleton
 
     def detect(self, vox_clip: np.ndarray) -> dict:

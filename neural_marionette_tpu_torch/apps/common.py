@@ -101,7 +101,8 @@ def detect_and_extract_skeleton(m: Marionette, vox_clip: np.ndarray
     """Detector forward on a clip ``(T, G, G, G, 1)``, affinity on, under
     ``torch.inference_mode()``: the detector's outputs as tensors on the
     device (batch of one), and the skeleton (the marionette's, else
-    extracted on the host from the learned affinity and cached)."""
+    extracted on the device from the learned affinity and cached,
+    ``Marionette.extract_skeleton``)."""
     with torch.inference_mode():
         det = m.model.kypt_detector(m.clip_tensor(vox_clip), affinity_active=True)
     return det, m.extract_skeleton()

@@ -4,22 +4,29 @@ Counterpart of ``neural_marionette_tpu/apps/retarget.py``: detect a source
 clip's keypoints and per-frame global rotations, detect a target shape's
 bind-pose keypoints, skin the target points to the learned skeleton, and
 replay the source motion on the target by linear blend skinning
-(``retarget.retarget_motion``, on the host). The renders come with the
-port's ``viz``.
+(``retarget.retarget_motion``, on the host); the renders are the port's
+``viz``, on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-
+import time
+import warnings
 import numpy as np
 import torch
 
-from ..api import Marionette
+from ..api import Marionette, resolve_device
 from ..data.pipeline import episodic_normalization
 from ..models import SkeletonArrays
 from ..ops.voxelize import voxelize_np
 from ..retarget import retarget_motion
+from ..viz import raster as R
+from ..viz.image_files import (PNG_SIGNATURE, read_png, to_uint8, write_gif,
+                               write_png)
 from .common import detect_and_extract_skeleton
+
+RENDER_DELAY_S = 0.1   # the JAX save_gif's duration=0.1
 
 
 def load_obj_vertices(path: str) -> np.ndarray:
@@ -84,7 +91,11 @@ def load_obj_mesh(path: str) -> dict:
 
 
 def _find_texture(mtl_path: str):
-    """map_Kd image from an .mtl file, as float RGB (or None)."""
+    """The ``map_Kd`` image of an .mtl file as float RGB in [0, 1]; None
+    when the file is absent or declares no texture, and, with a warning,
+    when the declared image is missing (the JAX function's None). The
+    texture must be a PNG (8-bit RGB or RGBA, read by
+    ``viz.image_files.read_png``): an image of another format raises."""
     if not os.path.exists(mtl_path):
         return None
     tex_file = None
@@ -97,10 +108,24 @@ def _find_texture(mtl_path: str):
         return None
     img_path = os.path.join(os.path.dirname(mtl_path), tex_file)
     if not os.path.exists(img_path):
+        warnings.warn(f"{mtl_path} names the texture {img_path}, which does "
+                      "not exist; the mesh is drawn without it")
         return None
-    import imageio
-    img = np.asarray(imageio.imread(img_path), np.float32) / 255.0
+    with open(img_path, "rb") as f:
+        magic = f.read(8)
+    if magic != PNG_SIGNATURE:
+        fmt = next((name for sig, name in _IMAGE_MAGIC if
+                    magic.startswith(sig)),
+                   os.path.splitext(img_path)[1] or "unknown")
+        raise ValueError(f"{img_path}: a {fmt} texture; the port reads PNG "
+                         "textures only, convert the texture to PNG")
+    img = read_png(img_path).astype(np.float32) / 255.0
     return img[..., :3]
+
+
+_IMAGE_MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
+                (b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                (b"RIFF", "WebP"))
 
 
 def load_target_points(path: str, scale: float = 0.8, x_trans: float = 0.0,
@@ -181,9 +206,48 @@ def run_retarget(m: Marionette, source_vox: np.ndarray,
                 source_keypoints=source_kp[0], target_keypoints=target_kp)
 
 
-def save_outputs(out: dict, out_dir: str) -> None:
-    """The ``.npy`` exports: retargeted points and keypoints, skin
-    weights, parents."""
+class _Timer:
+    """Host ms per part: ``with timer("render_ms"): ...``."""
+
+    def __init__(self, *parts):
+        self.ms = dict.fromkeys(parts, 0.0)
+
+    @contextlib.contextmanager
+    def __call__(self, part):
+        t0 = time.perf_counter()
+        yield
+        self.ms[part] += (time.perf_counter() - t0) * 1e3
+
+
+def _write_seq(out_dir: str, name: str, rgb: np.ndarray) -> None:
+    """``<name>/%02d.png`` per frame and ``<name without _imgs>.gif``
+    (100 ms a frame)."""
+    img_dir = os.path.join(out_dir, name)
+    os.makedirs(img_dir, exist_ok=True)
+    for t, img in enumerate(rgb):
+        write_png(img, os.path.join(img_dir, f"{t:02d}.png"))
+    write_gif(rgb, os.path.join(out_dir, f"{name[:-5]}.gif"), RENDER_DELAY_S)
+
+
+def save_outputs(out: dict, out_dir: str, source_vox=None, target_mesh=None,
+                 target_points=None, intensity_threshold: float = 0.2,
+                 device=None) -> dict:
+    """The retarget output inventory of the JAX ``save_outputs``
+    (reference vis_retarget.py:325-557): the ``.npy`` exports, then at the
+    reference camera (``raster.default_camera()``) the source
+    clip's voxels with its skeleton (``source_imgs``, given
+    ``source_vox``), the target stills ``target.png`` and
+    ``target_skin.png`` (its mesh, textured when ``target_mesh`` carries
+    UVs and a texture, else surfels with estimated normals; given
+    ``target_points``), and the deformed result as ``smooth_imgs``,
+    ``textured_imgs`` (a textured target), ``skeleton_imgs`` and
+    ``overlay_imgs`` (given ``source_vox``), each a PNG a frame and a GIF.
+    Without faces the deformed points render as surfels of every
+    ``len // 6000``-th point. Every set is drawn for all its frames in one
+    pass on ``device`` (``cuda`` unless the caller asks for the CPU).
+    Returns the host ms of the parts: ``host_ms`` (mesh samples, normals,
+    skeleton meshes), ``render_ms`` (the device passes and the copies of
+    the frames back), ``encode_ms`` (PNG and GIF files)."""
     os.makedirs(out_dir, exist_ok=True)
     res = out["result"]
     np.save(os.path.join(out_dir, "retargeted_points.npy"), res.new_points)
@@ -191,3 +255,121 @@ def save_outputs(out: dict, out_dir: str) -> None:
             res.new_keypoints)
     np.save(os.path.join(out_dir, "skin_weights.npy"), res.skin_weights)
     np.save(os.path.join(out_dir, "parents.npy"), out["skeleton"].parents)
+
+    dev = resolve_device(device)
+    cam = R.default_camera()
+    parents = out["skeleton"].parents
+    src_kp = out["source_keypoints"]  # (T, K, 4)
+    valid = src_kp[0, :, -1] >= intensity_threshold
+    joint_colors = R._spaced_colors(src_kp.shape[1])
+    T = res.new_points.shape[0]
+    timer = _Timer("host_ms", "render_ms", "encode_ms")
+
+    def blank(n=T):
+        return R.blank(cam, n, device=dev)
+
+    def voxel_frames(color):
+        """The source voxels of every frame splatted (px 2) onto white."""
+        G = source_vox.shape[1]
+        f, x, y, z = np.nonzero(source_vox[..., 0])
+        coords = np.stack([x, y, z], -1) / ((G - 1) / 2) - 1
+        cols = np.tile(np.asarray([color], np.float32), (len(coords), 1))
+        return R.splat_frames(
+            cam, torch.as_tensor(coords, device=dev),
+            torch.as_tensor(cols, device=dev), torch.as_tensor(f, device=dev),
+            blank(), px=2)
+
+    def skeletons(kps):
+        return R.mesh_batch(cam, [
+            dict(zip(("verts", "faces", "vert_colors"),
+                     R.skeleton_geometry(kp[:, :3], parents, valid=valid,
+                                         joint_colors=joint_colors)))
+            for kp in kps])
+
+    def write(name, render):
+        with timer("render_ms"):
+            rgb = to_uint8(render())
+        with timer("encode_ms"):
+            _write_seq(out_dir, name, rgb)
+
+    # ---- source clip: occupied-voxel points + skeleton (ref :325-398)
+    if source_vox is not None:
+        with timer("host_ms"):
+            samples = skeletons(src_kp[:T])
+        write("source_imgs", lambda: R.shade_splat(
+            cam, *samples, voxel_frames([0.45, 0.45, 0.5])))
+
+    # ---- target stills (ref :399-435): textured + skin-weight colors
+    faces = (target_mesh or {}).get("faces") if target_mesh else None
+    tex_colors = None
+    if target_mesh and target_mesh.get("uv") is not None \
+            and target_mesh.get("texture") is not None:
+        tex = target_mesh["texture"]
+        uv = np.clip(target_mesh["uv"], 0, 1)
+        h, w = tex.shape[:2]
+        tex_colors = tex[((1 - uv[:, 1]) * (h - 1)).astype(int),
+                         (uv[:, 0] * (w - 1)).astype(int)]
+    if target_points is not None:
+        skin_colors = joint_colors[np.argmax(res.skin_weights, axis=-1)]
+        gray = np.tile([[0.7, 0.7, 0.7]], (len(target_points), 1))
+        if faces is not None:
+            base = tex_colors if tex_colors is not None else gray
+            with timer("host_ms"):
+                samples = R.mesh_batch(cam, [
+                    dict(verts=target_points, faces=faces, vert_colors=c)
+                    for c in (base, skin_colors)])
+            with timer("render_ms"):
+                rgb = to_uint8(R.shade_splat(cam, *samples, blank(2)))
+        else:
+            with timer("host_ms"):
+                n = R.estimate_normals(target_points)
+            with timer("render_ms"):
+                p = np.asarray(target_points, np.float64)
+                rgb = to_uint8(R.render_surfels_frames(
+                    cam, torch.as_tensor(np.concatenate([p, p]), device=dev),
+                    torch.as_tensor(np.concatenate([n, n]), device=dev),
+                    torch.as_tensor(np.concatenate([gray, skin_colors]),
+                                    device=dev),
+                    torch.arange(2, device=dev).repeat_interleave(len(p)),
+                    blank(2)))
+        with timer("encode_ms"):
+            write_png(rgb[0], os.path.join(out_dir, "target.png"))
+            write_png(rgb[1], os.path.join(out_dir, "target_skin.png"))
+
+    # ---- deformed result views (ref :436-557)
+    def mesh_or_surfels(name, colors, background):
+        pts = res.new_points
+        if faces is not None:
+            with timer("host_ms"):
+                samples = R.mesh_batch(cam, [
+                    dict(verts=pts[t], faces=faces, vert_colors=colors)
+                    for t in range(T)])
+            write(name, lambda: R.shade_splat(cam, *samples, background()))
+            return
+        step = max(pts.shape[1] // 6000, 1)
+        sub = pts[:, ::step]
+        with timer("host_ms"):
+            n = np.concatenate([R.estimate_normals(sub[t])
+                                for t in range(T)])
+        c = np.asarray(colors)[::step] if np.ndim(colors) > 1 \
+            else np.tile(colors, (sub.shape[1], 1))
+        write(name, lambda: R.render_surfels_frames(
+            cam, torch.as_tensor(sub.reshape(-1, 3), dtype=torch.float64,
+                                 device=dev),
+            torch.as_tensor(n, device=dev),
+            torch.as_tensor(np.tile(c, (T, 1)), device=dev),
+            torch.arange(T, device=dev).repeat_interleave(sub.shape[1]),
+            background()))
+
+    smooth_base = np.tile([[0.55, 0.75, 0.85]],
+                          (res.new_points.shape[1], 1)).astype(np.float32)
+    mesh_or_surfels("smooth_imgs", smooth_base, blank)
+    if tex_colors is not None:
+        mesh_or_surfels("textured_imgs", tex_colors, blank)
+    with timer("host_ms"):
+        samples = skeletons(res.new_keypoints)
+    write("skeleton_imgs", lambda: R.shade_splat(cam, *samples, blank()))
+    if source_vox is not None:
+        mesh_or_surfels("overlay_imgs", smooth_base,
+                        lambda: voxel_frames([0.8, 0.5, 0.5]))
+    return timer.ms

@@ -13,7 +13,12 @@ prefetch to the card; a :class:`train.Trainer` checkpointing under
 epoch trains, validates (``--is_eval``: the semantic score;
 ``--eval_voxel_chamfer``: the voxel chamfer) and appends its record to
 ``metrics.jsonl`` (and to TensorBoard when ``torch.utils.tensorboard``
-imports). After the last epoch it writes ``semantic_result.csv``,
+imports). Every epoch below 10 and every ``log_gif_every``-th it draws the
+first validation batch on the card (``viz.visualize``): the tracked
+keypoints and recon and, in a learner epoch, the generated ones, as
+``gifs/<epoch>/{track,gen}_{keypoints,recon}_<i>.gif`` (and TensorBoard
+videos), the JAX ``train.py:409-438``. After the last epoch it writes
+``semantic_result.csv``,
 ``chamfer_result.csv`` and ``affinity_result.json``. SIGTERM checkpoints
 and exits after the epoch. ``--profile_dir`` writes a ``torch.profiler``
 trace of the second epoch's first three steps.
@@ -24,7 +29,9 @@ as the JAX CLI's); ``--conv_kernel 1`` routes its eligible convs through
 kernel K3, the counterpart of running ``train.py`` under
 ``NM_PALLAS_CONV=1`` (the port reads no environment variable). The TPU
 knobs of the configuration (mesh, strips, frame chunks, remat) are read
-and ignored. The GIF logging of ``train.py`` is not ported yet.
+and ignored. ``--debug_nans 1`` (the JAX ``jax_debug_nans``) checks every
+training step on the card and raises ``FloatingPointError`` at the first
+non-finite metric, ``grad_norm`` or parameter (``Trainer._checked_step``).
 """
 from __future__ import annotations
 
@@ -43,9 +50,11 @@ from ..config import (MarionetteConfig, adjust_config, check_supported,
                       derive_training_id)
 from ..data import DataLoader, load_dataset, prefetch_to_device
 from ..eval import affinity_recovery, semantic_final
+from ..ops.voxelize import voxelize
 from ..train import Trainer
 from ..utils.console import COLORS, display_it, display_opts, display_phase
 from ..utils.preemption import install_preemption_handler, preempted
+from ..viz.visualize import vis_keypoints, vis_recon
 from . import platform_device
 
 PROFILED_STEPS = 3
@@ -80,9 +89,6 @@ def prepare_config(cfg: MarionetteConfig) -> MarionetteConfig:
     if cfg.num_processes > 1 or cfg.coordinator_address:
         raise NotImplementedError("training in several processes is not "
                                   "ported to neural_marionette_tpu_torch")
-    if cfg.debug_nans:
-        raise NotImplementedError("debug_nans is not ported to "
-                                  "neural_marionette_tpu_torch")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{cfg.compute_dtype!r}")
@@ -170,6 +176,47 @@ def _write_results(trainer: Trainer, logger_path: str, eval_metrics,
               f"{rec['collapsed']} collapsed) -> {out}")
 
 
+def _log_gifs(writer, cfg: MarionetteConfig, logger_path: str,
+              epoch_id: int, trainer: Trainer) -> float:
+    """The GIF videos of the first validation batch (the JAX
+    ``train.py:409-438``): its voxels (kernel K1 on a card) against the
+    eval step's recon and keypoints (the affinity's arrows) and, in a
+    learner epoch, against the generate step's (the skeleton's
+    adjacency); written under ``gifs/<epoch>/`` and given to TensorBoard.
+    Returns the host ms."""
+    t0 = time.perf_counter()
+    first = trainer.first_batch
+    vox = voxelize(first["points"], cfg.grid_size)
+    n = min(cfg.log_gif_num, vox.shape[0])
+    tensors, gen, skeleton = first["tensors"], first["gen"], trainer.skeleton
+    dev = trainer.device
+    videos = {}
+    if "recon" in tensors:
+        videos["track/recon"] = vis_recon(
+            vox, tensors["recon"], logger_path, epoch_id, log_num=n,
+            group="track", device=dev)
+    if "keypoints" in tensors:
+        videos["track/keypoints"] = vis_keypoints(
+            vox, tensors["keypoints"], logger_path, epoch_id,
+            affinity=tensors.get("affinity"), log_num=n, group="track",
+            device=dev)
+    if gen is not None:
+        videos["gen/recon"] = vis_recon(
+            vox, gen["gen"], logger_path, epoch_id, log_num=n, group="gen",
+            Tcond=cfg.Tcond, device=dev)
+        videos["gen/keypoints"] = vis_keypoints(
+            vox, gen["keypoints"], logger_path, epoch_id,
+            affinity=skeleton.A if skeleton is not None else None,
+            log_num=n, group="gen", Tcond=cfg.Tcond,
+            mode="A" if skeleton is not None else "affinity", device=dev)
+    if writer is not None:
+        for tag, vid in videos.items():
+            t = torch.from_numpy(vid.transpose(0, 1, 4, 2, 3))  # B,T,C,H,W
+            for i in range(t.shape[0]):
+                writer.add_video(f"{tag}_{i}", t[i:i + 1], epoch_id)
+    return (time.perf_counter() - t0) * 1e3
+
+
 def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
     """Train ``cfg`` (as parsed; :func:`prepare_config` is applied here)
     to ``cfg.nepoch``; returns the trainer."""
@@ -237,6 +284,12 @@ def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
                     for part in ("train", "valid"):
                         for k, v in record[part].items():
                             writer.add_scalar(f"{part}/{k}", v, epoch_id)
+                if (epoch_id % cfg.log_gif_every == 0 or epoch_id < 10) \
+                        and trainer.first_batch is not None:
+                    ms = _log_gifs(writer, cfg, logger_path, epoch_id,
+                                   trainer)
+                    trainer.gif_ms[epoch_id] = ms
+                    print(f"epoch {epoch_id}: GIF logging {ms:.1f} ms")
                 if preempted():
                     print(f"{COLORS.FAIL}SIGTERM received: checkpointing "
                           f"and exiting at epoch {epoch_id}{COLORS.ENDC}")

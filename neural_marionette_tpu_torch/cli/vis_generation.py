@@ -6,8 +6,9 @@
 Loads an experiment directory through ``Marionette.load`` (the port's
 checkpoints or the reference's ``.pth``), conditions on ``Tcond`` frames of
 the source clip, rolls out ``Tgen`` prior steps for ``sample_num``
-trajectories, decodes them and writes the ``.npy`` outputs
-(``apps.generation.save_outputs``). Falls back to a synthetic clip when
+trajectories, decodes them and writes the ``.npy`` outputs and the renders
+(``apps.generation.save_outputs``: surfel PNGs and GIFs, keypoint and
+recon GIFs, drawn on the card). Falls back to a synthetic clip when
 the source ``.npy`` is absent.
 """
 import argparse
@@ -49,7 +50,8 @@ def main(argv=None) -> int:
 
     result = run_generation(m, vox, Tcond=args.Tcond, Tgen=args.Tgen,
                             sample_num=args.sample_num, seed=args.seed)
-    save_outputs(result, args.out_dir)
+    save_outputs(result, args.out_dir, vox_cond=vox[:args.Tcond],
+                 Tcond=args.Tcond, device=device)
     print(f"wrote {args.sample_num} generated motions to {args.out_dir}")
     return 0
 

@@ -6,7 +6,9 @@
 
 Anchors every ``anchor_rate`` frames of a ``Ttot``-frame clip and fills
 the in-between motion with prior rollouts selected to land near the
-anchors; writes the ``.npy`` outputs (``apps.interpolation.save_outputs``).
+anchors; writes the ``.npy`` outputs and the renders
+(``apps.interpolation.save_outputs``: surfel PNGs and GIFs, keypoint and
+recon GIFs, drawn on the card).
 Falls back to a synthetic clip when the source ``.npy`` is absent.
 """
 import argparse
@@ -50,7 +52,7 @@ def main(argv=None) -> int:
 
     result = run_interpolation(m, vox, anchor_rate=args.anchor_rate,
                                sample_num=args.sample_num, seed=args.seed)
-    save_outputs(result, args.out_dir)
+    save_outputs(result, args.out_dir, vox_clip=vox, device=device)
     print(f"wrote interpolation to {args.out_dir}")
     return 0
 

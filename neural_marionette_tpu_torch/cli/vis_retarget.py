@@ -6,7 +6,9 @@
 Replays a source clip's motion on a target shape via the learned skeleton
 (skinning weights from the nearest bones, FK with the target's bone
 offsets and the source's rotations, linear blend skinning) and writes the
-``.npy`` outputs (``apps.retarget.save_outputs``). Falls back to synthetic
+``.npy`` outputs and the render sets (``apps.retarget.save_outputs``:
+source, target stills, smooth, textured, skeleton and overlay, drawn on
+the card). Falls back to synthetic
 clips when the source ``.npy`` or the target file is absent.
 """
 import argparse
@@ -51,10 +53,11 @@ def main(argv=None) -> int:
         print(f"{args.source_file} not found; using a synthetic clip")
         source_vox, _ = synthetic_clip(m.cfg, seed=args.seed)
 
+    target_mesh = None
     if os.path.exists(args.target_file):
-        target_points = load_target_points(
+        target_points, target_mesh = load_target_points(
             args.target_file, scale=args.target_scale,
-            is_bind=bool(args.is_bind))
+            is_bind=bool(args.is_bind), return_mesh=True)
     else:
         print(f"{args.target_file} not found; using a synthetic target")
         _, pts = synthetic_clip(m.cfg, seed=args.seed + 7)
@@ -62,7 +65,9 @@ def main(argv=None) -> int:
 
     out = run_retarget(m, source_vox, target_points, hardness=args.hardness,
                        mode=args.mode, seed=args.seed)
-    save_outputs(out, args.out_dir)
+    save_outputs(out, args.out_dir, source_vox=source_vox,
+                 target_mesh=target_mesh, target_points=target_points,
+                 device=device)
     print(f"wrote retargeted motion to {args.out_dir}")
     return 0
 

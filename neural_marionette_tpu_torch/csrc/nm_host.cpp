@@ -13,6 +13,9 @@
 //   * nm_normalize_episodic — clip-wide bbox normalization into [-1,1]^3
 //                          (utils/dataset_utils.py:9-19)
 //   * nm_crop_strided   — strided temporal window gather
+//   * nm_gif_lzw        — the LZW code stream of one GIF frame (viz/
+//                          image_files.py writes the blocks around it)
+//   * nm_png_unfilter   — undo the per-row filters of an 8-bit PNG
 //
 // Exposed with C linkage for ctypes.
 
@@ -129,6 +132,109 @@ void nm_crop_strided(const float* src, float* dst, int64_t start, int64_t T,
   });
 }
 
-int nm_version() { return 1; }
+// GIF's variable-width LZW (GIF89a, appendix F) of n palette indices with
+// minimum code size mcs (2..8): a clear code first, a clear code whenever
+// the table reaches 4096 entries, then end-of-information. Codes are packed
+// LSB first into out (capacity cap bytes). Returns the bytes written, or
+// -1 when cap is too small. The string table is a (prefix, byte) -> code
+// array stamped with a generation number, so a clear costs nothing.
+int64_t nm_gif_lzw(const uint8_t* idx, int64_t n, int mcs, uint8_t* out,
+                   int64_t cap) {
+  const int clear = 1 << mcs, eoi = clear + 1;
+  std::vector<uint32_t> table(4096 * 256, 0);
+  uint32_t gen = 1;
+  int next_code = clear + 2, code_size = mcs + 1;
+  uint64_t acc = 0;
+  int bits = 0;
+  int64_t len = 0;
+  bool overflow = false;
+  auto emit = [&](int code) {
+    acc |= static_cast<uint64_t>(code) << bits;
+    bits += code_size;
+    while (bits >= 8) {
+      if (len < cap) out[len] = static_cast<uint8_t>(acc & 0xFF);
+      else overflow = true;
+      ++len;
+      acc >>= 8;
+      bits -= 8;
+    }
+  };
+  emit(clear);
+  if (n == 0) {
+    emit(eoi);
+  } else {
+    int prefix = idx[0];
+    for (int64_t i = 1; i < n; ++i) {
+      const int c = idx[i];
+      const uint32_t key = static_cast<uint32_t>(prefix) * 256 + c;
+      const uint32_t e = table[key];
+      if ((e >> 12) == gen) {
+        prefix = static_cast<int>(e & 0xFFF);
+        continue;
+      }
+      emit(prefix);
+      if (next_code < 4096) {
+        table[key] = (gen << 12) | static_cast<uint32_t>(next_code);
+        // the decoder adds this entry one code later: widen once the code
+        // it will add next no longer fits
+        if (next_code == (1 << code_size) && code_size < 12) ++code_size;
+        ++next_code;
+      } else {
+        emit(clear);
+        ++gen;
+        next_code = clear + 2;
+        code_size = mcs + 1;
+      }
+      prefix = c;
+    }
+    emit(prefix);
+    emit(eoi);
+  }
+  if (bits > 0) {
+    if (len < cap) out[len] = static_cast<uint8_t>(acc & 0xFF);
+    else overflow = true;
+    ++len;
+  }
+  return overflow ? -1 : len;
+}
+
+// rows: h rows of (1 + stride) bytes, each a filter type (0-4: none, sub,
+// up, average, Paeth) then the filtered bytes; bpp bytes per pixel. Writes
+// the h x stride unfiltered bytes to out. Returns 0, or the 1-based row of
+// an unknown filter type.
+int64_t nm_png_unfilter(const uint8_t* rows, int64_t h, int64_t stride,
+                        int bpp, uint8_t* out) {
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* src = rows + y * (stride + 1);
+    const int type = src[0];
+    ++src;
+    uint8_t* cur = out + y * stride;
+    const uint8_t* prev = y > 0 ? out + (y - 1) * stride : nullptr;
+    for (int64_t x = 0; x < stride; ++x) {
+      const int a = x >= bpp ? cur[x - bpp] : 0;
+      const int b = prev != nullptr ? prev[x] : 0;
+      const int c = (prev != nullptr && x >= bpp) ? prev[x - bpp] : 0;
+      int pred;
+      switch (type) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: {
+          const int p = a + b - c;
+          const int pa = std::abs(p - a), pb = std::abs(p - b),
+                    pc = std::abs(p - c);
+          pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          break;
+        }
+        default: return y + 1;
+      }
+      cur[x] = static_cast<uint8_t>(src[x] + pred);
+    }
+  }
+  return 0;
+}
+
+int nm_version() { return 2; }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""ctypes binding of the port's host data library (``csrc/nm_host.cpp``).
+"""ctypes binding of the port's host library (``csrc/nm_host.cpp``): the
+data layer's loops, and the GIF and PNG coders of ``viz/image_files.py``.
 
 Counterpart of ``neural_marionette_tpu/data/native.py``. The library is
 built by ``kernels.py`` with ``g++`` into ``_build/`` at first use. Where
@@ -38,6 +39,12 @@ def library() -> ctypes.CDLL:
             lib.nm_normalize_episodic.restype = None
             lib.nm_crop_strided.argtypes = [f32p, f32p, i64, i64, i64, i64]
             lib.nm_crop_strided.restype = None
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            lib.nm_gif_lzw.argtypes = [u8p, i64, ctypes.c_int, u8p, i64]
+            lib.nm_gif_lzw.restype = i64
+            lib.nm_png_unfilter.argtypes = [u8p, i64, i64, ctypes.c_int,
+                                            u8p]
+            lib.nm_png_unfilter.restype = i64
             lib.nm_version.argtypes = []
             lib.nm_version.restype = ctypes.c_int
             _lib = lib
@@ -98,4 +105,33 @@ def crop_strided(seq: np.ndarray, start: int, T: int,
     out = np.empty((T,) + src.shape[1:], dtype=np.float32)
     frame = int(np.prod(src.shape[1:], dtype=np.int64))
     library().nm_crop_strided(src, out, start, T, sample_rate, frame)
+    return out
+
+
+def gif_lzw(indices: np.ndarray, min_code_size: int) -> bytes:
+    """GIF's LZW code stream of a frame's palette ``indices`` (uint8, in
+    raster order), without the sub-block framing."""
+    idx = np.ascontiguousarray(indices, dtype=np.uint8).reshape(-1)
+    if not 2 <= min_code_size <= 8:
+        raise ValueError(f"min_code_size {min_code_size} not in 2..8")
+    # a code is at most 12 bits a symbol, plus the clear codes
+    cap = idx.size * 2 + 64
+    out = np.empty(cap, dtype=np.uint8)
+    n = library().nm_gif_lzw(idx, idx.size, min_code_size, out, cap)
+    if n < 0:
+        raise RuntimeError("nm_gif_lzw: output buffer too small")
+    return out[:n].tobytes()
+
+
+def png_unfilter(rows: np.ndarray, height: int, stride: int,
+                 bpp: int) -> np.ndarray:
+    """The ``(height, stride)`` bytes of a PNG image from its decompressed
+    rows (a filter byte, then ``stride`` bytes, per row)."""
+    src = np.ascontiguousarray(rows, dtype=np.uint8).reshape(-1)
+    if src.size != height * (stride + 1):
+        raise ValueError(f"{src.size} bytes for {height} rows of {stride}")
+    out = np.empty((height, stride), dtype=np.uint8)
+    bad = library().nm_png_unfilter(src, height, stride, bpp, out)
+    if bad:
+        raise ValueError(f"PNG row {bad - 1}: unknown filter type")
     return out

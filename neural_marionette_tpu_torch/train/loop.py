@@ -12,11 +12,12 @@ or ``(points, joints)`` tuples as the loader of an ``is_eval`` dataset
 yields them (the points train, as ``train.py:249``); the points are
 voxelized on the device. Per epoch the trainer anneals
 the scheduler, extracts the skeleton once when the learner first turns on
-(on the host, ``skeleton.extract_skeleton``, from the trained affinity),
+(on the device, ``skeleton_device``, from the trained affinity),
 sets the staged learning rate (and resets Adam when
 ``cfg.opt_reset_per_epoch``), keeps one step per scheduler phase, and reads
 the step metrics back only every ``_READBACK_EVERY`` steps and at the end
-of the epoch, so the host does not wait for the card on every step. With a
+of the epoch, so the host does not wait for the card on every step (with
+``cfg.debug_nans`` every step is checked for non-finite values). With a
 ``logger_path`` it checkpoints every ``cfg.save_every`` epochs and resumes
 from there: from the latest checkpoint, or from epoch ``cfg.resume_epoch``
 when that is not ``"0"``.
@@ -51,7 +52,8 @@ from ..config import MarionetteConfig
 from ..eval import evaluate
 from ..models import NeuralMarionette, SkeletonArrays
 from ..ops.voxelize import voxelize
-from ..skeleton import Skeleton, extract_skeleton
+from ..skeleton import Skeleton
+from ..skeleton_device import extract_skeleton_host_api
 from ..weights import (init_weights, load_detector_state,
                        load_reference_detector)
 from .checkpoint import CheckpointManager, load_params_only
@@ -99,6 +101,13 @@ class Trainer:
         #: host ms of the last :meth:`validate`'s parts, and the share of
         #: recon voxels at or above 0.5 that ``voxel_chamfer`` saw
         self.validation_stats: dict = {}
+        #: the first validation batch of the last :meth:`validate`: its
+        #: points, its eval-step tensors (recon, keypoints, affinity) and,
+        #: in a learner phase, the generate step's output on it; what the
+        #: training CLI's GIFs draw
+        self.first_batch: Optional[dict] = None
+        #: host ms of each epoch's GIF logging (the training CLI's)
+        self.gif_ms: dict = {}
         self.start_epoch = 0
         self._steps: dict = {}
         self._eval_steps: dict = {}
@@ -147,10 +156,11 @@ class Trainer:
         return host
 
     def extract_skeleton(self) -> Skeleton:
-        """The skeleton of the current affinity, on the host."""
+        """The skeleton of the current affinity, extracted on the
+        trainer's device (``skeleton_device``, as the JAX ``train.py``)."""
         with torch.no_grad():
             aff = self.model.kypt_detector.get_affinity()
-        return extract_skeleton(aff.cpu().numpy())
+        return extract_skeleton_host_api(aff)
 
     def phase_step(self):
         """The train step of the scheduler's current phase (made once)."""
@@ -177,9 +187,9 @@ class Trainer:
     def phase_generate_step(self):
         """The generate step of the scheduler's current phase (made once),
         or None while the learner is off, as the JAX training loop makes it
-        beside the phase's train step (``train.py:228``). That loop runs it
-        on the first validation batch for its GIFs, which are not ported
-        yet."""
+        beside the phase's train step (``train.py:228``); :meth:`validate`
+        runs it on the first validation batch, for the GIFs of the
+        training CLI."""
         s = self.sched
         if not s.module_actives["learner"]:
             return None
@@ -230,7 +240,11 @@ class Trainer:
             reset_optimizer(self.cfg, self.state)
         pending = []
         for batch_id, batch in enumerate(batches):
-            pending.append(step(self.state, self._to_device(batch), sk))
+            if self.cfg.debug_nans:
+                pending.append(self._checked_step(
+                    step, self._to_device(batch), sk, epoch_id, batch_id))
+            else:
+                pending.append(step(self.state, self._to_device(batch), sk))
             if (batch_id + 1) % _READBACK_EVERY == 0:
                 self._flush(pending)
         self._flush(pending)
@@ -243,9 +257,36 @@ class Trainer:
             self.ckpt.save(epoch_id, self.state, self.skeleton)
         return record
 
+    def _checked_step(self, step, batch, sk, epoch_id: int, batch_id: int):
+        """One train step for ``cfg.debug_nans`` (the JAX
+        ``jax_debug_nans``): the backward under
+        ``torch.autograd.detect_anomaly``, then the metrics, ``grad_norm``
+        and the updated parameters checked on the device; raises
+        ``FloatingPointError`` naming the step, the phase and the first
+        non-finite quantity."""
+        s = self.sched.module_actives
+        where = (f"epoch {epoch_id} step {batch_id} (phase detector="
+                 f"{s['detector']}, learner={s['learner']}, affinity="
+                 f"{self.sched.affinity_active})")
+        try:
+            with torch.autograd.detect_anomaly(check_nan=True):
+                metrics = step(self.state, batch, sk)
+        except RuntimeError as e:
+            if "nan" not in str(e).lower():
+                raise
+            raise FloatingPointError(f"{where}: backward: {e}") from e
+        named = list(metrics.items()) + list(self.model.named_parameters())
+        finite = torch.stack([torch.isfinite(v).all() for _, v in named])
+        if not bool(finite.all()):
+            name = named[int(torch.argmin(finite.to(torch.int8)))][0]
+            kind = "metric" if name in metrics else "parameter"
+            raise FloatingPointError(f"{where}: {kind} {name} is not finite")
+        return metrics
+
     def validate(self, epoch_id: int, batches: Iterable,
                  eval_metrics: Sequence[str] = (),
-                 eps: Optional[Sequence] = None) -> tuple[dict, dict]:
+                 eps: Optional[Sequence] = None,
+                 gen_eps=None) -> tuple[dict, dict]:
         """The phase's eval step on each of ``batches`` (points, or
         ``(points, gt_joints)`` tuples), then the ``eval_metrics``
         (``"semantic"``: the keypoints against the GT joints, on batches
@@ -255,15 +296,22 @@ class Trainer:
 
         Batch ``i`` draws its sample noise from a generator seeded from
         ``(cfg.seed, i)`` (the JAX loop's ``fold_in(PRNGKey(seed), i)``),
-        or takes ``eps[i]`` (as ``HSVRNNBVH.encode`` takes it).
-        Returns the means over the batches of the step's metrics and of
-        each metric's batch score, and the running scores."""
+        or takes ``eps[i]`` (as ``HSVRNNBVH.encode`` takes it). The first
+        batch is kept in :attr:`first_batch`, with, in a learner phase, the
+        generate step's output on it (noise from ``cfg.seed + epoch_id``,
+        as ``train.py:288-291``, or ``gen_eps`` as ``HSVRNNBVH.generate``
+        takes it). Returns the means over the batches of the step's
+        metrics and of each metric's batch score, and the running
+        scores."""
         self._enter_epoch(epoch_id)
         sk = self.phase_skeleton()
         step = self.phase_eval_step()
         G = self.cfg.grid_size
         ms = {"eval_step": 0.0, "semantic": 0.0, "voxel_chamfer": 0.0}
         occupancy, n = 0.0, 0
+        gen_step = self.phase_generate_step()
+        self.first_batch = None
+        gen_ms = None
         for batch_id, batch in enumerate(batches):
             points, gt = batch if isinstance(batch, tuple) else (batch, None)
             pts = self._to_device(points)
@@ -276,6 +324,17 @@ class Trainer:
             self._flush([metrics], self.valid_log)
             t1 = time.perf_counter()
             ms["eval_step"] += t1 - t0
+            if batch_id == 0:
+                self.first_batch = dict(points=pts, tensors=tensors, gen=None)
+                if gen_step is not None:
+                    self.first_batch["gen"] = gen_step(
+                        pts, sk, generator=torch.Generator(
+                            self.device).manual_seed(self.cfg.seed + epoch_id),
+                        eps=gen_eps)
+                    if self.device.type == "cuda":   # its time, not the next
+                        torch.cuda.synchronize(self.device)   # part's
+                    gen_ms = (time.perf_counter() - t1) * 1e3
+                t1 = time.perf_counter()
             for name in eval_metrics:
                 if name == "semantic":
                     if gt is None:
@@ -301,7 +360,8 @@ class Trainer:
             **{f"{k}_ms_per_batch": v * 1e3 / max(n, 1)
                for k, v in ms.items()},
             "recon_occupancy": (occupancy / n if n and "voxel_chamfer"
-                                in eval_metrics else None)}
+                                in eval_metrics else None),
+            "generate_step_ms": gen_ms}
         return self.valid_log.reset(), self.eval_scores
 
     def fit(self, batches: Iterable,

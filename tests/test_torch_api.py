@@ -65,7 +65,8 @@ want = {pkg.__name__ + "." + n for n in (
     "retarget", "data.pipeline", "train.step", "weights", "data.datasets",
     "data.loader", "data.native", "eval", "cli.train", "cli.vis_generation",
     "cli.vis_interpolation", "cli.vis_retarget", "utils.console",
-    "utils.preemption")}
+    "utils.preemption", "viz.raster", "viz.visualize", "viz.image_files",
+    "skeleton_device")}
 assert want <= set(names), sorted(want - set(names))
 bad = [n for n in sys.modules if n == "jax" or n.startswith("jax.")
        or n == "neural_marionette_tpu"
@@ -89,6 +90,35 @@ for entry in (api.Marionette.from_config, Trainer, api.Marionette.load,
     else:
         raise AssertionError(f"{entry} without a card did not raise")
 shutil.rmtree(opt_dir)
+import numpy as np
+from neural_marionette_tpu_torch.viz import raster, visualize
+for render, args in (
+        (raster.splat, (raster.default_camera(), np.zeros((1, 3)),
+                        np.zeros((1, 3)))),
+        (visualize.vis_recon, (np.zeros((1, 2, 4, 4, 4, 1)),) * 2)):
+    try:
+        render(*args)
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError(f"{render} without a card did not raise")
+# a render on the CPU, written to files, loads no imaging library
+work = tempfile.mkdtemp()
+vox = np.zeros((1, 2, 8, 8, 8, 1), np.float32)
+vox[:, :, 2:5, 3:6, 1:4] = 1
+kp = np.random.default_rng(0).uniform(0, 1, (1, 2, 6, 4))
+visualize.vis_keypoints(vox, kp, logger_path=work, affinity=np.ones((6, 6)),
+                        mode="A", device="cpu")
+from neural_marionette_tpu_torch.apps.generation import render_generation
+render_generation(vox, work, Tcond=1, device="cpu")
+from neural_marionette_tpu_torch.skeleton_device import \
+    extract_skeleton_host_api
+extract_skeleton_host_api(np.random.default_rng(1).uniform(
+    size=(2, 6, 6, 1)), device="cpu")
+shutil.rmtree(work)
+imaging = [n for n in sys.modules if n.split(".")[0] in
+           ("matplotlib", "imageio", "PIL", "mpl_toolkits")]
+assert not imaging, imaging
 from neural_marionette_tpu_torch.data import prefetch_to_device
 try:
     next(prefetch_to_device(iter([])))
@@ -103,10 +133,13 @@ print("clean")
 def test_port_imports_no_jax_and_wants_a_card():
     """In a fresh process (this one has jax loaded by conftest): importing
     every module of the port (the apps, ``retarget``, the data layer,
-    ``eval`` and the CLIs among them) loads neither ``jax`` nor any module
-    of ``neural_marionette_tpu``, and the entry points (the serving model,
-    the trainer, the loaders of an experiment directory and the prefetcher)
-    given no device ask for CUDA and raise without a card."""
+    ``eval``, the CLIs, ``viz`` and ``skeleton_device`` among them) loads
+    neither ``jax`` nor any module of ``neural_marionette_tpu``, and the
+    entry points (the serving model, the trainer, the loaders of an
+    experiment directory, the prefetcher and the renders) given no device
+    ask for CUDA and raise without a card; renders on the CPU, written to
+    PNG and GIF files, and the device skeleton extraction load none of
+    ``matplotlib``, ``imageio`` and ``PIL``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)

@@ -184,7 +184,7 @@ def test_run_generation_matches_jax(demo, tmp_path):
         assert got[k].shape == want[k].shape, k
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=ATOL,
                                    err_msg=k)
-    pgen.save_outputs(got, str(tmp_path))
+    pgen.save_outputs(got, str(tmp_path), device="cpu")
     for f in ("gen_voxels.npy", "keypoints.npy", "parents.npy"):
         assert os.path.exists(tmp_path / f), f
 
@@ -203,7 +203,7 @@ def test_run_interpolation_matches_jax(demo, tmp_path):
         assert got[k].shape == want[k].shape, k
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=ATOL,
                                    err_msg=k)
-    pinterp.save_outputs(got, str(tmp_path))
+    pinterp.save_outputs(got, str(tmp_path), device="cpu")
     for f in ("interp_voxels.npy", "keypoints.npy"):
         assert os.path.exists(tmp_path / f), f
 
@@ -234,7 +234,7 @@ def test_run_retarget_matches_jax(demo, mode, tmp_path):
                           got["result"]._fields):
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-3, err_msg=name)
-    pret.save_outputs(got, str(tmp_path))
+    pret.save_outputs(got, str(tmp_path), device="cpu")
     for f in ("retargeted_points.npy", "retargeted_keypoints.npy",
               "skin_weights.npy", "parents.npy"):
         assert os.path.exists(tmp_path / f), f

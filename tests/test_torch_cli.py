@@ -1,11 +1,14 @@
 """The port's training CLI and demo CLIs on the CPU (``--platform cpu``),
 on a miniature AIST++ tree (``tests/test_real_layout._write_aist_tree``
 plus a ``gt_affinity.npy``): two epochs across the detector -> learner
-switch, the files the JAX ``train.py`` writes with its record keys, a
-resume that starts at the next epoch, the three ``cli/vis_*`` writing
-their ``.npy`` outputs from the training run's directory, and, without a
-card and without ``--platform cpu``, a nonzero exit. About 60 s on one
-core (three training processes).
+switch, the files the JAX ``train.py`` writes with its record keys and the
+GIFs of every epoch (``gifs/<epoch>/``: the tracked keypoints and recon,
+and the generated ones in the learner epochs, decoded by Pillow with their
+frame count, size and 150 ms delay), a resume that starts at the next
+epoch, the three ``cli/vis_*`` writing their ``.npy`` outputs and renders
+from the training run's directory, and, without a card and without
+``--platform cpu``, a nonzero exit. About 70 s on one core (three
+training processes).
 """
 import csv
 import json
@@ -16,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from PIL import Image
 
 from neural_marionette_tpu_torch.cli import (vis_generation,
                                              vis_interpolation, vis_retarget)
@@ -94,6 +98,21 @@ def test_two_epochs_across_the_phase_switch_write_train_py_files(run):
     assert set(rec) == {"recovered", "collapsed", "gt_edges", "recovery"}
     assert rec["gt_edges"] == K_GT - 1
     assert list(run["prof"].glob("trace_epoch1.json"))
+    # the GIFs of every epoch (log_gif_every 1), two videos each (nbatch 2)
+    T = 4
+    for epoch, learner in ((0, False), (1, True), (2, True)):
+        names = {f"{grp}_{what}_{i}.gif" for grp in
+                 (("track", "gen") if learner else ("track",))
+                 for what in ("keypoints", "recon") for i in range(2)}
+        gif_dir = exp / "gifs" / str(epoch)
+        assert set(os.listdir(gif_dir)) == names, epoch
+        for name in names:
+            im = Image.open(gif_dir / name)
+            assert im.n_frames == T and im.info["duration"] == 150
+            assert im.size == ((384 if "recon" in name else 192), 192)
+    for proc, epochs in ((run["first"], (0, 1)), (run["second"], (2,))):
+        for epoch in epochs:
+            assert f"epoch {epoch}: GIF logging" in proc.stdout
 
 
 def test_resume_starts_at_the_next_epoch(run):
@@ -102,17 +121,28 @@ def test_resume_starts_at_the_next_epoch(run):
     assert run["second"].stdout.count("total loss") == 1
 
 
-@pytest.mark.parametrize("cli,outputs,args", [
+@pytest.mark.parametrize("cli,outputs,renders,args", [
     (vis_generation, ["gen_voxels.npy", "keypoints.npy", "parents.npy"],
+     ["gen_result_0.gif", "gen_result_1.gif", "gen_result_imgs_0/05.png",
+      "gifs/0/generation_keypoints_1.gif", "gifs/0/generation_recon_1.gif"],
      ["--Tcond", "3", "--Tgen", "3", "--sample_num", "2"]),
     (vis_interpolation, ["interp_voxels.npy", "keypoints.npy"],
+     ["interp_result_0.gif", "interp_result_imgs_0/06.png",
+      "gifs/0/interpolation_keypoints_0.gif",
+      "gifs/0/interpolation_recon_0.gif"],
      ["--Ttot", "7", "--anchor_rate", "3", "--sample_num", "16"]),
     (vis_retarget, ["retargeted_points.npy", "retargeted_keypoints.npy",
-                    "skin_weights.npy", "parents.npy"], ["--Ttot", "4"]),
+                    "skin_weights.npy", "parents.npy"],
+     ["source.gif", "source_imgs/03.png", "target.png", "target_skin.png",
+      "smooth.gif", "skeleton.gif", "overlay_imgs/03.png"],
+     ["--Ttot", "4"]),
 ])
-def test_demo_clis_write_their_outputs(run, tmp_path, cli, outputs, args):
+def test_demo_clis_write_their_outputs(run, tmp_path, cli, outputs, renders,
+                                       args):
     """From the training run's directory (its latest checkpoint and
-    skeleton), with the synthetic fallbacks for the absent demo files."""
+    skeleton), with the synthetic fallbacks for the absent demo files: the
+    ``.npy`` outputs and the renders (PNG sets at the reference camera,
+    1025 x 958, and GIFs)."""
     out = tmp_path / "demo"
     assert cli.main(["--platform", "cpu", "--exp_dir", str(run["exp"]),
                      "--out_dir", str(out),
@@ -121,6 +151,10 @@ def test_demo_clis_write_their_outputs(run, tmp_path, cli, outputs, args):
     for name in outputs:
         arr = np.load(out / name)
         assert np.isfinite(arr).all(), name
+    for name in renders:
+        im = Image.open(out / name)
+        if name.endswith(".png") and not name.startswith("gifs"):
+            assert im.size == (1025, 958), name
     parents = json.loads((run["exp"] / "epochs/2/meta.json").read_text())[
         "skeleton"]["parents"]
     if "parents.npy" in outputs:
