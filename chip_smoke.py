@@ -125,7 +125,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
     samples), card and PNG/GIF encoding; ``extract_skeleton_device`` on the
     card equal to the bit to the host extraction on the train phase's
     trained affinity and on seeded random and tie-heavy affinities at K
-    24, its ms and device operations a call.
+    24, its ms and device operations a call;
+17. the detector's option sets (``OPTION_SETS``: const_intensity 0, 1, 2
+    and 4, affinity_ver 0, 1, 2 and 4, graph_loss_ver 0 and 2, the
+    gaussian and no volume fit, max and sum pooling, learned sigmas,
+    keypoints_graph none) at the full AIST width in bfloat16: per set a
+    few detector steps through ``Trainer`` (p50, peak memory, K1, K2
+    forward and backward where the volume fit is chamfer, K3 on the conv
+    route for the conv-route set), one stream window where the JAX stream
+    runs the set, a float32 step card against CPU at a small width, and
+    for affinity_ver 4 the Gumbel draw following the generator passed.
 
 It prints a ``{"kernels": [...]}`` line (K2 forward's record with its
 launches on the apps, K3's with its launches on the generate step, K1's,
@@ -133,7 +142,8 @@ K2's and K3's with their launches under the CLI), a
 ``{"conv3d_shapes": [...]}`` line, a ``{"stream": ...}`` and a
 ``{"stream_conv_kernel": ...}`` line, a ``{"profile": ...}`` line, a
 ``{"train": ...}`` line, an ``{"apps": ...}`` line, a ``{"cli": ...}``
-line, a ``{"render": ...}`` line, the card's line, and last
+line, a ``{"render": ...}`` line, an ``{"options": ...}`` line, the
+card's line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero before printing a result.
 """
@@ -1418,7 +1428,7 @@ def _informative_weights(net, seed):
     gen = torch.Generator().manual_seed(seed)
     init_weights(net, gen)
     det = net.kypt_detector
-    fusion = det.vox_to_kypt.propagate_heatmaps[0]
+    fusion = getattr(det.vox_to_kypt, "propagate_heatmaps", [None])[0]
     with torch.no_grad():
         for m in det.modules():
             if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
@@ -1432,8 +1442,9 @@ def _informative_weights(net, seed):
                 m.weight.copy_(1 + torch.randn(m.weight.shape,
                                                generator=gen) * 0.1)
                 m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.05)
-        det.affinity_params.copy_(torch.randn(det.affinity_params.shape,
-                                              generator=gen))
+        if det.affinity_params is not None:
+            det.affinity_params.copy_(torch.randn(det.affinity_params.shape,
+                                                  generator=gen))
 
 
 def phase_train_reference(cfg, seed, card_device, B=1):
@@ -1527,6 +1538,270 @@ def phase_train_reference(cfg, seed, card_device, B=1):
     errs.update(grad_worst_tensor=worst[0][1], grad_l2=l2, param_max=pmax,
                 param_loose=loose)
     return errs
+
+
+# ---------------------------------------------------------------- options
+# The detector's option sets, on top of the AIST preset (the CPU tests'
+# tests/test_torch_options.py runs the same five against the JAX package)
+OPTION_SETS = {
+    "ci2_gauss_max_aff0": dict(const_intensity=2, vol_fit_type="gaussian",
+                               gaussian_cat_type="max", affinity_ver=0,
+                               graph_loss_ver=0),
+    "ci0_none_sum_aff1": dict(const_intensity=0, vol_fit_type="none",
+                              gaussian_cat_type="sum", affinity_ver=1,
+                              graph_loss_ver=2),
+    "ci1_aff4_sigma": dict(const_intensity=1, affinity_ver=4, fixed_sigma=0,
+                           graph_random_init=1, keypoints_detach=1),
+    "ci4_aff2_noconst": dict(const_intensity=4, affinity_ver=2,
+                             using_local_const=0, using_time_const=0,
+                             using_sparsity_const=0),
+    "graph_none": dict(keypoints_graph="none"),
+}
+# the JAX stream passes no "gumbel" rng, so it cannot run affinity_ver=4
+OPTION_STREAM_SETS = ("ci2_gauss_max_aff0", "ci0_none_sum_aff1",
+                      "ci4_aff2_noconst", "graph_none")
+OPTION_CONV_SET = "ci4_aff2_noconst"
+OPTION_STEPS = 4   # detector steps per set; the first is warm-up
+# routed convs per detector forward: the feature net 22, the
+# spatio-temporal net 22 (const_intensity 2-4), the decoder 4
+ROUTED_CONVS_NO_ST = 26
+
+
+def _option_cfg(cfg, name):
+    import dataclasses
+    return dataclasses.replace(cfg, detector_start=0, learner_start=10 ** 9,
+                               affinity_anneal=0, **OPTION_SETS[name])
+
+
+def _routed_per_forward(det):
+    """Convs of the detector that the conv route puts on K3."""
+    import torch
+    from neural_marionette_tpu_torch.models.blocks import routes_to_kernel
+    return sum(routes_to_kernel(m, torch.bfloat16) for m in det.modules()
+               if isinstance(m, torch.nn.Conv3d))
+
+
+def _option_window(cfg, device, seed, n_windows=3):
+    """A bfloat16 stream of ``n_windows`` windows (B 4, T 10, N 4096) of a
+    set through ``Marionette.stream`` (seeded weights; a seeded skeleton
+    for ``keypoints_graph="none"``, which learns none): outputs finite and
+    of the expected shapes; returns (host ms to the first result and
+    between results, launches). Gap 1 is a window's steady time
+    (``phase_stream``)."""
+    import torch
+    from neural_marionette_tpu_torch.api import Marionette
+    from neural_marionette_tpu_torch.ops import conv3d as K3
+    from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops import voxelize as V
+    from neural_marionette_tpu_torch.skeleton import extract_skeleton
+    m = Marionette.from_config(cfg, seed=seed, device=device)
+    if cfg.keypoints_graph == "none":
+        K = cfg.nkeypoints
+        m.skeleton = extract_skeleton(np.random.default_rng(seed).uniform(
+            0, 1, (cfg.nneighbor, K, K, 1)).astype(np.float32))
+    shapes = _window_outputs(cfg, SERVE_B, SERVE_T)
+    windows = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=seed + j)
+               for j in range(n_windows)]
+    stamps, results = [], []
+    with m.stream(dtype="bfloat16", sample_num=SAMPLE_NUM,
+                  outputs=tuple(shapes)) as s:
+        torch.cuda.synchronize()
+        V.launches = L.launches = L.bwd_launches = K3.launches = 0
+        t0 = time.perf_counter()
+        for res in s.run(windows):
+            stamps.append(time.perf_counter())
+            results.append(res)
+    counts = {"voxelize": V.launches, "chamfer_fwd": L.launches,
+              "chamfer_bwd": L.bwd_launches, "conv3d": K3.launches}
+    if len(results) != n_windows:
+        raise AssertionError(f"options stream: {len(results)} results")
+    for res in results:
+        for k, shape in shapes.items():
+            v = res[k]
+            if v.shape != shape or not np.isfinite(v).all():
+                raise AssertionError(f"options window {k}: shape {v.shape} "
+                                     f"(want {shape}), finite "
+                                     f"{np.isfinite(v).all()}")
+    return [float(x) for x in np.diff([t0] + stamps) * 1e3], counts
+
+
+def _option_reference(cfg, card_device, seed):
+    """One float32 detector-phase forward and backward (TF32 off) of a set
+    on the card (kernels) and on the CPU (plain versions) at a small width
+    (grid 32, feat 32, K 8, T 4, B 2, N 1024), same informative weights,
+    points and, for version 4, the same uniform draw (made on the CPU).
+    Bounds: loss scalars 2e-3 relative or 1e-6 absolute; gradients per
+    tensor 2e-2 of the tensor's largest entry and 1e-3 relative in L2 over
+    all, the CPU tests' bounds at this size
+    (``tests/test_torch_train_step.py``): there a float32 gradient of the
+    conv stacks lies up to 9.4e-3 of a tensor's largest entry from the
+    float64 one (the port's at the AIST options; the JAX package's 8.9e-3
+    with ``keypoints_graph="none"``). Returns the largest errors."""
+    import dataclasses
+    import torch
+    from neural_marionette_tpu_torch.models import NeuralMarionette
+    from neural_marionette_tpu_torch.models.detector import gumbel_uniform
+    from neural_marionette_tpu_torch.ops.voxelize import voxelize
+    from neural_marionette_tpu_torch.train import LossScheduler
+    from neural_marionette_tpu_torch.train.step import total_loss
+    small = dataclasses.replace(cfg, grid_size=32, feat_dim=32, nkeypoints=8,
+                                Ttot=4, nlatent_kypt=16, nhidden_kypt=32)
+    sched = LossScheduler(small)
+    sched.anneal(0)
+    pts = serving_points(2, small.Ttot, 1024, seed=seed)
+    K, n = small.nkeypoints, small.nneighbor
+    uniform = gumbel_uniform((n, K, K - 1), torch.Generator().manual_seed(
+        seed)) if small.affinity_ver == 4 else None
+    out = []
+    for dev in (card_device, torch.device("cpu")):
+        net = NeuralMarionette(small, device=dev)
+        _informative_weights(net, seed)
+        vox = voxelize(torch.from_numpy(pts).to(dev), small.grid_size)
+        o = net(vox, affinity_active=sched.affinity_active,
+                gumbel=None if uniform is None else uniform.to(dev))
+        tot, m = total_loss(o, sched.active_weights(), torch.float32, dev)
+        tot.backward()
+        out.append(({k: float(v.detach()) for k, v in m.items()},
+                    {k: (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).detach().cpu()
+                     for k, p in net.named_parameters()}))
+    (mc, gc), (mh, gh) = out
+    failed = [f"{k}: card {mc[k]!r} vs CPU {v!r}" for k, v in mh.items()
+              if not abs(mc[k] - v) <= 2e-3 * abs(v) + 1e-6]
+    err2 = ref2 = worst = 0.0
+    for k, b in gh.items():
+        a = gc[k]
+        scale = float(b.abs().max())
+        rel = float((a - b).abs().max()) / scale if scale else float(
+            a.abs().max())
+        worst = max(worst, rel)
+        if not rel <= 2e-2:
+            failed.append(f"gradient {k}: max abs err {rel:.3e} of its "
+                          f"largest entry")
+        err2 += float(((a - b).double() ** 2).sum())
+        ref2 += float((b.double() ** 2).sum())
+    l2 = (err2 / ref2) ** 0.5
+    if not l2 < 1e-3:
+        failed.append(f"gradients: relative L2 error {l2:.3e}")
+    if failed:
+        raise AssertionError("options reference: " + "; ".join(failed))
+    return {"loss_max_rel_err": max(abs(mc[k] - v) / (abs(v) + 1e-30)
+                                    for k, v in mh.items()),
+            "grad_worst_tensor": worst, "grad_l2": l2,
+            "total_loss": mh["total_loss"]}
+
+
+def phase_options(cfg, device, card):
+    """The detector's option sets at the full AIST width (grid 64, K 24,
+    feat 128, T 10, B 4, N 4096, bfloat16, seeded weights): per set a
+    ``Trainer`` detector-phase epoch of ``OPTION_STEPS`` steps (finite
+    metrics; the step ms after the first, their p50, peak memory; K1 once
+    a step, K2 forward and backward once a step where ``vol_fit_type`` is
+    ``chamfer`` and never otherwise, K3 never), one stream window for the
+    sets the JAX stream runs (3 windows; K1 once a window, K2 forward once
+    a window where chamfer), the
+    float32 step card against CPU (``_option_reference``); the conv-route
+    set again on the conv route (K3 once per routed conv of each forward:
+    48 for const_intensity 2-4, 26 for 0-1); and for version 4 the Gumbel
+    draw from the generator passed: the same seed, the same affinity to
+    the bit on the card, another seed another affinity, and
+    ``Trainer.extract_skeleton`` (noise from ``cfg.seed``) twice the same
+    skeleton. Returns the ``options`` record."""
+    import dataclasses
+    import torch
+    from neural_marionette_tpu_torch.train import Trainer
+    out = {}
+    t_phase = time.perf_counter()
+    for i, name in enumerate(OPTION_SETS):
+        ocfg = _option_cfg(cfg, name)
+        chamfer = ocfg.vol_fit_type == "chamfer"
+        rec = {}
+        for conv_kernel in ((False, True) if name == OPTION_CONV_SET
+                            else (False,)):
+            trainer = Trainer(ocfg, device=device, dtype="bfloat16",
+                              conv_kernel=conv_kernel)
+            routed = _routed_per_forward(trainer.model.kypt_detector)
+            if conv_kernel and routed != (
+                    ROUTED_CONVS if ocfg.const_intensity in (2, 3, 4)
+                    else ROUTED_CONVS_NO_ST):
+                raise AssertionError(f"options {name}: {routed} routed convs")
+            before = {k: v.detach().clone() for k, v in
+                      trainer.model.named_parameters()}
+            counts = {}
+            record, ms, peak = _train_epoch(trainer, 0, OPTION_STEPS,
+                                            8000 + 100 * i, counts)
+            n = OPTION_STEPS
+            want = {"voxelize": n, "chamfer_fwd": n if chamfer else 0,
+                    "chamfer_bwd": n if chamfer else 0,
+                    "conv3d": routed * n if conv_kernel else 0}
+            if counts != want:
+                raise AssertionError(f"options {name} (conv_kernel "
+                                     f"{conv_kernel}): launches {counts}, "
+                                     f"want {want}")
+            bad = {k: v for k, v in record["train"].items()
+                   if not np.isfinite(v)}
+            if bad or not record["train"]["grad_norm"] > 0:
+                raise AssertionError(f"options {name}: metrics "
+                                     f"{record['train']}")
+            params = dict(trainer.model.named_parameters())
+            for k in ("kypt_detector.vox_to_kypt.sigmas",
+                      "kypt_detector.vox_to_kypt.initial_heatmaps",
+                      "kypt_detector.affinity_params"):
+                if k in params and torch.equal(params[k].detach(),
+                                               before[k]):
+                    raise AssertionError(f"options {name}: {k} not trained")
+            timed = ms[1:]
+            step = {"steps": n, "step_ms": [float(x) for x in ms],
+                    "p50_ms_per_step": float(np.percentile(timed, 50)),
+                    "mean_ms_per_step": float(timed.mean()),
+                    "peak_device_memory_gib": peak, "launches": counts,
+                    "routed_convs_per_forward": routed,
+                    "total_loss": record["train"]["total_loss"],
+                    "vol_fit_reg": record["train"]["vol_fit_reg"],
+                    "graph_traj_loss": record["train"]["graph_traj_loss"]}
+            rec["train_conv_kernel" if conv_kernel else "train"] = step
+            log(f"[options] {name}{' conv_kernel' if conv_kernel else ''}: "
+                f"{n} detector steps, ms {[round(x, 1) for x in ms]}, p50 "
+                f"{step['p50_ms_per_step']:.2f}, peak {peak:.2f} GiB, "
+                f"launches {counts}, total_loss "
+                f"{record['train']['total_loss']:.4f}")
+            if ocfg.affinity_ver == 4 and not conv_kernel:
+                det = trainer.model.kypt_detector
+                with torch.no_grad():
+                    a, b, c = (det.get_affinity(generator=torch.Generator(
+                        device).manual_seed(s)) for s in (5, 5, 6))
+                if not torch.equal(a, b) or torch.equal(a, c):
+                    raise AssertionError("options: the Gumbel draw does not "
+                                         "follow the generator")
+                s1, s2 = trainer.extract_skeleton(), trainer.extract_skeleton()
+                if not np.array_equal(s1.parents, s2.parents):
+                    raise AssertionError("options: extract_skeleton with "
+                                         "the Gumbel noise of cfg.seed differs")
+                rec["gumbel"] = {"same_seed_equal": True,
+                                 "parents": s1.parents.tolist()}
+            del trainer, params, before
+            torch.cuda.empty_cache()
+        if name in OPTION_STREAM_SETS:
+            gaps, counts = _option_window(ocfg, device, seed=8500 + 10 * i)
+            want = {"voxelize": 3, "chamfer_fwd": 3 * int(chamfer),
+                    "chamfer_bwd": 0, "conv3d": 0}
+            if counts != want:
+                raise AssertionError(f"options {name} stream launches "
+                                     f"{counts}, want {want}")
+            rec["stream"] = {"windows": 3, "gaps_ms": gaps,
+                             "steady_window_ms": gaps[1],
+                             "launches": counts}
+            log(f"[options] {name}: stream of 3 windows, ms to the first "
+                f"result and between results {[round(x, 1) for x in gaps]}"
+                f", launches {counts}")
+        rec["reference"] = _option_reference(ocfg, device, seed=8700 + i)
+        log(f"[options] {name}: float32 card vs CPU (small width): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rec["reference"].items()))
+        out[name] = rec
+        torch.cuda.empty_cache()
+    log(f"[options] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"B": SERVE_B, "T": SERVE_T, "N": SERVE_N, "dtype": "bfloat16",
+            "sets": out, "card": card}
 
 
 def phase_timing(device, G, K, launches, errs):
@@ -3432,6 +3707,8 @@ def main() -> int:
     train["conv_kernel"] = phase_train_conv(cfg, device)
     torch.cuda.empty_cache()
     phase_train_reference(cfg, seed=0, card_device=device)
+    options = phase_options(cfg, device, card)
+    torch.cuda.empty_cache()
     apps_keep = {}
     apps = phase_apps(cfg, device, apps_keep)
     apps["generate_step"] = phase_generate_step(cfg, device)
@@ -3483,6 +3760,7 @@ def main() -> int:
     print(json.dumps({"apps": apps}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"render": render}))
+    print(json.dumps({"options": options}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

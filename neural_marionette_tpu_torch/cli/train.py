@@ -85,7 +85,7 @@ def parse_args(argv=None) -> tuple[MarionetteConfig, bool]:
 
 def prepare_config(cfg: MarionetteConfig) -> MarionetteConfig:
     """``adjust_config`` when asked, then ``derive_training_id``; raises on
-    an option the port does not implement."""
+    an option value the JAX package rejects too (``check_supported``)."""
     if cfg.num_processes > 1 or cfg.coordinator_address:
         raise NotImplementedError("training in several processes is not "
                                   "ported to neural_marionette_tpu_torch")

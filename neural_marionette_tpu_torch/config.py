@@ -5,8 +5,9 @@ reference CLI flag names), :func:`adjust_config` its per-dataset
 overrides, :func:`derive_training_id` the fields of the detector and
 the dynamics runs and :func:`load_reference_pickle` the reference's
 ``opt.pickle``, so one configuration drives both packages. The port
-implements the configuration of the AIST preset only; :func:`check_supported`
-rejects every other value of the options it does not implement.
+runs every value of the detector options that the JAX package runs;
+:func:`check_supported` rejects only the values the JAX package rejects
+too.
 """
 from __future__ import annotations
 
@@ -306,18 +307,6 @@ def derive_training_id(cfg: MarionetteConfig) -> MarionetteConfig:
     return cfg.replace(**kw)
 
 
-# option -> the one value the port implements (the AIST preset's)
-SUPPORTED = {
-    "const_intensity": 3,
-    "affinity_ver": 3,
-    "graph_loss_ver": 1,
-    "vol_fit_type": "chamfer",
-    "gaussian_cat_type": "none",
-    "fixed_sigma": 1,
-    "keypoints_graph": "affinity_params",
-}
-
-
 class _NamespaceStub:
     """Unpickle target for argparse.Namespace attribute bags."""
 
@@ -342,12 +331,21 @@ def load_reference_pickle(path: str) -> MarionetteConfig:
     return MarionetteConfig(**kw)
 
 
+VOL_FIT_TYPES = ("none", "chamfer", "gaussian")
+
+
 def check_supported(cfg: MarionetteConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first option whose value the
-    port does not implement."""
-    for name, value in SUPPORTED.items():
-        got = getattr(cfg, name)
-        if got != value:
-            raise NotImplementedError(
-                f"{name}={got!r} is not ported to neural_marionette_tpu_torch "
-                f"(only {value!r})")
+    """Raise ``ValueError`` naming the first option whose value the JAX
+    package rejects as well: an ``affinity_ver`` outside 0-4
+    (``get_affinity``), an unknown ``vol_fit_type``
+    (``volume_fitting_loss``), a ``pretrained_mode`` other than 0 or 1
+    (``derive_training_id``; the reference's mode 2 is not implemented)."""
+    if cfg.affinity_ver not in range(5):
+        raise ValueError(f"affinity_ver={cfg.affinity_ver!r}: invalid "
+                         "affinity version (0-4)")
+    if cfg.vol_fit_type not in VOL_FIT_TYPES:
+        raise ValueError(f"vol_fit_type={cfg.vol_fit_type!r}: unknown "
+                         f"(one of {VOL_FIT_TYPES})")
+    if cfg.pretrained_mode not in (0, 1):
+        raise ValueError(f"pretrained_mode={cfg.pretrained_mode!r}: must be "
+                         "0 (detector) or 1 (dynamics)")

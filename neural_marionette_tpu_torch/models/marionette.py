@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..config import MarionetteConfig
-from .detector import KyptDetector
+from .detector import GumbelSource, KyptDetector
 from .dynamics import HSVRNNBVH, SkeletonArrays
 
 
@@ -35,18 +35,21 @@ class NeuralMarionette(nn.Module):
                 learner_active: bool = False, affinity_active: bool = True,
                 skeleton: Optional[SkeletonArrays] = None,
                 sample_num: int = 10, eps: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                gumbel: GumbelSource = None) -> dict[str, Any]:
         """vox_seq: (B, T, G, G, G, 1). A frozen detector (learner only)
         runs under ``torch.no_grad()``: the JAX package's ``stop_gradient``
-        on its outputs, without a detector-sized autograd graph."""
+        on its outputs, without a detector-sized autograd graph.
+        ``generator`` draws the VRNN's sample noise (or ``eps`` is it);
+        ``gumbel`` is ``affinity_ver`` 4's uniform draw or the generator to
+        draw it from (the JAX package's ``"gumbel"`` rng)."""
         log: dict[str, Any] = {}
         if detector_active or learner_active:
             frozen = (contextlib.nullcontext() if detector_active
                       else torch.no_grad())
             with frozen:
                 log.update(self.kypt_detector(
-                    vox_seq, affinity_active=affinity_active))
+                    vox_seq, affinity_active=affinity_active, gumbel=gumbel))
         if learner_active:
             if skeleton is None:
                 raise ValueError("the learner path needs a SkeletonArrays")
@@ -57,21 +60,23 @@ class NeuralMarionette(nn.Module):
 
     def generate(self, vox_seq, skeleton: SkeletonArrays,
                  affinity_active: bool = True, sample_num: int = 10,
-                 eps=None, generator: Optional[torch.Generator] = None
-                 ) -> dict[str, Any]:
+                 eps=None, generator: Optional[torch.Generator] = None,
+                 gumbel: GumbelSource = None) -> dict[str, Any]:
         """Conditioned generation (reference neural_marionette.py:58-103):
         detect on the first ``cfg.Tcond`` frames, roll the VRNN out to the
         clip's T, decode the generated keypoints back to voxels. Returns
         ``gen`` = recon[:, :Tcond] || decoded (B, T, G, G, G, 1),
         ``keypoints`` = detected || generated (B, T, K, 4) and ``affinity``.
-        ``eps``: as ``HSVRNNBVH.generate`` takes it."""
+        ``eps``: as ``HSVRNNBVH.generate`` takes it; ``gumbel`` as
+        :meth:`forward` takes it."""
         T = vox_seq.shape[1]
         Tcond = self.cfg.Tcond
         if not Tcond < T:
             raise ValueError(f"generate needs more than Tcond={Tcond} "
                              f"frames, got {T}")
         det = self.kypt_detector(vox_seq[:, :Tcond],
-                                 affinity_active=affinity_active)
+                                 affinity_active=affinity_active,
+                                 gumbel=gumbel)
         keypoints = det["keypoints"]
         dyn = self.dyna_module.generate(keypoints.detach(), skeleton, Ttot=T,
                                         Tcond=Tcond, sample_num=sample_num,
@@ -87,11 +92,12 @@ class NeuralMarionette(nn.Module):
     def encode_only(self, vox_seq, skeleton: SkeletonArrays,
                     affinity_active: bool = True, sample_num: int = 10,
                     eps: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> dict[str, Any]:
+                    generator: Optional[torch.Generator] = None,
+                    gumbel: GumbelSource = None) -> dict[str, Any]:
         """Detector + dynamics encode for inference: keypoints, per-frame
         global rotations R, affinity, recon and the loss scalars."""
-        det = self.kypt_detector(vox_seq, affinity_active=affinity_active)
+        det = self.kypt_detector(vox_seq, affinity_active=affinity_active,
+                                 gumbel=gumbel)
         det.update(self.dyna_module.encode(
             det["keypoints"].detach(), skeleton, sample_num=sample_num,
             eps=eps, generator=generator))

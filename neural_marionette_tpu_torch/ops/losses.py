@@ -22,6 +22,7 @@ import torch
 
 from .. import kernels
 from .coords import coord_maps
+from .keypoints import render_gaussian_maps_first
 
 _LOG_CLAMP = -100.0  # torch.nn.BCELoss clamps log() at -100
 
@@ -29,11 +30,33 @@ launches = 0      # forward kernel launches of :func:`chamfer_num`
 bwd_launches = 0  # backward kernel launches of :func:`chamfer_num`
 
 
+class _BCE(torch.autograd.Function):
+    """``nn.BCELoss`` per element, the reference's loss: the forward with
+    its logs clamped at -100, as the JAX package writes it; the backward
+    ``g (x - y) / max(x (1 - x), 1e-12)`` in float32, as ``nn.BCELoss``
+    differentiates it. Autograd through the clamped logs would give
+    ``0 * inf`` = NaN wherever the sharpened sigmoid rounds to exactly 1.0
+    (or 0.0), which bfloat16 does (the JAX package's gradient has that NaN;
+    ``ROADMAP.md`` Queue 3)."""
+
+    @staticmethod
+    def forward(ctx, recon, target):
+        ctx.save_for_backward(recon, target)
+        log_p = torch.clamp(torch.log(recon), min=_LOG_CLAMP)
+        log_1p = torch.clamp(torch.log1p(-recon), min=_LOG_CLAMP)
+        return -(target * log_p + (1.0 - target) * log_1p)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        x32 = x.float()
+        d = (x32 - y.float()) / torch.clamp(x32 * (1.0 - x32), min=1e-12)
+        return (g.float() * d).to(x.dtype), None
+
+
 def bce_recon_loss(recon: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-(B, T) mean binary cross entropy over channel+spatial dims."""
-    log_p = torch.clamp(torch.log(recon), min=_LOG_CLAMP)
-    log_1p = torch.clamp(torch.log1p(-recon), min=_LOG_CLAMP)
-    nll = -(target * log_p + (1.0 - target) * log_1p)
+    nll = _BCE.apply(recon, target)
     return nll.mean(dim=tuple(range(2, nll.ndim)))
 
 
@@ -272,20 +295,29 @@ def volume_fitting_loss(seq: torch.Tensor, keypoints: torch.Tensor,
                         sigmas, vol_fit_type: str) -> torch.Tensor:
     """Occupancy-weighted fit of keypoints to the voxel volume -> (B, T).
 
-    Only ``chamfer`` (the shipped default) and ``none`` are ported: per-voxel
-    min squared distance to the nearest keypoint, averaged over occupied
-    voxels."""
+    ``chamfer`` (the shipped default): per-voxel min squared distance to the
+    nearest keypoint, averaged over occupied voxels (kernel K2 on a card).
+    ``gaussian``: the share of occupied voxels that the keypoints' Gaussian
+    blobs (``sigmas`` x 4, scaled by intensity, rendered on the full grid)
+    leave uncovered, ``sum((1 - max_k blob_k) occ) / sum(occ)``; the JAX
+    package's intended semantics of the reference's broken branch, plain
+    PyTorch as there. ``none``: zeros."""
     B, T = seq.shape[:2]
     spatial = seq.shape[2:-1]
     if vol_fit_type == "none":
         return torch.zeros((B, T), dtype=seq.dtype, device=seq.device)
-    if vol_fit_type != "chamfer":
-        raise NotImplementedError(f"vol_fit_type={vol_fit_type!r} is not "
-                                  "ported (only 'chamfer')")
+    if vol_fit_type not in ("chamfer", "gaussian"):
+        raise ValueError(f"unknown vol_fit_type {vol_fit_type!r}")
     if len(set(spatial)) != 1:
         raise ValueError(f"volume_fitting_loss: grid must be cubic, got "
                          f"{tuple(spatial)}")
     G = spatial[0]
+    if vol_fit_type == "gaussian":
+        occ = seq[..., 0]                                   # (B, T, G, G, G)
+        sig = torch.as_tensor(sigmas, device=seq.device).to(seq.dtype) * 4.0
+        mask = render_gaussian_maps_first(keypoints, sig, G).amax(dim=2)
+        num = ((1.0 - mask) * occ).sum(dim=(2, 3, 4))
+        return num / occ.sum(dim=(2, 3, 4))
     M = B * T
     occ = seq[..., 0].reshape(M, G ** 3)
     kp = keypoints[..., :3].float().reshape(M, -1, 3).contiguous()

@@ -157,9 +157,12 @@ class Trainer:
 
     def extract_skeleton(self) -> Skeleton:
         """The skeleton of the current affinity, extracted on the
-        trainer's device (``skeleton_device``, as the JAX ``train.py``)."""
+        trainer's device (``skeleton_device``, as the JAX ``train.py``);
+        ``affinity_ver`` 4 draws its Gumbel noise from a generator seeded
+        with ``cfg.seed`` (the JAX ``train.py``'s ``PRNGKey(cfg.seed)``)."""
+        gumbel = torch.Generator(self.device).manual_seed(self.cfg.seed)
         with torch.no_grad():
-            aff = self.model.kypt_detector.get_affinity()
+            aff = self.model.kypt_detector.get_affinity(generator=gumbel)
         return extract_skeleton_host_api(aff)
 
     def phase_step(self):
@@ -294,9 +297,10 @@ class Trainer:
         voxels, kernel K1 on a card), accumulated into
         :attr:`eval_scores` as the JAX ``train.py:271-306`` does.
 
-        Batch ``i`` draws its sample noise from a generator seeded from
-        ``(cfg.seed, i)`` (the JAX loop's ``fold_in(PRNGKey(seed), i)``),
-        or takes ``eps[i]`` (as ``HSVRNNBVH.encode`` takes it). The first
+        Batch ``i`` draws its sample noise (and ``affinity_ver`` 4's
+        Gumbel noise) from a generator seeded from ``(cfg.seed, i)`` (the
+        JAX loop's ``fold_in(PRNGKey(seed), i)``), or takes ``eps[i]`` (as
+        ``HSVRNNBVH.encode`` takes it). The first
         batch is kept in :attr:`first_batch`, with, in a learner phase, the
         generate step's output on it (noise from ``cfg.seed + epoch_id``,
         as ``train.py:288-291``, or ``gen_eps`` as ``HSVRNNBVH.generate``

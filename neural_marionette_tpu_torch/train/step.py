@@ -14,7 +14,9 @@ in order; their gradients sum in ``.grad`` and are scaled, with the
 metrics, by 1/accum. Each microbatch draws its own sample noise from the
 state's generator, unless the caller hands it in (``eps``, one tensor per
 microbatch, as ``HSVRNNBVH.encode`` takes it), as the tests do to replay the
-JAX step's noise.
+JAX step's noise. So does ``affinity_ver`` 4's Gumbel noise (``gumbel``,
+one uniform draw per microbatch, as ``KyptDetector.get_affinity`` takes it;
+the JAX step splits a ``"gumbel"`` key from the state's key for it).
 
 ``make_generate_step`` makes the generation the JAX training loop logs
 (``NeuralMarionette.generate`` on a batch, without gradients).
@@ -79,17 +81,18 @@ def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
     trainable = [mask[n] == 1.0 for n in names]
     params = [p for _, p in model.named_parameters()]
 
-    def loss_fn(micro, skeleton, eps, generator):
+    def loss_fn(micro, skeleton, eps, generator, gumbel):
         vox = _as_voxels(micro, cfg, model.dtype)
         out = model(vox, detector_active=detector_active,
                     learner_active=learner_active,
                     affinity_active=affinity_active, skeleton=skeleton,
-                    eps=eps, generator=generator)
+                    eps=eps, generator=generator, gumbel=gumbel)
         return total_loss(out, w, vox.dtype, vox.device)
 
     def step(state: TrainState, batch: torch.Tensor,
              skeleton: Optional[SkeletonArrays] = None,
-             eps: Optional[Sequence[torch.Tensor]] = None
+             eps: Optional[Sequence[torch.Tensor]] = None,
+             gumbel: Optional[Sequence[torch.Tensor]] = None
              ) -> dict[str, torch.Tensor]:
         if state.model is not model:
             raise ValueError("the step was made for another model than the "
@@ -98,9 +101,10 @@ def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
         if B % accum:
             raise ValueError(f"batch {B} is not a multiple of grad_accum "
                              f"{accum}")
-        if eps is not None and len(eps) != accum:
-            raise ValueError(f"eps: one tensor per microbatch ({accum}), "
-                             f"got {len(eps)}")
+        for name, given in (("eps", eps), ("gumbel", gumbel)):
+            if given is not None and len(given) != accum:
+                raise ValueError(f"{name}: one tensor per microbatch "
+                                 f"({accum}), got {len(given)}")
         for p in params:
             p.grad = None
         micros = batch.reshape((accum, B // accum) + batch.shape[1:])
@@ -108,7 +112,9 @@ def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
         for i in range(accum):
             loss, m = loss_fn(micros[i], skeleton,
                               None if eps is None else eps[i],
-                              state.generator)
+                              state.generator,
+                              state.generator if gumbel is None
+                              else gumbel[i])
             if loss.requires_grad:
                 loss.backward()
             m = {k: v.detach() for k, v in m.items()}
@@ -134,17 +140,22 @@ def make_eval_step(model: torch.nn.Module, cfg: MarionetteConfig,
                    weights: dict[str, float], detector_active: bool,
                    learner_active: bool, affinity_active: bool):
     """Forward only, the detector always on (as the JAX eval step):
-    ``eval_step(batch, skeleton=None, generator=None, eps=None) ->
-    (metrics, tensors)`` with the tensors needed for logging."""
+    ``eval_step(batch, skeleton=None, generator=None, eps=None,
+    gumbel=None) -> (metrics, tensors)`` with the tensors needed for
+    logging. ``affinity_ver`` 4's Gumbel noise is ``gumbel`` (a uniform
+    draw or a generator) or else drawn from ``generator``, as the JAX eval
+    step derives its ``"gumbel"`` key from its sample key."""
     w = dict(weights)
 
     @torch.no_grad()
-    def eval_fn(batch, skeleton=None, generator=None, eps=None):
+    def eval_fn(batch, skeleton=None, generator=None, eps=None,
+                gumbel=None):
         vox = _as_voxels(batch, cfg, model.dtype)
         out = model(vox, detector_active=True,
                     learner_active=learner_active,
                     affinity_active=affinity_active, skeleton=skeleton,
-                    eps=eps, generator=generator)
+                    eps=eps, generator=generator,
+                    gumbel=generator if gumbel is None else gumbel)
         _, metrics = total_loss(out, w, vox.dtype, vox.device)
         tensors = {k: out[k] for k in
                    ("recon", "keypoints", "affinity", "kypt_recon")
@@ -156,18 +167,21 @@ def make_eval_step(model: torch.nn.Module, cfg: MarionetteConfig,
 
 def make_generate_step(model: torch.nn.Module, cfg: MarionetteConfig,
                        affinity_active: bool = True, sample_num: int = 10):
-    """``gen_step(batch, skeleton, generator=None, eps=None) -> dict`` of
-    ``NeuralMarionette.generate`` (``gen``, ``keypoints``, ``affinity``) on a
-    batch of points or voxels, cast to the model's dtype, under
-    ``torch.inference_mode()``. On a bfloat16 ``conv_kernel=True`` model
-    its routed convs run kernel K3. ``eps``: as ``HSVRNNBVH.generate``
-    takes it."""
+    """``gen_step(batch, skeleton, generator=None, eps=None, gumbel=None)
+    -> dict`` of ``NeuralMarionette.generate`` (``gen``, ``keypoints``,
+    ``affinity``) on a batch of points or voxels, cast to the model's
+    dtype, under ``torch.inference_mode()``. On a bfloat16
+    ``conv_kernel=True`` model its routed convs run kernel K3. ``eps``: as
+    ``HSVRNNBVH.generate`` takes it. The JAX generate step passes only a
+    ``"sample"`` key, so with ``affinity_ver`` 4 (affinity on) it raises;
+    so does this one, unless the caller passes ``gumbel`` (a uniform draw
+    or a generator)."""
 
     @torch.inference_mode()
-    def gen_fn(batch, skeleton, generator=None, eps=None):
+    def gen_fn(batch, skeleton, generator=None, eps=None, gumbel=None):
         vox = _as_voxels(batch, cfg, model.dtype)
         return model.generate(vox, skeleton, affinity_active=affinity_active,
                               sample_num=sample_num, eps=eps,
-                              generator=generator)
+                              generator=generator, gumbel=gumbel)
 
     return gen_fn

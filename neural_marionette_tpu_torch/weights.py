@@ -154,9 +154,14 @@ def _vox_to_kypt(prefix: str, params: Mapping) -> Entry:
             yield f"{prefix}.propagate_heatmaps.0.weight", _conv_w(value)
         elif name == "propagate_bias":
             yield f"{prefix}.propagate_heatmaps.0.bias", value
+        elif name == "initial_heatmaps":
+            # (g, g, g, K) -> the reference's (K, g, g, g)
+            yield f"{prefix}.initial_heatmaps", np.transpose(
+                np.asarray(value), (3, 0, 1, 2))
+        elif name == "sigmas":
+            yield f"{prefix}.sigmas", value
         else:
-            raise KeyError(f"unmapped vox_to_kypt param {name} (only "
-                           "const_intensity 3 with fixed sigmas is ported)")
+            raise KeyError(f"unmapped vox_to_kypt param {name}")
 
 
 def _kypt_to_vox(prefix: str, params: Mapping) -> Entry:
@@ -277,10 +282,13 @@ def load_reference_checkpoint(path: str, model: nn.Module) -> None:
     maps every key of the reference's tree and raises on any other. So this
     loader is strict on every key, detector and dynamics alike: a key the
     model has and the file lacks, or one the file has and the model lacks,
-    raises ``KeyError``; a shape that differs ``ValueError``. (The two
-    reference keys the converter maps that the port's model never has,
-    ``kypt_detector.vox_to_kypt.initial_heatmaps`` and ``.sigmas``, belong
-    to options ``config.check_supported`` rejects.)"""
+    raises ``KeyError``; a shape that differs ``ValueError``. Which keys a
+    model has follows its configuration, as the reference's tree does:
+    ``kypt_detector.vox_to_kypt.sigmas`` with ``fixed_sigma=0``,
+    ``.initial_heatmaps`` with ``const_intensity=1``, the spatio-temporal
+    net with ``const_intensity`` 2-4, ``.propagate_heatmaps`` unless it is
+    0, ``kypt_detector.affinity_params`` with ``keypoints_graph=
+    "affinity_params"``."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     _copy_checked(model.state_dict(keep_vars=True), state, "network", path)
 
@@ -294,8 +302,10 @@ PLAIN_CONV_STD = 0.02   # the other convs
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights with the JAX package's initial distributions: block
     convs N(0, 0.001), other convs N(0, 0.02), conv biases 0, GroupNorm
-    (1, 0), affinity params 1, linears and the GRU uniform(+-1/sqrt(fan_in))
-    (torch's defaults), the initial GRU state and offset directions
+    (1, 0), affinity params N(0, 1) with ``graph_random_init``, else 0 for
+    ``affinity_ver`` < 3 and 1 from 3 on, linears and the GRU
+    uniform(+-1/sqrt(fan_in)) (torch's defaults), the initial GRU state,
+    the offset directions, the learned sigmas and the initial heatmaps
     N(0, 1). Draws on the CPU from ``generator``, so a seed gives the same
     weights on every device."""
     from .models.blocks import (Basic3DBlock, Pool3DBlock, Res3DBlock,
@@ -328,9 +338,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             for p in m.parameters():
                 put(p, (torch.rand(p.shape, generator=generator) * 2 - 1)
                     * bound)
+    cfg = getattr(model, "cfg", None)   # a detector's or a whole model's
     for name, p in model.named_parameters():
         leaf = name.rpartition(".")[2]
         if leaf == "affinity_params":
-            put(p, torch.ones(p.shape))
-        elif leaf in ("init_kypt_rnn_state", "offset_param"):
+            if cfg.graph_random_init:
+                put(p, torch.randn(p.shape, generator=generator))
+            else:
+                put(p, torch.full(p.shape, 0.0 if cfg.affinity_ver < 3
+                                  else 1.0))
+        elif leaf in ("init_kypt_rnn_state", "offset_param", "sigmas",
+                      "initial_heatmaps"):
             put(p, torch.randn(p.shape, generator=generator))

@@ -37,7 +37,8 @@ def randomize(params, seed=0):
     """Informative random values for every leaf of a JAX parameter tree
     (arrays, or the ``ShapeDtypeStruct``s of ``jax.eval_shape``): conv and
     dense kernels N(0, 1/fan_in), biases N(0, 0.05), GroupNorm scales
-    1 + N(0, 0.1), affinity params N(0, 1); the dynamics' linears and GRU
+    1 + N(0, 0.1), affinity params, learned sigmas and initial heatmaps
+    N(0, 1); the dynamics' linears and GRU
     uniform(+-1/sqrt(fan_in)), their initial state and offset directions
     N(0, 1), as the JAX package initialises them."""
     g = np.random.default_rng(seed)
@@ -54,7 +55,7 @@ def randomize(params, seed=0):
         elif name == "scale":
             v = 1 + g.normal(0, 0.1, shape)
         elif name in ("affinity_params", "init_kypt_rnn_state",
-                      "offset_param"):
+                      "offset_param", "sigmas", "initial_heatmaps"):
             v = g.normal(0, 1, shape)
         elif name.startswith("gru_"):
             bound = shape[-1] // 3 if name.startswith("gru_w") else \

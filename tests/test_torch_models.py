@@ -317,9 +317,23 @@ def test_slice_best_of_n_selections_match_jax(slice_pair):
 
 
 def test_unported_options_raise():
+    """No option value is unported any more: every value of the detector
+    options that the JAX package runs constructs a ``NeuralMarionette``;
+    ``affinity_ver=5`` and ``vol_fit_type="nope"`` raise ``ValueError`` on
+    both sides (the JAX package when its model first runs)."""
     _, cfg = configs()
-    for name, value in (("const_intensity", 1), ("affinity_ver", 4),
-                        ("graph_loss_ver", 0), ("vol_fit_type", "gaussian"),
-                        ("gaussian_cat_type", "max"), ("fixed_sigma", 0)):
-        with pytest.raises(NotImplementedError, match=name):
+    values = {"const_intensity": (0, 1, 2, 3, 4),
+              "affinity_ver": (0, 1, 2, 3, 4), "graph_loss_ver": (0, 1, 2),
+              "vol_fit_type": ("none", "chamfer", "gaussian"),
+              "gaussian_cat_type": ("none", "max", "sum"),
+              "fixed_sigma": (0, 1),
+              "keypoints_graph": ("affinity_params", "none")}
+    for name, vals in values.items():
+        for value in vals:
             NeuralMarionette(dataclasses.replace(cfg, **{name: value}))
+    for name, value in (("affinity_ver", 5), ("vol_fit_type", "nope")):
+        jcfg, pcfg = configs(**{name: value})
+        with pytest.raises(ValueError, match=name):
+            NeuralMarionette(pcfg)
+        with pytest.raises(ValueError):
+            jax_params(jcfg)

@@ -376,18 +376,29 @@ def test_chamfer_backward_exact_conventions():
 
 
 def test_chamfer_checks_and_backward_not_ported():
-    """The argument checks, and the backward that replaced the
-    not-yet-ported error: the autograd function's backward runs the plain
-    version on CPU tensors and returns no occupancy gradient unless asked
-    (the backward kernel's launch counter does not move on the CPU)."""
+    """The argument checks, the ``gaussian`` volume fit (ported since the
+    AIST-only gate went) against the JAX package's ``volume_fitting_loss``
+    at 1e-6 relative, and the backward that replaced the not-yet-ported
+    error: the autograd function's backward runs the plain version on CPU
+    tensors and returns no occupancy gradient unless asked (the backward
+    kernel's launch counter does not move on the CPU)."""
     kp = torch.zeros(2, 24, 3)
     with pytest.raises(ValueError):
         Pl.chamfer_num(kp, torch.zeros(2, 100), 8)
     with pytest.raises(TypeError):
         Pl.chamfer_num(kp.double(), torch.zeros(2, 512), 8)
-    with pytest.raises(NotImplementedError):
-        Pl.volume_fitting_loss(torch.zeros(1, 1, 4, 4, 4, 1),
-                               torch.zeros(1, 1, 3, 4), None, "gaussian")
+    g = np.random.default_rng(8)
+    occ = (g.random((2, 3, 8, 8, 8, 1)) < 0.4).astype(np.float32)
+    kp4 = np.concatenate([g.uniform(-0.8, 0.8, (2, 3, 5, 3)),
+                          g.uniform(0.2, 1, (2, 3, 5, 1))], -1).astype(
+                              np.float32)
+    sig = g.uniform(0.5, 3, 5).astype(np.float32)
+    want = np.asarray(J.volume_fitting_loss(jnp.asarray(occ),
+                                            jnp.asarray(kp4), sig,
+                                            "gaussian"))
+    got = Pl.volume_fitting_loss(t(occ), t(kp4), t(sig), "gaussian")
+    assert got.shape == want.shape == (2, 3) and (want > 0).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
     before = (Pl.launches, Pl.bwd_launches)
     kp = torch.rand(2, 24, 3, generator=torch.Generator().manual_seed(0))
     kp.requires_grad_(True)
