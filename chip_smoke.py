@@ -134,7 +134,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
     forward and backward where the volume fit is chamfer, K3 on the conv
     route for the conv-route set), one stream window where the JAX stream
     runs the set, a float32 step card against CPU at a small width, and
-    for affinity_ver 4 the Gumbel draw following the generator passed.
+    for affinity_ver 4 the Gumbel draw following the generator passed; the
+    float32 card and CPU gradients are each held against the port's
+    float64 run on the CPU, the card no further from it than a stated
+    multiple of the CPU's distance;
+18. the flagship orchestrator (``cli.flagship``) on the card at the
+    flagship's widths (grid 64, K 24, feat 128, bfloat16, B 24 with
+    grad_accum 2 then 4, T 10 then 20) on 96 synthetic sequences, 2
+    epochs a phase, each phase a ``cli.train`` process, then its three
+    demo CLIs: the files of both phases with finite losses, the dynamics
+    phase started from the exported detector and kept frozen to the bit,
+    the demos' outputs, the summary's keys, each phase's launches of K1
+    and K2 (``FLAGSHIP_LAUNCHES``, derived there); seconds per epoch, step
+    p50 through the loader, peak memory per phase and the detector step's
+    model-FLOPs utilisation.
 
 It prints a ``{"kernels": [...]}`` line (K2 forward's record with its
 launches on the apps, K3's with its launches on the generate step, K1's,
@@ -142,8 +155,9 @@ K2's and K3's with their launches under the CLI), a
 ``{"conv3d_shapes": [...]}`` line, a ``{"stream": ...}`` and a
 ``{"stream_conv_kernel": ...}`` line, a ``{"profile": ...}`` line, a
 ``{"train": ...}`` line, an ``{"apps": ...}`` line, a ``{"cli": ...}``
-line, a ``{"render": ...}`` line, an ``{"options": ...}`` line, the
-card's line, and last
+line, a ``{"render": ...}`` line, an ``{"options": ...}`` line, a
+``{"flagship": ...}`` line (K1's and K2's records carry
+``launches_flagship`` per phase), the card's line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
 beside it, it exits nonzero before printing a result.
 """
@@ -1625,6 +1639,38 @@ def _option_window(cfg, device, seed, n_windows=3):
     return [float(x) for x in np.diff([t0] + stamps) * 1e3], counts
 
 
+# how much further from the float64 gradient the card's float32 gradient
+# may lie than the CPU's float32 one (``_option_reference``). Measured on
+# an H100 (card / CPU distance, worst tensor and L2): set A 0.60 / 0.79,
+# B 0.61 / 0.98, C 15.8 / 17.1, D 1.43 / 2.70, E 2.33 / 0.94. Set C's
+# card gradient is the float32 cuDNN weight gradient of a feature-net
+# conv, 2.3e-4 of its largest entry from float64 (the CPU's worst 1.5e-5).
+F64_DISTANCE_MULTIPLE = 20.0
+
+
+def _tensor_distance(a, b):
+    """max |a - b| over the largest |b| (max |a| where b is 0)."""
+    a, b = a.double(), b.double()
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale else float(
+        a.abs().max())
+
+
+def _grad_distance(grads, ref):
+    """(worst tensor of :func:`_tensor_distance`, relative L2 over all, the
+    worst tensor's name) of the gradients ``grads`` against ``ref``."""
+    err2 = ref2 = worst = 0.0
+    name = None
+    for k, b in ref.items():
+        a = grads[k]
+        d = _tensor_distance(a, b)
+        if d >= worst:
+            worst, name = d, k
+        err2 += float(((a.double() - b.double()) ** 2).sum())
+        ref2 += float((b.double() ** 2).sum())
+    return worst, (err2 / ref2) ** 0.5, name
+
+
 def _option_reference(cfg, card_device, seed):
     """One float32 detector-phase forward and backward (TF32 off) of a set
     on the card (kernels) and on the CPU (plain versions) at a small width
@@ -1636,7 +1682,14 @@ def _option_reference(cfg, card_device, seed):
     (``tests/test_torch_train_step.py``): there a float32 gradient of the
     conv stacks lies up to 9.4e-3 of a tensor's largest entry from the
     float64 one (the port's at the AIST options; the JAX package's 8.9e-3
-    with ``keypoints_graph="none"``). Returns the largest errors."""
+    with ``keypoints_graph="none"``).
+
+    A third run, the port on the CPU in float64 with the same weights,
+    points and draw, is the oracle that neither float32 side is: the
+    card's gradient must lie no further from it than 20 times
+    (``F64_DISTANCE_MULTIPLE``, set from the five sets' measured ratios,
+    at most 17.1) the CPU's float32 gradient, worst tensor and L2 each.
+    Returns the largest errors and both distances from float64."""
     import dataclasses
     import torch
     from neural_marionette_tpu_torch.models import NeuralMarionette
@@ -1653,41 +1706,48 @@ def _option_reference(cfg, card_device, seed):
     uniform = gumbel_uniform((n, K, K - 1), torch.Generator().manual_seed(
         seed)) if small.affinity_ver == 4 else None
     out = []
-    for dev in (card_device, torch.device("cpu")):
-        net = NeuralMarionette(small, device=dev)
+    cpu = torch.device("cpu")
+    for dev, dtype in ((card_device, torch.float32), (cpu, torch.float32),
+                       (cpu, torch.float64)):
+        net = NeuralMarionette(small, dtype=dtype, device=dev)
         _informative_weights(net, seed)
-        vox = voxelize(torch.from_numpy(pts).to(dev), small.grid_size)
+        net.to(dtype)
+        vox = voxelize(torch.from_numpy(pts).to(dev),
+                       small.grid_size).to(dtype)
         o = net(vox, affinity_active=sched.affinity_active,
-                gumbel=None if uniform is None else uniform.to(dev))
-        tot, m = total_loss(o, sched.active_weights(), torch.float32, dev)
+                gumbel=None if uniform is None else uniform.to(dev, dtype))
+        tot, m = total_loss(o, sched.active_weights(), dtype, dev)
         tot.backward()
         out.append(({k: float(v.detach()) for k, v in m.items()},
                     {k: (p.grad if p.grad is not None
                          else torch.zeros_like(p)).detach().cpu()
                      for k, p in net.named_parameters()}))
-    (mc, gc), (mh, gh) = out
+    (mc, gc), (mh, gh), (_, g64) = out
     failed = [f"{k}: card {mc[k]!r} vs CPU {v!r}" for k, v in mh.items()
               if not abs(mc[k] - v) <= 2e-3 * abs(v) + 1e-6]
-    err2 = ref2 = worst = 0.0
     for k, b in gh.items():
-        a = gc[k]
-        scale = float(b.abs().max())
-        rel = float((a - b).abs().max()) / scale if scale else float(
-            a.abs().max())
-        worst = max(worst, rel)
+        rel = _tensor_distance(gc[k], b)
         if not rel <= 2e-2:
             failed.append(f"gradient {k}: max abs err {rel:.3e} of its "
                           f"largest entry")
-        err2 += float(((a - b).double() ** 2).sum())
-        ref2 += float((b.double() ** 2).sum())
-    l2 = (err2 / ref2) ** 0.5
+    worst, l2, _ = _grad_distance(gc, gh)
     if not l2 < 1e-3:
         failed.append(f"gradients: relative L2 error {l2:.3e}")
+    card64, cpu64 = _grad_distance(gc, g64), _grad_distance(gh, g64)
+    for what, c, h in zip(("worst tensor", "L2"), card64, cpu64):
+        if not c <= F64_DISTANCE_MULTIPLE * h:
+            failed.append(f"gradients from float64, {what}: card {c:.3e} "
+                          f"above {F64_DISTANCE_MULTIPLE} x the CPU's "
+                          f"{h:.3e}")
     if failed:
         raise AssertionError("options reference: " + "; ".join(failed))
     return {"loss_max_rel_err": max(abs(mc[k] - v) / (abs(v) + 1e-30)
                                     for k, v in mh.items()),
             "grad_worst_tensor": worst, "grad_l2": l2,
+            "card_f64_worst_tensor": card64[0], "card_f64_l2": card64[1],
+            "card_f64_worst_name": card64[2],
+            "cpu_f64_worst_tensor": cpu64[0], "cpu_f64_l2": cpu64[1],
+            "cpu_f64_worst_name": cpu64[2],
             "total_loss": mh["total_loss"]}
 
 
@@ -1796,7 +1856,8 @@ def phase_options(cfg, device, card):
                 f", launches {counts}")
         rec["reference"] = _option_reference(ocfg, device, seed=8700 + i)
         log(f"[options] {name}: float32 card vs CPU (small width): "
-            + ", ".join(f"{k} {v:.3e}" for k, v in rec["reference"].items()))
+            + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in rec["reference"].items()))
         out[name] = rec
         torch.cuda.empty_cache()
     log(f"[options] phase {time.perf_counter() - t_phase:.1f} s")
@@ -3149,6 +3210,170 @@ def phase_cli(device, card):
             "vis_ms": vis_ms, "phase_s": phase_s, "card": card}
 
 
+
+# ---------------------------------------------------------------- flagship
+FLAGSHIP_SEQS = 96     # train sequences; validation 96 // 4 = 24: one batch
+FLAGSHIP_EPOCHS = 2    # a phase
+FLAGSHIP_DEMOS = {     # the demos' .npy outputs: leading shape
+    "generation": {"gen_voxels.npy": (3, 30, 64, 64, 64, 1),
+                   "keypoints.npy": (3, 30, 24, 4)},
+    "interpolation": {"interp_voxels.npy": (21, 64, 64, 64, 1),
+                      "keypoints.npy": (21, 24, 4)},
+    "retarget": {"retargeted_points.npy": (40,),
+                 "retargeted_keypoints.npy": (40, 24, 4)},
+}
+# The JAX script's summary keys (scripts/run_flagship.py)
+FLAGSHIP_SUMMARY_KEYS = {
+    "nepoch", "sequences", "phase1_sec", "detector_epoch", "phase2_sec",
+    "demo_generation", "demo_interpolation", "demo_retarget",
+    "phase1_final", "phase1_semantic_csv", "phase2_final",
+    "phase2_semantic_csv", "skeleton_parents"}
+# Launches of each phase's process, which cli.train prints at its end (each
+# process starts with every count at 0). Phase 1 (detector, B 24,
+# grad_accum 2): an epoch has 96 // 24 = 4 steps of 2 microbatches, K1, K2
+# forward and K2 backward once a microbatch (8 each), one validation batch
+# (K1, K2 forward) and the GIF logging's voxels of it (K1; every epoch
+# below 10 logs): K1 2 x (8 + 1 + 1) = 20, K2 forward 2 x (8 + 1) = 18,
+# K2 backward 2 x 8 = 16. Phase 2 (dynamics, the detector frozen,
+# grad_accum 4): 4 steps of 4 microbatches (K1 and K2 forward 16, K2
+# backward never), the validation batch (K1, K2 forward), the generate
+# step on it (K1, K2 forward in its detector forward) and the GIF logging
+# (K1): K1 2 x (16 + 3) = 38, K2 forward 2 x (16 + 2) = 36.
+FLAGSHIP_LAUNCHES = {
+    "phase1": {"voxelize": 2 * (8 + 1 + 1), "chamfer_fwd": 2 * (8 + 1),
+               "chamfer_bwd": 2 * 8, "conv3d": 0},
+    "phase2": {"voxelize": 2 * (16 + 3), "chamfer_fwd": 2 * (16 + 2),
+               "chamfer_bwd": 0, "conv3d": 0}}
+
+
+def _check_flagship_phase(logger: Path, learner: bool):
+    """A phase's files (those of ``train.py``; ``affinity_result.json``
+    once a skeleton exists, so in the dynamics phase) with every logged
+    loss finite; returns the epoch records."""
+    names = ["opt.json", "metrics.jsonl", "semantic_result.csv"]
+    if learner:
+        names.append("affinity_result.json")
+    for name in names:
+        if not (logger / name).is_file():
+            raise AssertionError(f"flagship: {name} missing under {logger}")
+    records = [json.loads(ln) for ln in
+               (logger / "metrics.jsonl").read_text().splitlines()]
+    if [r["epoch"] for r in records] != list(range(FLAGSHIP_EPOCHS)):
+        raise AssertionError(f"flagship: epochs "
+                             f"{[r['epoch'] for r in records]}")
+    for r in records:
+        bad = [f"{p}/{k}" for p in ("train", "valid")
+               for k, v in r[p].items() if not np.isfinite(v)]
+        if bad or "semantic" not in r["valid"] or \
+                (r["train"]["kypt_recon_loss"] > 0) != learner:
+            raise AssertionError(f"flagship: epoch {r['epoch']} of {logger}: "
+                                 f"{r}")
+    want = [str(e) for e in range(FLAGSHIP_EPOCHS)]
+    if sorted(os.listdir(logger / "epochs"), key=int) != want:
+        raise AssertionError(f"flagship: checkpoints "
+                             f"{os.listdir(logger / 'epochs')}")
+    return records
+
+
+def phase_flagship(card):
+    """``cli.flagship`` on the card at the flagship's widths (grid 64, K 24,
+    feat 128, bfloat16, B 24 with grad_accum 2 then 4, T 10 then 20) on a
+    small schedule: ``FLAGSHIP_SEQS`` synthetic sequences, 2 epochs a
+    phase, each phase a ``cli.train`` process, then the three demo CLIs
+    from the dynamics phase's last checkpoint. Checks: exit 0; both
+    phases' files with finite losses; the exported detector equal to the
+    bit to the detector phase's last checkpoint, and the dynamics phase's
+    detector equal to the bit to the export after its training (started
+    from it, kept frozen); the demos' outputs; the summary's keys; each
+    phase's kernel launches (``FLAGSHIP_LAUNCHES``). Returns the
+    ``flagship`` record: seconds per epoch, step p50 through the loader
+    and peak GiB per phase, the detector step's model-FLOPs utilisation
+    (``utils.flops``) and the demos' seconds."""
+    import torch
+    from neural_marionette_tpu_torch.cli import flagship
+    from neural_marionette_tpu_torch.train.checkpoint import load_params_only
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()     # the phases' processes share the card
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_flagship_"))
+    t0 = time.perf_counter()
+    try:
+        rc = flagship.main(["--nepoch", str(FLAGSHIP_EPOCHS), "--sequences",
+                            str(FLAGSHIP_SEQS), "--root", str(root)])
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"flagship: exit {rc}")
+        summary = json.loads((root / "flagship_summary.json").read_text())
+        missing = FLAGSHIP_SUMMARY_KEYS - set(summary)
+        if missing or summary["card"] != card:
+            raise AssertionError(f"flagship summary: missing {missing}, "
+                                 f"card {summary.get('card')!r}")
+        p1, p2 = (Path(summary[f"{p}_semantic_csv"]).parent
+                  for p in ("phase1", "phase2"))
+        if [p1.parent, p2.parent] != [root / "output" / flagship.PHASE1_ID,
+                                      root / "output" / flagship.PHASE2_ID]:
+            raise AssertionError(f"flagship: phases under {p1}, {p2}")
+        rec1 = _check_flagship_phase(p1, learner=False)
+        rec2 = _check_flagship_phase(p2, learner=True)
+        exported, _, _ = load_params_only(
+            str(root / "pretrained" / "detector" / "synthetic_detector"))
+        last1, _, _ = load_params_only(str(p1))
+        first2, _, _ = load_params_only(str(p2), epoch=0)
+        last2, _, _ = load_params_only(str(p2))
+        det = [k for k in exported if k.startswith("kypt_detector.")]
+        for k in det:
+            if not (torch.equal(exported[k], last1[k])
+                    and torch.equal(first2[k], exported[k])
+                    and torch.equal(last2[k], exported[k])):
+                raise AssertionError(f"flagship: detector {k} not the "
+                                     f"exported one, frozen")
+        if not any(not torch.equal(last2[k], exported[k])
+                   for k in exported if k.startswith("dyna_module.")):
+            raise AssertionError("flagship: the dynamics did not train")
+        for name, want in FLAGSHIP_DEMOS.items():
+            if summary[f"demo_{name}"] != "ok":
+                raise AssertionError(f"flagship demo {name}: "
+                                     f"{summary[f'demo_{name}']}")
+            for fname, shape in want.items():
+                arr = np.load(root / "demo" / name / fname)
+                if arr.shape[:len(shape)] != shape or \
+                        not np.isfinite(arr).all():
+                    raise AssertionError(f"flagship demo {name}: {fname} "
+                                         f"{arr.shape}")
+        rec = {"sequences": FLAGSHIP_SEQS, "epochs": FLAGSHIP_EPOCHS,
+               "seconds": seconds, "card": card}
+        for phase, records in (("phase1", rec1), ("phase2", rec2)):
+            stats = summary[f"{phase}_stats"]
+            if stats["launches"] != FLAGSHIP_LAUNCHES[phase]:
+                raise AssertionError(f"flagship {phase} launches "
+                                     f"{stats['launches']}, want "
+                                     f"{FLAGSHIP_LAUNCHES[phase]}")
+            epochs = [stats["epochs"][str(e)] for e in range(FLAGSHIP_EPOCHS)]
+            rec[phase] = {
+                "sec": summary[f"{phase}_sec"],
+                "epoch_s": [r["time"] for r in records],
+                "steps_per_epoch": [e["steps"] for e in epochs],
+                "step_ms_p50": [e["step_ms_p50"] for e in epochs],
+                "peak_gib": max(e["peak_gib"] for e in epochs),
+                "flops_per_step": stats["flops_per_step"],
+                "flops_counted": stats["counted"],
+                "mfu": stats["mfu"], "launches": stats["launches"],
+                "valid_semantic": records[-1]["valid"]["semantic"],
+                "valid_recon_loss": records[-1]["valid"]["recon_loss"],
+                "valid_kypt_recon_loss":
+                    records[-1]["valid"]["kypt_recon_loss"]}
+            log(f"[flagship] {phase}: epochs "
+                f"{[round(x, 2) for x in rec[phase]['epoch_s']]} s, step "
+                f"p50 {[round(x, 1) for x in rec[phase]['step_ms_p50']]} ms "
+                f"through the loader, peak {rec[phase]['peak_gib']:.2f} GiB, "
+                f"MFU {stats['mfu']:.4f} ({stats['counted']}), launches "
+                f"{stats['launches']}")
+        rec["demos_s"] = {n: summary[f"demo_{n}_sec"] for n in FLAGSHIP_DEMOS}
+        log(f"[flagship] demos, s: {rec['demos_s']}; {seconds:.1f} s in all")
+        return rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ render
 RENDER_DELAY_CS, VIDEO_DELAY_CS = 10, 15   # GIF delays, hundredths of a s
 VIS_SHAPE = dict(videos=4, T=10)           # the CLI's logged batch
@@ -3728,6 +3953,7 @@ def main() -> int:
     render = phase_render(cfg, device, card, apps_keep, trained_affinity)
     del apps_keep
     torch.cuda.empty_cache()
+    flag = phase_flagship(card)
     k3_dev = sum(k["device_ms_per_call"] * k["calls_per_window"]
                  for k in profile["conv_kernel"]["port_kernels"]
                  if "conv3d_kernel" in k["name"])
@@ -3740,6 +3966,9 @@ def main() -> int:
                 apps["generate_step"]["conv_kernel"]["launches"]["conv3d"]
         if rec["name"] in cli["launches"]:
             rec["launches_cli"] = cli["launches"][rec["name"]]
+        if rec["name"] in FLAGSHIP_LAUNCHES["phase1"]:
+            rec["launches_flagship"] = {
+                p: flag[p]["launches"][rec["name"]] for p in FLAGSHIP_LAUNCHES}
 
     stream = stream_record(ms, STREAM_WINDOWS, peak, card)
     stream_c = stream_record(ms_c, STREAM_WINDOWS, peak_c, card,
@@ -3761,6 +3990,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"render": render}))
     print(json.dumps({"options": options}))
+    print(json.dumps({"flagship": flag}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,11 @@ videos), the JAX ``train.py:409-438``. After the last epoch it writes
 ``semantic_result.csv``,
 ``chamfer_result.csv`` and ``affinity_result.json``. SIGTERM checkpoints
 and exits after the epoch. ``--profile_dir`` writes a ``torch.profiler``
-trace of the second epoch's first three steps.
+trace of the second epoch's first three steps. Each epoch prints a line
+``epoch <n> stats {...}`` (its steps, their p50 host ms from one batch's
+arrival to the next's, and on a card the epoch's peak GiB), and the run
+ends with ``kernel launches {...}``: the launches of kernels K1-K3 in this
+process (0 on the CPU, where the plain versions run).
 
 It runs on ``cuda`` and raises without a card, unless ``--platform cpu``.
 ``--compute_dtype bfloat16`` trains in bfloat16 (the default is float32,
@@ -217,6 +221,25 @@ def _log_gifs(writer, cfg: MarionetteConfig, logger_path: str,
     return (time.perf_counter() - t0) * 1e3
 
 
+def _epoch_stats(rec: dict, device: torch.device) -> dict:
+    """An epoch's steps, their p50 host ms (``Trainer.train_epoch``'s
+    ``step_ms``: through the loader) and, on a card, its peak GiB."""
+    steps = rec["step_ms"]
+    return {"steps": len(steps),
+            "step_ms_p50": float(np.median(steps)) if steps else None,
+            "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                         if device.type == "cuda" else None)}
+
+
+def _kernel_launches() -> dict:
+    """The launch counts of kernels K1 (voxelize), K2 (chamfer forward and
+    backward) and K3 (conv3d) in this process."""
+    from ..ops import conv3d, losses
+    from ..ops import voxelize as vox
+    return {"voxelize": vox.launches, "chamfer_fwd": losses.launches,
+            "chamfer_bwd": losses.bwd_launches, "conv3d": conv3d.launches}
+
+
 def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
     """Train ``cfg`` (as parsed; :func:`prepare_config` is applied here)
     to ``cfg.nepoch``; returns the trainer."""
@@ -254,6 +277,8 @@ def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
                 os.path.join(logger_path, "metrics.jsonl"), "a") as log:
             for epoch_id in range(trainer.start_epoch, cfg.nepoch):
                 t_epoch = time.time()
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
                 dataset_train.log_epoch(epoch_id)
                 dataset_valid.log_epoch(epoch_id)
                 trainer.sched.anneal(epoch_id)
@@ -290,6 +315,8 @@ def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
                                    trainer)
                     trainer.gif_ms[epoch_id] = ms
                     print(f"epoch {epoch_id}: GIF logging {ms:.1f} ms")
+                print(f"epoch {epoch_id} stats "
+                      + json.dumps(_epoch_stats(rec, device)), flush=True)
                 if preempted():
                     print(f"{COLORS.FAIL}SIGTERM received: checkpointing "
                           f"and exiting at epoch {epoch_id}{COLORS.ENDC}")
@@ -301,6 +328,7 @@ def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
             writer.close()
     _write_results(trainer, logger_path, eval_metrics,
                    dataset_valid.gt_affinity())
+    print("kernel launches " + json.dumps(_kernel_launches()))
     print(f"{COLORS.OKGREEN}training complete{COLORS.ENDC}")
     return trainer
 

@@ -78,8 +78,10 @@ def conv(m: nn.Conv3d, x: torch.Tensor, dtype: torch.dtype,
 
 
 def norm(m: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm in float32 (flax promotes against its float32 scale)."""
-    return F.group_norm(x.float(), m.num_groups, m.weight, m.bias, m.eps)
+    """GroupNorm in float32 (flax promotes against its float32 scale; a
+    float64 module, as the float64 reference runs build, stays float64)."""
+    return F.group_norm(x.to(torch.promote_types(x.dtype, m.weight.dtype)),
+                        m.num_groups, m.weight, m.bias, m.eps)
 
 
 class Basic3DBlock(nn.Module):

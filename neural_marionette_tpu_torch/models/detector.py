@@ -127,10 +127,11 @@ class VoxToKyptNet(nn.Module):
 
     def _propagate(self, heatmap, prev):
         """softplus(w0 * h + w1 * prev + b), in float32 as the JAX package's
-        float32 parameters promote it."""
+        float32 parameters promote it (in float64 for float64 ones)."""
         w = self.propagate_heatmaps[0].weight.reshape(2)
         b = self.propagate_heatmaps[0].bias[0]
-        return F.softplus(w[0] * heatmap.float() + w[1] * prev.float() + b)
+        wide = torch.promote_types(heatmap.dtype, w.dtype)
+        return F.softplus(w[0] * heatmap.to(wide) + w[1] * prev.to(wide) + b)
 
     def forward(self, seq: torch.Tensor):
         """``seq`` (B, T, G, G, G, 1) -> (heatmaps (B, T, K, g, g, g),

@@ -33,11 +33,11 @@ bwd_launches = 0  # backward kernel launches of :func:`chamfer_num`
 class _BCE(torch.autograd.Function):
     """``nn.BCELoss`` per element, the reference's loss: the forward with
     its logs clamped at -100, as the JAX package writes it; the backward
-    ``g (x - y) / max(x (1 - x), 1e-12)`` in float32, as ``nn.BCELoss``
-    differentiates it. Autograd through the clamped logs would give
-    ``0 * inf`` = NaN wherever the sharpened sigmoid rounds to exactly 1.0
-    (or 0.0), which bfloat16 does (the JAX package's gradient has that NaN;
-    ``ROADMAP.md`` Queue 3)."""
+    ``g (x - y) / max(x (1 - x), 1e-12)`` in float32 (float64 for float64
+    inputs), as ``nn.BCELoss`` differentiates it. Autograd through the
+    clamped logs would give ``0 * inf`` = NaN wherever the sharpened
+    sigmoid rounds to exactly 1.0 (or 0.0), which bfloat16 does (the JAX
+    package's gradient has that NaN; ``ROADMAP.md`` Queue 3)."""
 
     @staticmethod
     def forward(ctx, recon, target):
@@ -49,9 +49,10 @@ class _BCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        x32 = x.float()
-        d = (x32 - y.float()) / torch.clamp(x32 * (1.0 - x32), min=1e-12)
-        return (g.float() * d).to(x.dtype), None
+        wide = torch.promote_types(x.dtype, torch.float32)
+        xw = x.to(wide)
+        d = (xw - y.to(wide)) / torch.clamp(xw * (1.0 - xw), min=1e-12)
+        return (g.to(wide) * d).to(x.dtype), None
 
 
 def bce_recon_loss(recon: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -90,9 +91,13 @@ def _linspace(G: int, device: torch.device) -> torch.Tensor:
 
 
 def _check_chamfer(kp: torch.Tensor, occ_flat: torch.Tensor, grid_size: int):
-    if kp.dtype != torch.float32:
+    """float32 kp and float32/bfloat16 occupancy; on the CPU (the plain
+    versions) also both float64, for float64 reference runs."""
+    f64 = (kp.device.type == "cpu" and kp.dtype == torch.float64
+           and occ_flat.dtype == torch.float64)
+    if kp.dtype != torch.float32 and not f64:
         raise TypeError(f"chamfer_num: kp must be float32, got {kp.dtype}")
-    if occ_flat.dtype not in (torch.float32, torch.bfloat16):
+    if occ_flat.dtype not in (torch.float32, torch.bfloat16) and not f64:
         raise TypeError(f"chamfer_num: occupancy must be float32 or "
                         f"bfloat16, got {occ_flat.dtype}")
     if kp.ndim != 3 or kp.shape[-1] != 3:
@@ -118,15 +123,16 @@ def chamfer_num_plain(kp: torch.Tensor, occ_flat: torch.Tensor,
     ``num[m] = sum_v occ[m, v] * relu(|v|^2 + min_k(|c_k|^2 - 2 v.c_k))``.
     One frame at a time, so the (G^3, K) dot tensor stays small."""
     _check_chamfer(kp, occ_flat, grid_size)
-    V = coord_maps((grid_size,) * 3, device=kp.device).reshape(-1, 3)
+    V = coord_maps((grid_size,) * 3, dtype=kp.dtype,
+                   device=kp.device).reshape(-1, 3)
     v2 = (V * V).sum(dim=-1)
     out = []
     for m in range(kp.shape[0]):
         dmin = v2 + _frame_vals(V, kp[m]).amin(dim=-1)
         out.append((torch.clamp(dmin, min=0.0)
-                    * occ_flat[m].float()).sum())
+                    * occ_flat[m].to(kp.dtype)).sum())
     if not out:
-        return torch.zeros(0, dtype=torch.float32, device=kp.device)
+        return torch.zeros(0, dtype=kp.dtype, device=kp.device)
     return torch.stack(out)
 
 
@@ -139,10 +145,10 @@ def _frame_bwd_weights(V: torch.Tensor, v2: torch.Tensor, c: torch.Tensor,
     ``W_k(v) = g occ(v) relu'(dmin(v)) [val_k(v) = min] / ties(v)``."""
     vals = _frame_vals(V, c)                            # (G^3, K)
     minval = vals.amin(dim=-1, keepdim=True)
-    tied = (vals == minval).float()
+    tied = (vals == minval).to(c.dtype)
     dmin = v2 + minval[:, 0]
     relu_w = torch.where(dmin > 0, 1.0, torch.where(dmin == 0, 0.5, 0.0))
-    w = (g * occ.float() * relu_w) / tied.sum(dim=-1)   # (G^3,)
+    w = (g * occ.to(c.dtype) * relu_w) / tied.sum(dim=-1)   # (G^3,)
     return tied * w[:, None], dmin
 
 
@@ -160,8 +166,9 @@ def chamfer_num_bwd_plain(g: torch.Tensor, kp: torch.Tensor,
     ``dkp_k = 2 c_k sum_v W_k(v) - 2 sum_v W_k(v) v`` and
     ``docc(v) = g relu(dmin(v))``. One frame at a time."""
     _check_chamfer(kp, occ_flat, grid_size)
-    g = g.reshape(-1).float()
-    V = coord_maps((grid_size,) * 3, device=kp.device).reshape(-1, 3)
+    g = g.reshape(-1).to(kp.dtype)
+    V = coord_maps((grid_size,) * 3, dtype=kp.dtype,
+                   device=kp.device).reshape(-1, 3)
     v2 = (V * V).sum(dim=-1)
     dkp, docc = [], []
     for m in range(kp.shape[0]):
@@ -192,7 +199,7 @@ class _ChamferNum(torch.autograd.Function):
     def backward(ctx, grad):
         kp, occ_flat = ctx.saved_tensors
         want_docc = ctx.needs_input_grad[1]
-        grad = grad.float().contiguous()
+        grad = grad.to(kp.dtype).contiguous()
         if kp.device.type == "cpu":
             dkp, docc = chamfer_num_bwd_plain(grad, kp, occ_flat,
                                               ctx.grid_size)
@@ -320,7 +327,8 @@ def volume_fitting_loss(seq: torch.Tensor, keypoints: torch.Tensor,
         return num / occ.sum(dim=(2, 3, 4))
     M = B * T
     occ = seq[..., 0].reshape(M, G ** 3)
-    kp = keypoints[..., :3].float().reshape(M, -1, 3).contiguous()
+    kp = keypoints[..., :3].to(torch.promote_types(
+        keypoints.dtype, torch.float32)).reshape(M, -1, 3).contiguous()
     num = chamfer_num(kp, occ, G).reshape(B, T).to(seq.dtype)
     den = occ.reshape(B, T, -1).sum(dim=-1)
     return num / torch.clamp(den, min=1.0)

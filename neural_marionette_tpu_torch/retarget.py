@@ -25,7 +25,9 @@ def extract_skin_weights(skeleton: Skeleton, points: np.ndarray,
     Bone proxy for joint k = midpoint of (k, nearest valid ancestor); root
     and low-intensity joints are never the nearest bone; weights blend the
     nearest joint and its (original) parent with exp(hardness * distance)
-    ratios (reference vis_retarget.py:21-62).
+    ratios (reference vis_retarget.py:21-62). The walk up to a valid
+    ancestor ends at the root, valid or not: the reference's walk never
+    ends when the root is below ``threshold``.
     """
     parents = skeleton.parents
     K = keypoints.shape[0]
@@ -39,7 +41,7 @@ def extract_skin_weights(skeleton: Skeleton, points: np.ndarray,
         if parent == k:
             bones[k] = keypoints[k, :3]
         else:
-            while invalid[parent]:
+            while invalid[parent] and int(parents[parent]) != parent:
                 parent = int(parents[parent])
             bones[k] = (keypoints[k, :3] + keypoints[parent, :3]) / 2.0
 

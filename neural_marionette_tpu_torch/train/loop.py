@@ -231,7 +231,9 @@ class Trainer:
     # --------------------------------------------------------------- loop
     def train_epoch(self, epoch_id: int, batches: Iterable) -> dict:
         """One epoch over ``batches``; returns its record (epoch, lr,
-        seconds, the mean of each metric over the steps, phase)."""
+        seconds, the mean of each metric over the steps, phase, and
+        ``step_ms``: host ms from each batch's arrival to the next's, the
+        last to the epoch's final read of the metrics)."""
         t0 = time.time()
         sched = self.sched
         self._enter_epoch(epoch_id)
@@ -242,7 +244,9 @@ class Trainer:
         if self.cfg.opt_reset_per_epoch:
             reset_optimizer(self.cfg, self.state)
         pending = []
+        stamps = []
         for batch_id, batch in enumerate(batches):
+            stamps.append(time.perf_counter())
             if self.cfg.debug_nans:
                 pending.append(self._checked_step(
                     step, self._to_device(batch), sk, epoch_id, batch_id))
@@ -251,11 +255,13 @@ class Trainer:
             if (batch_id + 1) % _READBACK_EVERY == 0:
                 self._flush(pending)
         self._flush(pending)
+        stamps.append(time.perf_counter())
         record = {"epoch": epoch_id, "lr": lr, "time": time.time() - t0,
                   "phase": {"detector": sched.module_actives["detector"],
                             "learner": sched.module_actives["learner"],
                             "affinity": sched.affinity_active},
-                  "train": self.train_log.reset()}
+                  "train": self.train_log.reset(),
+                  "step_ms": (np.diff(stamps) * 1e3).tolist()}
         if self.ckpt is not None and epoch_id % self.cfg.save_every == 0:
             self.ckpt.save(epoch_id, self.state, self.skeleton)
         return record

@@ -53,7 +53,7 @@ def _is_jax_module(name: str) -> bool:
 
 
 _IMPORT_CHECK = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import neural_marionette_tpu_torch as pkg
 import neural_marionette_tpu_torch.api as api
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -66,11 +66,14 @@ want = {pkg.__name__ + "." + n for n in (
     "data.loader", "data.native", "eval", "cli.train", "cli.vis_generation",
     "cli.vis_interpolation", "cli.vis_retarget", "utils.console",
     "utils.preemption", "viz.raster", "viz.visualize", "viz.image_files",
-    "skeleton_device")}
+    "skeleton_device", "cli.flagship", "utils.flops", "utils.profiling",
+    "data.meshsample", "data.smpl_np", "data.prepare_dfaust",
+    "data.prepare_aistpp")}
 assert want <= set(names), sorted(want - set(names))
 bad = [n for n in sys.modules if n == "jax" or n.startswith("jax.")
        or n == "neural_marionette_tpu"
-       or n.startswith("neural_marionette_tpu.")]
+       or n.startswith("neural_marionette_tpu.")
+       or n.split(".")[0] == "h5py"]
 assert not bad, bad
 import torch
 assert not torch.cuda.is_available()
@@ -90,6 +93,16 @@ for entry in (api.Marionette.from_config, Trainer, api.Marionette.load,
     else:
         raise AssertionError(f"{entry} without a card did not raise")
 shutil.rmtree(opt_dir)
+from neural_marionette_tpu_torch.cli import flagship
+root = tempfile.mkdtemp()
+try:
+    flagship.main(["--root", root])
+except RuntimeError as e:
+    assert "no CUDA device" in str(e), e
+else:
+    raise AssertionError("cli.flagship without a card did not raise")
+assert os.listdir(root) == [], os.listdir(root)
+shutil.rmtree(root)
 import numpy as np
 from neural_marionette_tpu_torch.viz import raster, visualize
 for render, args in (
@@ -132,12 +145,16 @@ print("clean")
 
 def test_port_imports_no_jax_and_wants_a_card():
     """In a fresh process (this one has jax loaded by conftest): importing
-    every module of the port (the apps, ``retarget``, the data layer,
-    ``eval``, the CLIs, ``viz`` and ``skeleton_device`` among them) loads
-    neither ``jax`` nor any module of ``neural_marionette_tpu``, and the
-    entry points (the serving model, the trainer, the loaders of an
-    experiment directory, the prefetcher and the renders) given no device
-    ask for CUDA and raise without a card; renders on the CPU, written to
+    every module of the port (the apps, ``retarget``, the data layer with
+    the offline preparers, ``eval``, the CLIs with ``cli.flagship``,
+    ``viz``, ``skeleton_device`` and ``utils.flops`` / ``utils.profiling``
+    among them) loads neither ``jax`` nor any module of
+    ``neural_marionette_tpu`` nor ``h5py``, and the entry points (the
+    serving model, the trainer, the loaders of an experiment directory,
+    the prefetcher, the renders and ``cli.flagship`` without ``--smoke``)
+    given no device ask for CUDA and raise without
+    a card, the flagship before it writes anything; renders on the CPU,
+    written to
     PNG and GIF files, and the device skeleton extraction load none of
     ``matplotlib``, ``imageio`` and ``PIL``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))

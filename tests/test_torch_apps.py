@@ -93,6 +93,20 @@ def test_skin_weights_equal_jax_to_the_bit(seed):
             JR.extract_skin_weights(sk, pts, kp, hardness))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_skin_weights_end_at_an_invalid_root(seed):
+    """With the root below the threshold the JAX walk never ends; the
+    port's ends at the root, which gives the weights the JAX package gives
+    with that root valid (the root is never the nearest bone either way)."""
+    _, sk, kp = _rig(8, seed)
+    root = sk.priority_indices[0]
+    low = kp.copy()
+    low[root, 3] = 0.1
+    pts = np.random.default_rng(seed + 20).uniform(-0.8, 0.8, (300, 3))
+    np.testing.assert_array_equal(PR.extract_skin_weights(sk, pts, low),
+                                  JR.extract_skin_weights(sk, pts, kp))
+
+
 @pytest.mark.parametrize("mode", ["ours", "baseline"])
 def test_retarget_motion_equals_jax_to_the_bit(mode):
     g, sk, kp = _rig(8, 3)
