@@ -41,11 +41,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (per shape: TFLOP/s and share of its bound, beside cuDNN) and K4 (pass
    1, reduce and pass 2 apart) timed (see 12);
 7. the serving path at the full AIST width with weights from a seed: a
-   bfloat16 stream of (4, 10, 4096, 3) windows, outputs finite and of the
-   expected shapes, and the launch counters showing K1 and K2 on every
-   window and K3 on none;
-8. the same stream on the conv route: K3 48 times per window, keypoints
-   close to the default stream's;
+   bfloat16 stream of (4, 10, 4096, 3) windows asking for its default
+   outputs (keypoints, kypt_recon, R: the pruned window, no decoder and
+   no loss), outputs finite and of the expected shapes, and the launch
+   counters showing K1 on every window and K2 and K3 on none;
+8. the same stream on the conv route: K3 44 times per window (the
+   encoder's routed convs), keypoints close to the default stream's; and
+   a routed stream asking for recon and every loss scalar, which
+   launches what every window did before the pruning (K1 and K2 once, K3
+   48 times a window), its keypoints, kypt_recon and R equal to the bit
+   to the pruned routed stream's;
 9. one B=1 window in float32 (TF32 off) on the card and on the CPU (plain
    versions), compared within stated tolerances;
 10. the training path at the full AIST width: ``Trainer`` on (4, 10, 4096,
@@ -132,12 +137,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
     keypoints_graph none) at the full AIST width in bfloat16: per set a
     few detector steps through ``Trainer`` (p50, peak memory, K1, K2
     forward and backward where the volume fit is chamfer, K3 on the conv
-    route for the conv-route set), one stream window where the JAX stream
-    runs the set, a float32 step card against CPU at a small width, and
-    for affinity_ver 4 the Gumbel draw following the generator passed; the
-    float32 card and CPU gradients are each held against the port's
-    float64 run on the CPU, the card no further from it than a stated
-    multiple of the CPU's distance;
+    route for the conv-route set), three pruned stream windows where the
+    JAX stream runs the set (K1 once a window, no K2), a float32 step
+    card against CPU at a small width, and for affinity_ver 4 the Gumbel
+    draw following the generator passed; the float32 card and CPU
+    gradients are each held against the port's float64 run on the CPU,
+    the card no further from it than a stated multiple of the CPU's
+    distance, and for the GroupNorm whose card gradient of set C lies
+    furthest from float64 its input, output gradient and weight gradient
+    alone (``cudnn.deterministic`` off and on) against float64;
 18. the flagship orchestrator (``cli.flagship``) on the card at the
     flagship's widths (grid 64, K 24, feat 128, bfloat16, B 24 with
     grad_accum 2 then 4, T 10 then 20) on 96 synthetic sequences, 2
@@ -147,7 +155,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
     the demos' outputs, the summary's keys, each phase's launches of K1
     and K2 (``FLAGSHIP_LAUNCHES``, derived there); seconds per epoch, step
     p50 through the loader, peak memory per phase and the detector step's
-    model-FLOPs utilisation.
+    model-FLOPs utilisation;
+19. the distributed layer (``parallel/``, ``Trainer(mesh=...)``): the
+    training CLI in a process group of one over NCCL
+    (``--num_processes 1 --coordinator_address localhost:<port>``) at the
+    CPU tests' width, its files, finite losses and launches; two processes
+    on the one card over gloo (NCCL refuses two ranks on one device) in
+    ``data 2`` and in ``model 2``: each rank's float32 detector- and
+    learner-phase step (grad_accum 2) against the one-process card step
+    within stated tolerances, the generator states equal to the bit and
+    the ranks' parameters equal to each other's; and per topology six
+    bfloat16 AIST-width detector steps (B 4, T 10, N 4096): step p50
+    against one process, the ms of the gradient ``all_reduce`` and the
+    launches of K1 and K2 on each rank. The two processes share one card
+    and gloo copies through the host: these times measure neither NCCL nor
+    two cards.
 
 It prints a ``{"kernels": [...]}`` line (K2 forward's record with its
 launches on the apps, K3's with its launches on the generate step, K1's,
@@ -157,9 +179,23 @@ K2's and K3's with their launches under the CLI), a
 ``{"train": ...}`` line, an ``{"apps": ...}`` line, a ``{"cli": ...}``
 line, a ``{"render": ...}`` line, an ``{"options": ...}`` line, a
 ``{"flagship": ...}`` line (K1's and K2's records carry
-``launches_flagship`` per phase), the card's line, and last
-``{"ok": true, "device": {...}}``. Without a card, or without the package
-beside it, it exits nonzero before printing a result.
+``launches_flagship`` per phase), a ``{"distributed": ...}`` line (K1's
+and K2's records carry ``launches_distributed`` per topology and rank, and
+K1's, K2's and K3's ``launches_pruned_stream``), the card's line, and
+last ``{"ok": true, "device": {...}}``. Without a card, or without the
+package beside it, it exits nonzero before printing a result.
+
+    python3 chip_smoke.py --stream-compare ROOT [ROOT ...]
+
+runs, for each checkout ROOT in turn (e.g. the parent unpacked from
+``git archive`` and this one), that checkout's own stream phase and
+serving profile, route off and on, in a process of its own, and prints a
+``{"stream_compare": [...]}`` line.
+
+    python3 chip_smoke.py --distributed-cards
+
+needs four cards: the distributed layer over NCCL with one process per
+card (``distributed_cards``), and a ``{"distributed_cards": ...}`` line.
 """
 from __future__ import annotations
 
@@ -914,17 +950,48 @@ def check_k4_passes(x, w, b, sc, bi, tag):
 
 
 def _window_outputs(cfg, B, T):
-    K, G = cfg.nkeypoints, cfg.grid_size
+    """The serving window's outputs, the stream's default: the pruned
+    window (no decoder, no volume fit, no graph loss)."""
+    K = cfg.nkeypoints
     return {"keypoints": (B, T, K, 4), "kypt_recon": (B, T, K, 4),
-            "R": (B, T, K, 3, 3), "recon_loss": (), "vol_fit_reg": (),
-            "separation_loss": (), "graph_traj_loss": (), "kl_kypt": (),
-            "kypt_recon_loss": ()}
+            "R": (B, T, K, 3, 3)}
 
 
-def phase_stream(marionette, n_windows, conv_kernel=False):
-    """A bfloat16 stream of serving windows, with the conv route off or on
-    (``conv_kernel``); returns (host ms from the start to the first result
-    and between consecutive results, {kernel: launches}, the results).
+def _all_outputs(cfg, B, T):
+    """The window's outputs with ``recon`` and every loss scalar: the work
+    the stream did for every window before it computed only its
+    outputs."""
+    G = cfg.grid_size
+    out = _window_outputs(cfg, B, T)
+    out["recon"] = (B, T, G, G, G, 1)
+    for k in ("recon_loss", "vol_fit_reg", "separation_loss",
+              "sparsity_loss", "local_const_loss", "time_const_loss",
+              "sparsity_const_loss", "intensity_const_loss",
+              "graph_traj_loss", "kl_kypt", "kypt_recon_loss"):
+        out[k] = ()
+    return out
+
+
+def stream_launches(outputs, n_windows, conv_kernel):
+    """The launches a stream of ``n_windows`` windows asking for
+    ``outputs`` must make: K1 once a window (the voxelization); K2 forward
+    once a window only for ``vol_fit_reg`` (the volume fit); K3, on the
+    conv route, once per routed conv of the encoder (the feature and
+    spatio-temporal nets, ``ROUTED_CONVS - ROUTED_DECODER_CONVS`` = 44)
+    and of the decoder (4 more) only for ``recon`` or ``recon_loss``."""
+    decoder = bool({"recon", "recon_loss"} & set(outputs))
+    routed = ROUTED_CONVS - (0 if decoder else ROUTED_DECODER_CONVS)
+    return {"voxelize": n_windows,
+            "chamfer_fwd": n_windows if "vol_fit_reg" in outputs else 0,
+            "conv3d": routed * n_windows if conv_kernel else 0}
+
+
+def phase_stream(marionette, n_windows, conv_kernel=False, shapes=None):
+    """A bfloat16 stream of serving windows asking for ``shapes``' keys
+    (default: the pruned window, ``_window_outputs``), with the conv route
+    off or on (``conv_kernel``); returns (host ms from the start to the
+    first result and between consecutive results, {kernel: launches}, the
+    results).
 
     Results come lag-1, so gap i (1 <= i <= n-2) is the time the stream
     takes for one window: the host queues window i+1 and waits for window
@@ -935,7 +1002,8 @@ def phase_stream(marionette, n_windows, conv_kernel=False):
     from neural_marionette_tpu_torch.ops import losses as L
     from neural_marionette_tpu_torch.ops import voxelize as V
     cfg = marionette.cfg
-    shapes = _window_outputs(cfg, SERVE_B, SERVE_T)
+    if shapes is None:
+        shapes = _window_outputs(cfg, SERVE_B, SERVE_T)
     windows = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=100 + i)
                for i in range(n_windows)]
     stamps = []
@@ -948,7 +1016,8 @@ def phase_stream(marionette, n_windows, conv_kernel=False):
         for res in s.run(windows):
             stamps.append(time.perf_counter())
             results.append(res)
-    k1, k2, k3 = V.launches, L.launches, K3.launches
+    got = {"voxelize": V.launches, "chamfer_fwd": L.launches,
+           "conv3d": K3.launches}
     if len(results) != n_windows:
         raise AssertionError(f"stream gave {len(results)} results for "
                              f"{n_windows} windows")
@@ -959,18 +1028,19 @@ def phase_stream(marionette, n_windows, conv_kernel=False):
                 raise AssertionError(f"window {i} {k}: shape {v.shape} "
                                      f"(want {shape}), finite "
                                      f"{np.isfinite(v).all()}")
-    k3_want = ROUTED_CONVS * n_windows if conv_kernel else 0
-    if k1 != n_windows or k2 != n_windows or k3 != k3_want:
-        raise AssertionError(f"launches over {n_windows} windows: K1 {k1}, "
-                             f"K2 {k2}, K3 {k3} (want {k3_want})")
+    want = stream_launches(shapes, n_windows, conv_kernel)
+    if got != want:
+        raise AssertionError(f"launches over {n_windows} windows: {got}, "
+                             f"want {want}")
     ms = np.diff([t0] + stamps) * 1e3
     tag = "stream conv_kernel" if conv_kernel else "stream"
-    log(f"[{tag}] {n_windows} windows {SERVE_B}x{SERVE_T}x{SERVE_N}x3 bf16: "
-        f"ms to the first result and between results "
+    what = "pruned" if len(shapes) == 3 else f"{len(shapes)} outputs"
+    log(f"[{tag}] {n_windows} windows {SERVE_B}x{SERVE_T}x{SERVE_N}x3 bf16 "
+        f"({what}): ms to the first result and between results "
         f"{[round(float(x), 2) for x in ms]}")
-    log(f"[{tag}] launches: K1 {k1}, K2 {k2}, K3 {k3}; outputs finite, "
-        f"shapes right")
-    return ms, {"voxelize": k1, "chamfer_fwd": k2, "conv3d": k3}, results
+    log(f"[{tag}] launches: K1 {got['voxelize']}, K2 {got['chamfer_fwd']}, "
+        f"K3 {got['conv3d']}; outputs finite, shapes right")
+    return ms, got, results
 
 
 def stream_record(ms, n_windows, peak, card, **extra):
@@ -1671,6 +1741,84 @@ def _grad_distance(grads, ref):
     return worst, (err2 / ref2) ** 0.5, name
 
 
+# the parameter whose card gradient of set C lies furthest from float64:
+# the scale of a GroupNorm of the feature net's hourglass (``norm``)
+WGRAD_PARAM = "kypt_detector.vox_to_kypt.extract_features.4.encoder_res2." \
+    "res_branch.4.weight"
+
+
+class _CaptureNorm:
+    """Within it, the arguments and output gradient of the
+    ``F.group_norm`` call on ``weight`` (``models/blocks.norm``) are
+    kept."""
+
+    def __init__(self, weight):
+        self.weight = weight
+        self.args = self.gy = None
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        self._orig = orig = F.group_norm
+
+        def group_norm(x, groups, weight=None, bias=None, eps=1e-5):
+            y = orig(x, groups, weight, bias, eps)
+            if weight is self.weight:
+                self.args = (x.detach().clone(), groups,
+                             bias.detach().clone(), eps)
+                y.register_hook(lambda g: setattr(self, "gy",
+                                                  g.detach().clone()))
+            return y
+
+        F.group_norm = group_norm
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        F.group_norm = self._orig
+
+    def weight_grad(self, device, dtype):
+        """The weight gradient of the kept call, recomputed alone from its
+        input and output gradient, on ``device`` in ``dtype``."""
+        import torch.nn.functional as F
+        x, groups, b, eps = self.args
+        w = self.weight.detach().to(device, dtype).requires_grad_(True)
+        y = F.group_norm(x.to(device, dtype), groups, w, b.to(device, dtype),
+                         eps)
+        y.backward(self.gy.to(device, dtype))
+        return w.grad.cpu()
+
+
+def _wgrad_check(caps, card_device):
+    """Where the card's float32 gradient of ``WGRAD_PARAM`` departs from
+    float64 (``ROADMAP.md`` Queue 3, set C): the distances
+    (``_tensor_distance``) from the float64 run of the GroupNorm's input
+    and output gradient on the card and on the CPU, and of its weight
+    gradient recomputed alone from the card's own input and output
+    gradient on the card (ATen's CUDA GroupNorm backward; TF32 off) with
+    ``cudnn.deterministic`` off and on, and on the CPU in float32, each
+    against float64 arithmetic on those same operands."""
+    import torch
+    card, cpu, f64 = caps
+    ref = card.weight_grad("cpu", torch.float64)
+    out = {}
+    for what, i in (("x", 0), ("gy", None)):
+        want = f64.gy if i is None else f64.args[i]
+        for side, cap in (("card", card), ("cpu", cpu)):
+            got = cap.gy if i is None else cap.args[i]
+            out[f"{what}_{side}_f64"] = _tensor_distance(got.cpu(), want)
+    before = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            out[f"wgrad_card_deterministic_{int(det)}"] = _tensor_distance(
+                card.weight_grad(card_device, torch.float32), ref)
+    finally:
+        torch.backends.cudnn.deterministic = before
+    out["wgrad_cpu_f32"] = _tensor_distance(
+        card.weight_grad("cpu", torch.float32), ref)
+    return out
+
+
 def _option_reference(cfg, card_device, seed):
     """One float32 detector-phase forward and backward (TF32 off) of a set
     on the card (kernels) and on the CPU (plain versions) at a small width
@@ -1689,7 +1837,9 @@ def _option_reference(cfg, card_device, seed):
     card's gradient must lie no further from it than 20 times
     (``F64_DISTANCE_MULTIPLE``, set from the five sets' measured ratios,
     at most 17.1) the CPU's float32 gradient, worst tensor and L2 each.
-    Returns the largest errors and both distances from float64."""
+    Returns the largest errors, both distances from float64 and, for
+    ``WGRAD_PARAM``, where its card gradient departs from float64
+    (``_wgrad_check``)."""
     import dataclasses
     import torch
     from neural_marionette_tpu_torch.models import NeuralMarionette
@@ -1705,7 +1855,7 @@ def _option_reference(cfg, card_device, seed):
     K, n = small.nkeypoints, small.nneighbor
     uniform = gumbel_uniform((n, K, K - 1), torch.Generator().manual_seed(
         seed)) if small.affinity_ver == 4 else None
-    out = []
+    out, caps = [], []
     cpu = torch.device("cpu")
     for dev, dtype in ((card_device, torch.float32), (cpu, torch.float32),
                        (cpu, torch.float64)):
@@ -1714,10 +1864,14 @@ def _option_reference(cfg, card_device, seed):
         net.to(dtype)
         vox = voxelize(torch.from_numpy(pts).to(dev),
                        small.grid_size).to(dtype)
-        o = net(vox, affinity_active=sched.affinity_active,
-                gumbel=None if uniform is None else uniform.to(dev, dtype))
-        tot, m = total_loss(o, sched.active_weights(), dtype, dev)
-        tot.backward()
+        with _CaptureNorm(dict(net.named_parameters())[
+                WGRAD_PARAM]) as cap:
+            o = net(vox, affinity_active=sched.affinity_active,
+                    gumbel=None if uniform is None else uniform.to(dev,
+                                                                   dtype))
+            tot, m = total_loss(o, sched.active_weights(), dtype, dev)
+            tot.backward()
+        caps.append(cap)
         out.append(({k: float(v.detach()) for k, v in m.items()},
                     {k: (p.grad if p.grad is not None
                          else torch.zeros_like(p)).detach().cpu()
@@ -1748,7 +1902,7 @@ def _option_reference(cfg, card_device, seed):
             "card_f64_worst_name": card64[2],
             "cpu_f64_worst_tensor": cpu64[0], "cpu_f64_l2": cpu64[1],
             "cpu_f64_worst_name": cpu64[2],
-            "total_loss": mh["total_loss"]}
+            "total_loss": mh["total_loss"], "wgrad": _wgrad_check(caps, card_device)}
 
 
 def phase_options(cfg, device, card):
@@ -1758,8 +1912,8 @@ def phase_options(cfg, device, card):
     metrics; the step ms after the first, their p50, peak memory; K1 once
     a step, K2 forward and backward once a step where ``vol_fit_type`` is
     ``chamfer`` and never otherwise, K3 never), one stream window for the
-    sets the JAX stream runs (3 windows; K1 once a window, K2 forward once
-    a window where chamfer), the
+    sets the JAX stream runs (3 pruned windows; K1 once a window, K2
+    never), the
     float32 step card against CPU (``_option_reference``); the conv-route
     set again on the conv route (K3 once per routed conv of each forward:
     48 for const_intensity 2-4, 26 for 0-1); and for version 4 the Gumbel
@@ -1843,8 +1997,11 @@ def phase_options(cfg, device, card):
             torch.cuda.empty_cache()
         if name in OPTION_STREAM_SETS:
             gaps, counts = _option_window(ocfg, device, seed=8500 + 10 * i)
-            want = {"voxelize": 3, "chamfer_fwd": 3 * int(chamfer),
-                    "chamfer_bwd": 0, "conv3d": 0}
+            # the pruned window (``stream_launches``): K1 once a window,
+            # no volume fit (K2) whatever the set's vol_fit_type
+            want = dict(stream_launches(_window_outputs(ocfg, SERVE_B,
+                                                        SERVE_T), 3, False),
+                        chamfer_bwd=0)
             if counts != want:
                 raise AssertionError(f"options {name} stream launches "
                                      f"{counts}, want {want}")
@@ -2210,7 +2367,9 @@ def phase_timing_conv(device, shapes, stages, errs):
 def _layer_ms(model, skeleton, pts, G, reps=5):
     """Host ms of each layer of one window, each between two
     ``torch.cuda.synchronize()`` calls, median of ``reps``. "losses" is the
-    rest of ``KyptDetector.forward`` (K2 among it)."""
+    rest of ``KyptDetector.forward`` (K2 among it); "detector_pruned" the
+    detector forward of the stream's default window (the encoder and the
+    keypoints: no decoder, no loss)."""
     import torch
     from neural_marionette_tpu_torch.ops.voxelize import voxelize
     det, dyn = model.kypt_detector, model.dyna_module
@@ -2234,6 +2393,8 @@ def _layer_ms(model, skeleton, pts, G, reps=5):
             rows["decoder"].append(ms)
             _, ms = timed(lambda: det(vox))
             rows["detector_total"].append(ms)
+            _, ms = timed(lambda: det(vox, outputs=()))
+            rows["detector_pruned"].append(ms)
             _, ms = timed(lambda: dyn.encode(kp, skeleton,
                                              sample_num=SAMPLE_NUM,
                                              generator=gen))
@@ -2251,28 +2412,35 @@ def _is_copy(name):
             or "transpose" in low)
 
 
-def phase_profile(marionette, n_windows=4, conv_kernel=False):
+def phase_profile(marionette, n_windows=4, conv_kernel=False,
+                  outputs=None):
     """Where a serving window's time goes, after every check has passed:
-    the layer times of one window, then a bfloat16 stream of ``n_windows``
-    (conv route off or on) under ``torch.profiler``: the device's busy
-    share (the union of its kernel, copy and memset intervals over the wall
-    time), its operations per window, the kernels that take the most device
-    time, the copies and layout conversions, and the device time per call
-    of the port's own kernels."""
+    the layer times of one window (not with ``outputs``), then a bfloat16
+    stream of ``n_windows`` (conv route off or on; the default outputs, the
+    pruned window, or ``outputs``) under ``torch.profiler``: the device's
+    busy share (the union of its kernel, copy and memset intervals over
+    the wall time), its operations per window, the kernels that take the
+    most device time, the copies and layout conversions, and the device
+    time per call of the port's own kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neural_marionette_tpu_torch.models import SkeletonArrays
     cfg = marionette.cfg
     tag = "profile conv_kernel" if conv_kernel else "profile"
-    stream = marionette.stream(dtype="bfloat16", sample_num=SAMPLE_NUM,
-                               conv_kernel=conv_kernel)
-    skeleton = SkeletonArrays.from_skeleton(marionette.extract_skeleton(),
-                                            marionette.device)
-    pts = torch.from_numpy(serving_points(SERVE_B, SERVE_T, SERVE_N,
-                                          seed=51)).to(marionette.device)
-    layers = _layer_ms(stream.model, skeleton, pts, cfg.grid_size)
-    log(f"[{tag}] layers: " + ", ".join(f"{k} {v:.2f} ms"
-                                        for k, v in layers.items()))
+    if outputs is not None:
+        tag += " all outputs"
+    stream = marionette.stream(
+        dtype="bfloat16", sample_num=SAMPLE_NUM, conv_kernel=conv_kernel,
+        **({} if outputs is None else {"outputs": outputs}))
+    layers = None
+    if outputs is None:
+        skeleton = SkeletonArrays.from_skeleton(
+            marionette.extract_skeleton(), marionette.device)
+        pts = torch.from_numpy(serving_points(SERVE_B, SERVE_T, SERVE_N,
+                                              seed=51)).to(marionette.device)
+        layers = _layer_ms(stream.model, skeleton, pts, cfg.grid_size)
+        log(f"[{tag}] layers: " + ", ".join(f"{k} {v:.2f} ms"
+                                            for k, v in layers.items()))
     ws = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=200 + i)
           for i in range(n_windows)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -3841,6 +4009,504 @@ def _render_skeleton(device, trained_affinity):
 
 
 # -------------------------------------------------------------------- main
+# ------------------------------------------------------------- distributed
+# the distributed phase's float32 check at the CPU tests' small width
+# (tests/test_torch_parallel.py): B 4 with grad_accum 2, so that data 2
+# gives each rank one row of each microbatch
+DIST_SMALL = dict(grid_size=32, feat_dim=32, nkeypoints=6, Ttot=4,
+                  nlatent_kypt=16, nhidden_kypt=32, grad_accum=2)
+DIST_SMALL_B, DIST_SMALL_N = 4, 1024
+DIST_PHASES = {   # (config fields, (detector, learner, affinity))
+    "detector": (dict(detector_start=0, learner_start=int(1e9),
+                      affinity_anneal=0), (True, False, True)),
+    "learner": (dict(detector_end=0, learner_start=0, affinity_anneal=0),
+                (False, True, True)),
+}
+DIST_TOPOLOGIES = {"data2": (2, 1), "model2": (1, 2)}
+DIST_TIMED_STEPS = 6      # bf16 AIST-width detector steps; the first warms up
+DIST_LAUNCH_KEYS = ("voxelize", "chamfer_fwd", "chamfer_bwd")
+DIST_ALLREDUCE_REPS = 5
+
+
+def _dist_job(cfg, device):
+    """The inputs of the distributed phase: the small float32 steps (per
+    phase: the configuration, loss weights, flags and skeleton; one
+    state_dict and one global batch) and the timed AIST-width run."""
+    import dataclasses
+    import torch
+    from neural_marionette_tpu_torch.models import NeuralMarionette
+    from neural_marionette_tpu_torch.skeleton import extract_skeleton
+    from neural_marionette_tpu_torch.train import LossScheduler
+    small = dataclasses.replace(cfg, **DIST_SMALL)
+    net = NeuralMarionette(small)
+    _informative_weights(net, seed=31)
+    with torch.no_grad():
+        aff = net.kypt_detector.get_affinity().numpy()
+    steps = {}
+    for name, (fields, flags) in DIST_PHASES.items():
+        c = dataclasses.replace(small, **fields)
+        sched = LossScheduler(c)
+        sched.anneal(0)
+        steps[name] = dict(cfg=dataclasses.asdict(c),
+                           weights=sched.active_weights(), flags=flags,
+                           skeleton=extract_skeleton(aff) if flags[1]
+                           else None)
+    timed = dataclasses.replace(cfg, **DIST_PHASES["detector"][0])
+    sched = LossScheduler(timed)
+    sched.anneal(0)
+    return {"state_dict": net.state_dict(), "steps": steps,
+            "points": torch.from_numpy(serving_points(
+                DIST_SMALL_B, small.Ttot, DIST_SMALL_N, seed=32)),
+            "timed": dict(cfg=dataclasses.asdict(timed),
+                          weights=sched.active_weights(),
+                          points=[torch.from_numpy(serving_points(
+                              SERVE_B, SERVE_T, SERVE_N, seed=33 + i))
+                              for i in range(DIST_TIMED_STEPS)])}
+
+
+def _dist_small_step(job, name, device, mesh=None):
+    """One float32 step of ``job``'s phase ``name`` (TF32 off), on this
+    rank's rows with a ``mesh``; its metrics, parameters, Adam's first
+    moment and generator state on the host."""
+    import torch
+    from neural_marionette_tpu_torch import MarionetteConfig
+    from neural_marionette_tpu_torch.models import (NeuralMarionette,
+                                                    SkeletonArrays)
+    from neural_marionette_tpu_torch.parallel import shard_batch
+    from neural_marionette_tpu_torch.train import (create_train_state,
+                                                   make_train_step)
+    case = job["steps"][name]
+    cfg = MarionetteConfig(**case["cfg"])
+    net = NeuralMarionette(cfg, device=device)
+    net.load_state_dict(job["state_dict"])
+    state = create_train_state(cfg, net,
+                               torch.Generator(device).manual_seed(7))
+    step = make_train_step(net, cfg, case["weights"], *case["flags"],
+                           mesh=mesh)
+    pts = job["points"]
+    if mesh is not None:
+        pts = shard_batch(mesh, pts, microbatches=cfg.grad_accum)
+    sk = (None if case["skeleton"] is None else
+          SkeletonArrays.from_skeleton(case["skeleton"], device))
+    metrics = step(state, pts.to(device), sk)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": {k: v.detach().cpu() for k, v in
+                       net.named_parameters()},
+            "mu": {k: m.cpu() for k, m in zip(state.optimizer.names,
+                                              state.optimizer.mu)},
+            "generator": state.generator.get_state()}
+
+
+def _dist_timed(job, device, mesh=None):
+    """``DIST_TIMED_STEPS`` bf16 AIST-width detector steps (B 4, T 10, N
+    4096; this rank's rows with a ``mesh``): host ms per step between two
+    synchronisations, the launches of K1 and K2 under them, and, with a
+    mesh, the ms of one gradient ``all_reduce`` (the step's: one flat
+    float32 buffer of every parameter) over ``DIST_ALLREDUCE_REPS``."""
+    import torch
+    from neural_marionette_tpu_torch import MarionetteConfig
+    from neural_marionette_tpu_torch.models import NeuralMarionette
+    from neural_marionette_tpu_torch.ops import losses as L
+    from neural_marionette_tpu_torch.ops import voxelize as V
+    from neural_marionette_tpu_torch.parallel import replicate, shard_batch
+    from neural_marionette_tpu_torch.parallel.mesh import all_reduce_mean_
+    from neural_marionette_tpu_torch.train import (create_train_state,
+                                                   make_train_step)
+    from neural_marionette_tpu_torch.weights import init_weights
+    t = job["timed"]
+    cfg = MarionetteConfig(**t["cfg"])
+    net = NeuralMarionette(cfg, dtype=torch.bfloat16, device=device)
+    init_weights(net, torch.Generator().manual_seed(cfg.seed))
+    if mesh is not None:
+        replicate(mesh, net)
+    state = create_train_state(cfg, net,
+                               torch.Generator(device).manual_seed(3))
+    step = make_train_step(net, cfg, t["weights"], True, False, True,
+                           mesh=mesh)
+    ms = []
+    V.launches = L.launches = L.bwd_launches = 0
+    for pts in t["points"]:
+        if mesh is not None:
+            pts = shard_batch(mesh, pts)
+        pts = pts.to(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        metrics = step(state, pts)
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(metrics["total_loss"])):
+            raise AssertionError(f"distributed timed step: {metrics}")
+    out = {"step_ms": ms, "step_ms_p50": float(np.median(ms[1:])),
+           "launches": {"voxelize": V.launches, "chamfer_fwd": L.launches,
+                        "chamfer_bwd": L.bwd_launches}}
+    if mesh is not None:
+        bufs = [torch.zeros_like(p) for p in net.parameters()]
+        reps = []
+        for _ in range(DIST_ALLREDUCE_REPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            all_reduce_mean_(bufs, mesh)
+            torch.cuda.synchronize(device)
+            reps.append((time.perf_counter() - t0) * 1e3)
+        out.update(allreduce_ms=float(np.median(reps)),
+                   allreduce_mb=sum(b.numel() for b in bufs) * 4 / 2 ** 20)
+    return out
+
+
+def dist_worker(port, rank, world, data, model, job_path, backend):
+    """One rank of the distributed phase on ``cuda:{rank % cards}``, over
+    ``backend`` (gloo for several processes on one card, which NCCL
+    refuses): the small float32 steps, then the timed run; its results go
+    to ``<job_path>.<rank>``."""
+    import torch
+    from neural_marionette_tpu_torch.parallel import make_mesh
+    from neural_marionette_tpu_torch.parallel.distributed import (
+        initialize, shutdown, warmup_collectives)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = initialize(f"localhost:{port}", int(world), int(rank),
+                        device="cuda", backend=backend)
+    try:
+        mesh = make_mesh(int(data), int(model))
+        warmup_collectives(mesh, device)
+        job = torch.load(job_path, weights_only=False)
+        res = {name: _dist_small_step(job, name, device, mesh)
+               for name in DIST_PHASES}
+        res["timed"] = _dist_timed(job, device, mesh)
+        torch.save(res, f"{job_path}.{rank}")
+    finally:
+        shutdown()
+
+
+def _dist_compare(got, want, lr, what):
+    """A rank's small step against the one-process card step. Tolerances
+    (the ranks differ only in the order of float32 sums, and cuDNN may
+    pick other algorithms for other batch sizes): metrics 1e-4 relative
+    plus 1e-6 absolute, ``grad_norm`` 1e-3 (``tests/test_torch_parallel.py``
+    and ``tests/test_torch_train_step.py``); Adam's first moment per tensor
+    within 1e-3 of its largest entry and 1e-4 relative L2 over all;
+    parameters within 2 lr everywhere and all but 1/1000 within 5e-5 +
+    1e-2 |p|; the generator state equal to the bit. Returns the errors."""
+    import torch
+    failed = []
+    for k, v in want["metrics"].items():
+        tol = (1e-3 * abs(v)) if k == "grad_norm" else (1e-4 * abs(v) + 1e-6)
+        if not abs(got["metrics"][k] - v) <= tol:
+            failed.append(f"metric {k} {got['metrics'][k]!r} vs {v!r}")
+    worst, l2, name = _grad_distance(got["mu"], want["mu"])
+    if not worst <= 1e-3 or not l2 <= 1e-4:
+        failed.append(f"Adam's first moment: worst tensor {worst:.3e} "
+                      f"({name}), L2 {l2:.3e}")
+    total = loose = 0
+    dmax = 0.0
+    for k, b in want["params"].items():
+        d = (got["params"][k] - b).abs()
+        dmax = max(dmax, float(d.max()))
+        loose += int((d > 5e-5 + 1e-2 * b.abs()).sum())
+        total += d.numel()
+    if dmax > 2 * lr + 1e-6 or loose > total // 1000:
+        failed.append(f"parameters: max diff {dmax:.3e}, {loose} of {total} "
+                      f"loose")
+    if not torch.equal(got["generator"], want["generator"]):
+        failed.append("generator state differs")
+    if failed:
+        raise AssertionError(f"distributed {what}: " + "; ".join(failed))
+    return {"grad_worst_tensor": worst, "grad_l2": l2, "param_max_diff": dmax,
+            "params_loose": loose,
+            "metric_max_rel": max(abs(got["metrics"][k] - v) / (abs(v) + 1e-30)
+                                  for k, v in want["metrics"].items())}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_cli(work: Path, tag: str, nproc: int, extra=()):
+    """``cli.train`` over NCCL at the small width (4 synthetic sequences:
+    one step of B 4, one epoch) in ``nproc`` processes, one per card
+    (``--num_processes nproc --mesh_data nproc``; 1: a process group of
+    one), with the flags ``extra``; checks every rank's exit and launches
+    and rank 0's one finite record. Returns (the record, each rank's
+    launches of K1-K3, seconds)."""
+    out = work / tag
+    argv = [sys.executable, "-m", "neural_marionette_tpu_torch.cli.train",
+            "--dataset", "synthetic", "--synthetic_sequences", "4",
+            "--apply_adjust_config", "0", "--nbatch", "4", "--nepoch", "1",
+            "--output_root", str(out), "--exp_name", tag,
+            "--num_workers", "0", "--is_eval", "1", "--detector_start", "0",
+            "--detector_end", "1", "--learner_start", "1",
+            "--affinity_anneal", "0",
+            "--coordinator_address", f"localhost:{_free_port()}",
+            "--num_processes", str(nproc), "--mesh_data", str(nproc),
+            "--mesh_model", "1", *extra]
+    for k, v in DIST_SMALL.items():
+        if k != "grad_accum":
+            argv += [f"--{k}", str(v)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--process_id", str(r)], cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(nproc)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    secs = time.perf_counter() - t0
+    launches = []
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "training complete" not in o:
+            raise AssertionError(f"cli.train {tag} rank {r}: rc "
+                                 f"{p.returncode}\n{o[-3000:]}")
+        line = [ln for ln in o.splitlines()
+                if ln.startswith("kernel launches ")][-1]
+        launches.append(json.loads(line[len("kernel launches "):]))
+        if not launches[-1]["voxelize"] > 0 or \
+                not launches[-1]["chamfer_fwd"] > 0:
+            raise AssertionError(f"cli.train {tag}: launches {launches}")
+    metrics = list(out.rglob("metrics.jsonl"))
+    records = [json.loads(ln) for ln in metrics[0].read_text().splitlines()] \
+        if len(metrics) == 1 else []
+    if len(records) != 1 or not all(
+            np.isfinite(v) for part in ("train", "valid")
+            for v in records[0][part].values()):
+        raise AssertionError(f"cli.train {tag}: records {records}")
+    log(f"[distributed] cli.train over NCCL, {nproc} process(es): "
+        f"{secs:.1f} s, launches {launches}, total_loss "
+        f"{records[0]['train']['total_loss']:.4f}")
+    return records[0], launches, secs
+
+
+def _cli_params(work: Path, tag: str) -> dict:
+    """The parameters of ``_dist_cli`` run ``tag``'s epoch-0 checkpoint."""
+    import torch
+    (state,) = (work / tag).rglob("epochs/0/state.pt")
+    return torch.load(state, map_location="cpu", weights_only=True)["model"]
+
+
+def _dist_group(job_path: Path, data: int, model: int, backend: str):
+    """The ranks of a (data, model) mesh running ``dist_worker`` on
+    ``job_path``; returns (each rank's results, seconds)."""
+    import torch
+    port, world = _free_port(), data * model
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--distributed-worker",
+         str(port), str(r), str(world), str(data), str(model), str(job_path),
+         backend], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = [p.communicate(timeout=400)[0] for p in procs]
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed {data}x{model} {backend} "
+                                 f"rank {r}: rc {p.returncode}\n{o[-3000:]}")
+    return ([torch.load(f"{job_path}.{r}", weights_only=False)
+             for r in range(world)], time.perf_counter() - t0)
+
+
+def _dist_topology(job_path, one, lr, topo, data, model, backend, where):
+    """One topology's ranks against the one-process card steps
+    (``_dist_compare``; every rank's parameters equal to rank 0's), and
+    their timed run; returns its record."""
+    import torch
+    ranks, secs = _dist_group(job_path, data, model, backend)
+    rec = {"seconds": secs, "backend": backend, "checks": {}}
+    for name in DIST_PHASES:
+        for r, res in enumerate(ranks):
+            rec["checks"][f"{name}_rank{r}"] = _dist_compare(
+                res[name], one[name], lr, f"{topo} {name} rank {r}")
+            for k, v in res[name]["params"].items():
+                if not torch.equal(v, ranks[0][name]["params"][k]):
+                    raise AssertionError(f"distributed {topo} {name}: rank "
+                                         f"{r}'s {k} differs from rank 0's")
+    rec["timed"] = [res["timed"] for res in ranks]
+    rec["step_ms_p50"] = max(t["step_ms_p50"] for t in rec["timed"])
+    rec["allreduce_ms"] = max(t["allreduce_ms"] for t in rec["timed"])
+    worst = max(v["grad_worst_tensor"] for v in rec["checks"].values())
+    log(f"[distributed] {topo} ({where}, {backend}): every rank's small "
+        f"float32 steps equal to one process (Adam moment worst "
+        f"{worst:.2e}); bf16 AIST width step p50 {rec['step_ms_p50']:.1f} "
+        f"ms, all_reduce {rec['allreduce_ms']:.1f} ms of "
+        f"{rec['timed'][0]['allreduce_mb']:.1f} MB, launches "
+        f"{[t['launches'] for t in rec['timed']]}; {secs:.1f} s")
+    return rec
+
+
+def _dist_references(cfg, device, work: Path):
+    """The job of the distributed phase written to ``work``, and the
+    one-process card steps and timed run it is held against."""
+    import torch
+    job = _dist_job(cfg, device)
+    job_path = work / "job.pt"
+    torch.save(job, job_path)
+    one = {name: _dist_small_step(job, name, device) for name in DIST_PHASES}
+    timed = _dist_timed(job, device)
+    log(f"[distributed] one process, bf16 AIST width: step ms "
+        f"{[round(x, 1) for x in timed['step_ms']]}")
+    return job_path, one, timed, job["steps"]["detector"]["cfg"]["lrate"]
+
+
+def phase_distributed(cfg, device, card):
+    """The distributed layer on the one card: ``cli.train`` over NCCL in a
+    process group of one; then two processes on the card over gloo in
+    ``data 2`` and in ``model 2``, each rank's float32 detector- and
+    learner-phase step (grad_accum 2) against the one-process card step
+    (``_dist_compare``), and a bf16 AIST-width detector run per topology
+    (B 4, T 10, N 4096): step p50 against one process, the gradient
+    ``all_reduce`` ms, the launches of K1 and K2. Two processes share one
+    card and gloo copies every collective through the host, so these times
+    measure neither NCCL nor two cards (``--distributed-cards`` does, on a
+    machine with four)."""
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        rec, launches, secs = _dist_cli(work, "nccl", 1)
+        out = {"card": card, "cli_nccl": {
+            "seconds": secs, "launches": launches[0],
+            "total_loss": rec["train"]["total_loss"]}}
+        job_path, one, out["one_process"], lr = _dist_references(
+            cfg, device, work)
+        for topo, (data, model) in DIST_TOPOLOGIES.items():
+            out[topo] = _dist_topology(job_path, one, lr, topo, data, model,
+                                       "gloo", "2 processes, one card")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[distributed] phase {out['seconds']:.1f} s")
+    return out
+
+
+# the topologies of ``--distributed-cards``, one process per card
+DIST_CARD_TOPOLOGIES = {"data2": (2, 1), "model2": (1, 2),
+                        "data2_model2": (2, 2)}
+
+
+def distributed_cards() -> int:
+    """``--distributed-cards``, on a machine with four cards: the
+    distributed layer over NCCL, one process per card. ``cli.train`` in
+    two processes (``--mesh_data 2``) against one process with
+    ``--grad_accum 2``, whose convs then run on the same two rows a
+    forward (the detector's float32 gradient is ill-conditioned enough
+    that other batch sizes give other convolution arithmetic and a
+    gradient norm 1e-3 apart): the epoch's training losses within 1e-4
+    relative plus 1e-6, ``grad_norm`` 1e-3, and the epoch-0 checkpoint's
+    parameters within 2 lr, all but 1/1000 within 5e-5 + 1e-2 |p|, as
+    ``tests/test_torch_distributed_cli.py`` (validation runs 4 rows a
+    forward in one process and 2 in each of two, so its losses are only
+    checked finite); then
+    ``DIST_CARD_TOPOLOGIES``, each rank's small float32 steps against the
+    one-process card step (``_dist_compare``) and the bf16 AIST-width
+    detector run (step p50, gradient ``all_reduce`` ms, launches). Prints
+    a ``{"distributed_cards": ...}`` line; exits 2 with fewer than four
+    cards."""
+    import torch
+    if torch.cuda.device_count() < 4:
+        print("chip_smoke --distributed-cards: needs four cards",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from neural_marionette_tpu_torch import MarionetteConfig, adjust_config
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = phase_card()
+    phase_build()
+    cfg = adjust_config(MarionetteConfig(dataset="aist"))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cards_"))
+    try:
+        one_rec, _, _ = _dist_cli(work, "one", 1, ("--grad_accum", "2"))
+        two_rec, launches, secs = _dist_cli(work, "two", 2)
+        worst = {}
+        for k, v in one_rec["train"].items():
+            got = two_rec["train"][k]
+            tol = 1e-3 * abs(v) if k == "grad_norm" else 1e-4 * abs(v) + 1e-6
+            if not abs(got - v) <= tol:
+                raise AssertionError(f"cli.train on 2 cards: train {k} "
+                                     f"{got!r}, one process {v!r}")
+            worst[k] = abs(got - v) / (abs(v) + 1e-30)
+        want, got = _cli_params(work, "one"), _cli_params(work, "two")
+        lr = one_rec["lr"]
+        loose = total = 0
+        dmax = 0.0
+        for k, b in want.items():
+            d = (got[k] - b).abs()
+            dmax = max(dmax, float(d.max()))
+            loose += int((d > 5e-5 + 1e-2 * b.abs()).sum())
+            total += d.numel()
+        if dmax > 2 * lr + 1e-6 or loose > total // 1000:
+            raise AssertionError(f"cli.train on 2 cards: checkpoint max diff "
+                                 f"{dmax:.3e}, {loose} of {total} loose")
+        out = {"card": card, "cards": torch.cuda.device_count(),
+               "cli_two_cards": {"seconds": secs, "launches": launches,
+                                 "train_max_rel_diff": max(worst.values()),
+                                 "param_max_diff": dmax,
+                                 "params_loose": loose}}
+        job_path, one, out["one_process"], lr = _dist_references(
+            cfg, torch.device("cuda", 0), work)
+        for topo, (data, model) in DIST_CARD_TOPOLOGIES.items():
+            out[topo] = _dist_topology(job_path, one, lr, topo, data, model,
+                                       "nccl", f"{data * model} cards")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"distributed_cards": out}))
+    print(card)
+    return 0
+
+
+# ----------------------------------------------------- stream of two trees
+# run in a fresh process from a checkout's root: that checkout's own
+# stream phase (its default outputs) and serving profile, one JSON line
+STREAM_TREE = """
+import json, sys, time
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from neural_marionette_tpu_torch import MarionetteConfig, adjust_config
+from neural_marionette_tpu_torch.api import Marionette
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+card = c.phase_card()
+c.phase_build()
+cfg = adjust_config(MarionetteConfig(dataset="aist"))
+m = Marionette.from_config(cfg, seed=0, device=torch.device("cuda"))
+out = {}
+for route in (False, True):
+    ms, launches, _ = c.phase_stream(m, c.STREAM_WINDOWS, conv_kernel=route)
+    rec = c.stream_record(ms, c.STREAM_WINDOWS, None, card)
+    prof = c.phase_profile(m, conv_kernel=route)
+    out["conv_kernel" if route else "default"] = {
+        "mean_ms_per_window": rec["mean_ms_per_window"],
+        "p50_ms_per_window": rec["p50_ms_per_window"],
+        "launches": launches, "layers_ms": prof["layers_ms"],
+        "device_busy_ms_per_window": prof["device_busy_ms_per_window"],
+        "device_busy_share": prof["device_busy_share"],
+        "device_ops_per_window": prof["device_ops_per_window"],
+        "wall_ms_per_window": prof["wall_ms_per_window"]}
+print("STREAM_TREE " + json.dumps(out), flush=True)
+"""
+
+
+def stream_compare(roots):
+    """The stream phase and the serving profile of each checkout in
+    ``roots``, in that order, each in a process of its own from its root
+    (e.g. the parent from ``git archive`` and this one: parent, change,
+    change, parent); prints one ``{"stream_compare": [...]}`` line."""
+    rows = []
+    for root in roots:
+        res = subprocess.run([sys.executable, "-c", STREAM_TREE],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=900)
+        print(res.stdout[-4000:], flush=True)
+        line = [ln for ln in res.stdout.splitlines()
+                if ln.startswith("STREAM_TREE ")]
+        if res.returncode != 0 or not line:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        rows.append({"root": str(root), **json.loads(line[-1][12:])})
+    print(json.dumps({"stream_compare": rows}))
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "neural_marionette_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: the package neural_marionette_tpu_torch is not "
@@ -3898,14 +4564,34 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ms, launches, results = phase_stream(marionette, STREAM_WINDOWS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches.pop("conv3d")
     torch.cuda.reset_peak_memory_stats()
     ms_c, launches_c, results_c = phase_stream(marionette, STREAM_WINDOWS,
                                                conv_kernel=True)
     peak_c = torch.cuda.max_memory_allocated() / 2 ** 30
     kp_diff, recon_diff = compare_streams(results_c, results)
-    del results, results_c
-    launches.update(conv3d=launches_c["conv3d"], fused_stage=k4_launches)
+    # a stream of recon and every loss scalar, on the conv route, launches
+    # what every window launched before the stream pruned its work: K1 and
+    # K2 forward once a window, K3 48 times; its default outputs are the
+    # pruned routed stream's to the bit (the same windows and noise)
+    torch.cuda.reset_peak_memory_stats()
+    ms_a, launches_a, results_a = phase_stream(
+        marionette, STREAM_WINDOWS, conv_kernel=True,
+        shapes=_all_outputs(cfg, SERVE_B, SERVE_T))
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    for a, c in zip(results_a, results_c):
+        for k in _window_outputs(cfg, 1, 1):
+            if not np.array_equal(a[k], c[k]):
+                raise AssertionError(
+                    f"stream {k}: the pruned window's differs from the full "
+                    f"window's by {float(np.abs(a[k] - c[k]).max()):.3e}")
+    log("[stream all outputs conv_kernel] keypoints, kypt_recon and R equal "
+        "to the bit to the pruned routed stream's")
+    del results, results_c, results_a
+    # the kernels line's launches: the stream of every output on the
+    # route, which runs all three serving kernels; the pruned streams'
+    # counts beside them (launches_pruned_stream)
+    pruned_launches = {"stream": launches, "stream_conv_kernel": launches_c}
+    launches = dict(launches_a, fused_stage=k4_launches)
 
     # max_abs_err of K2 at the serving shape, bfloat16 occupancy
     from neural_marionette_tpu_torch.ops import voxelize as V
@@ -3948,17 +4634,30 @@ def main() -> int:
     records += conv_records
     profile = phase_profile(marionette)
     profile["conv_kernel"] = phase_profile(marionette, conv_kernel=True)
+    profile["conv_kernel_all_outputs"] = phase_profile(
+        marionette, conv_kernel=True,
+        outputs=tuple(_all_outputs(cfg, SERVE_B, SERVE_T)))
     cli = phase_cli(device, card)
     torch.cuda.empty_cache()
     render = phase_render(cfg, device, card, apps_keep, trained_affinity)
     del apps_keep
     torch.cuda.empty_cache()
     flag = phase_flagship(card)
+    dist = phase_distributed(cfg, device, card)
+    # K3's device ms of a window of all its 48 routed convs (the stream
+    # asking for recon and every loss), as its kernel ms are
     k3_dev = sum(k["device_ms_per_call"] * k["calls_per_window"]
-                 for k in profile["conv_kernel"]["port_kernels"]
+                 for k in profile["conv_kernel_all_outputs"]["port_kernels"]
                  if "conv3d_kernel" in k["name"])
     records[-2]["device_ms"] = k3_dev   # per window, from the profiler
     for rec in records:   # launches on this slice's paths
+        if rec["name"] in pruned_launches["stream"]:
+            rec["launches_pruned_stream"] = {
+                k: v[rec["name"]] for k, v in pruned_launches.items()}
+        if rec["name"] in DIST_LAUNCH_KEYS:
+            rec["launches_distributed"] = {
+                topo: [t["launches"][rec["name"]] for t in
+                       dist[topo]["timed"]] for topo in DIST_TOPOLOGIES}
         if rec["name"] == "chamfer_fwd":
             rec["launches_apps"] = apps["launches"]["chamfer_fwd"]
         elif rec["name"] == "conv3d":
@@ -3970,12 +4669,20 @@ def main() -> int:
             rec["launches_flagship"] = {
                 p: flag[p]["launches"][rec["name"]] for p in FLAGSHIP_LAUNCHES}
 
-    stream = stream_record(ms, STREAM_WINDOWS, peak, card)
+    stream = stream_record(ms, STREAM_WINDOWS, peak, card,
+                           outputs=sorted(_window_outputs(cfg, 1, 1)),
+                           launches=pruned_launches["stream"])
     stream_c = stream_record(ms_c, STREAM_WINDOWS, peak_c, card,
-                             conv3d_launches=launches["conv3d"],
+                             conv3d_launches=launches_c["conv3d"],
+                             launches=launches_c,
                              keypoints_max_abs_diff=kp_diff,
                              kypt_recon_max_abs_diff=recon_diff)
-    for tag, st in (("stream", stream), ("stream conv_kernel", stream_c)):
+    stream["all_outputs_conv_kernel"] = stream_record(
+        ms_a, STREAM_WINDOWS, peak_a, card, launches=launches_a,
+        outputs=sorted(_all_outputs(cfg, 1, 1)))
+    for tag, st in (("stream", stream), ("stream conv_kernel", stream_c),
+                    ("stream all outputs conv_kernel",
+                     stream["all_outputs_conv_kernel"])):
         log(f"[{tag}] steady windows: mean {st['mean_ms_per_window']:.2f} "
             f"ms, p50 {st['p50_ms_per_window']:.2f} ms over "
             f"{STREAM_WINDOWS - 2}")
@@ -3991,6 +4698,7 @@ def main() -> int:
     print(json.dumps({"render": render}))
     print(json.dumps({"options": options}))
     print(json.dumps({"flagship": flag}))
+    print(json.dumps({"distributed": dist}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3999,4 +4707,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        sys.path.insert(0, str(ROOT))
+        sys.exit(dist_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--stream-compare"]:
+        sys.exit(stream_compare(sys.argv[2:]))
+    if sys.argv[1:2] == ["--distributed-cards"]:
+        sys.exit(distributed_cards())
     sys.exit(main())

@@ -25,6 +25,7 @@ import torch
 
 from .config import MarionetteConfig
 from .models import NeuralMarionette, SkeletonArrays
+from .models.marionette import check_outputs
 from .ops.voxelize import voxelize, voxelize_np
 from .skeleton import Skeleton
 from .weights import init_weights, state_dict_from_jax
@@ -176,8 +177,11 @@ class MarionetteStream:
     for w-1's results does not wait for w.
 
     ``outputs`` names the keys of ``NeuralMarionette.encode_only`` to
-    return (e.g. ``recon`` or a loss scalar); all of them are computed
-    every window. Loss scalars cover the padded batch rows too.
+    return (e.g. ``recon`` or a loss scalar); only their work runs, as the
+    JAX stream's compiler keeps only what its ``outputs`` need: the
+    default window runs no decoder, no volume fit (kernel K2) and no
+    graph loss. An unknown name raises ``KeyError``. Loss scalars cover
+    the padded batch rows too.
 
     ``conv_kernel`` (default: the marionette's model's) routes the eligible
     bfloat16 convs through kernel K3, the JAX package's ``NM_PALLAS_CONV=1``.
@@ -196,6 +200,7 @@ class MarionetteStream:
         self.sample_num = sample_num
         self.seed = seed
         self.outputs = tuple(outputs)
+        check_outputs(self.outputs)
         base = marionette.model
         if conv_kernel is None:
             conv_kernel = base.conv_kernel
@@ -290,7 +295,8 @@ class MarionetteStream:
             vox = voxelize(pts, self.cfg.grid_size, dtype=self.dtype)
             out = self.model.encode_only(vox, self._sk,
                                          sample_num=self.sample_num,
-                                         generator=self._window_generator(idx))
+                                         generator=self._window_generator(idx),
+                                         outputs=self.outputs)
             host, event = self._start_copy(out)
         prev, self._pending = self._pending, (host, event, true_b)
         return self._fetch(prev) if prev is not None else None

@@ -27,13 +27,24 @@ arrival to the next's, and on a card the epoch's peak GiB), and the run
 ends with ``kernel launches {...}``: the launches of kernels K1-K3 in this
 process (0 on the CPU, where the plain versions run).
 
+Over several processes, one per card, each is started with the JAX
+flags ``--coordinator_address host:port --num_processes N --process_id i``
+(and ``--mesh_data D --mesh_model M``, D x M = N): NCCL between cards,
+gloo on the CPU (``parallel.distributed.initialize``). Each process loads
+its rows of every batch (``data`` rank = rank // M), the detector splits
+the window's frames over the M ranks of a row, and the gradients are
+averaged over all N after each step; only rank 0 writes ``opt.json``,
+``metrics.jsonl``, TensorBoard, the GIFs, the checkpoints (between two
+barriers) and the result files, and prints the stats. A checkpoint
+saved by N processes resumes on any number.
+
 It runs on ``cuda`` and raises without a card, unless ``--platform cpu``.
 ``--compute_dtype bfloat16`` trains in bfloat16 (the default is float32,
 as the JAX CLI's); ``--conv_kernel 1`` routes its eligible convs through
 kernel K3, the counterpart of running ``train.py`` under
 ``NM_PALLAS_CONV=1`` (the port reads no environment variable). The TPU
-knobs of the configuration (mesh, strips, frame chunks, remat) are read
-and ignored. ``--debug_nans 1`` (the JAX ``jax_debug_nans``) checks every
+knobs of the configuration (strips, frame chunks, remat) are read and
+ignored. ``--debug_nans 1`` (the JAX ``jax_debug_nans``) checks every
 training step on the card and raises ``FloatingPointError`` at the first
 non-finite metric, ``grad_norm`` or parameter (``Trainer._checked_step``).
 """
@@ -55,6 +66,9 @@ from ..config import (MarionetteConfig, adjust_config, check_supported,
 from ..data import DataLoader, load_dataset, prefetch_to_device
 from ..eval import affinity_recovery, semantic_final
 from ..ops.voxelize import voxelize
+from ..parallel.distributed import (initialize, is_coordinator, shutdown,
+                                    warmup_collectives)
+from ..parallel.mesh import all_reduce_max, check_batch_shape, make_mesh
 from ..train import Trainer
 from ..utils.console import COLORS, display_it, display_opts, display_phase
 from ..utils.preemption import install_preemption_handler, preempted
@@ -90,9 +104,6 @@ def parse_args(argv=None) -> tuple[MarionetteConfig, bool]:
 def prepare_config(cfg: MarionetteConfig) -> MarionetteConfig:
     """``adjust_config`` when asked, then ``derive_training_id``; raises on
     an option value the JAX package rejects too (``check_supported``)."""
-    if cfg.num_processes > 1 or cfg.coordinator_address:
-        raise NotImplementedError("training in several processes is not "
-                                  "ported to neural_marionette_tpu_torch")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{cfg.compute_dtype!r}")
@@ -242,21 +253,46 @@ def _kernel_launches() -> dict:
 
 def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
     """Train ``cfg`` (as parsed; :func:`prepare_config` is applied here)
-    to ``cfg.nepoch``; returns the trainer."""
+    to ``cfg.nepoch``; returns the trainer. With ``--num_processes`` above
+    1 or a ``--coordinator_address`` it joins the process group first and
+    leaves it at the end."""
     device = platform_device(cfg.platform)
     cfg = prepare_config(cfg)
+    bound = initialize(cfg.coordinator_address or None,
+                       cfg.num_processes or None,
+                       cfg.process_id if cfg.process_id >= 0 else None,
+                       device=device)
+    if bound is None:
+        return _train(cfg, conv_kernel, device, distributed=False)
+    try:
+        return _train(cfg, conv_kernel, bound, distributed=True)
+    finally:
+        shutdown()
+
+
+def _train(cfg: MarionetteConfig, conv_kernel: bool, device: torch.device,
+           distributed: bool) -> Trainer:
+    mesh = None
+    if distributed:
+        mesh = make_mesh(cfg.mesh_data, cfg.mesh_model)
+        warmup_collectives(mesh, device)
+        check_batch_shape(mesh, (cfg.nbatch, cfg.Ttot))
+    coord = is_coordinator()
     np.random.seed(cfg.seed)
     install_preemption_handler()
-    display_opts(cfg)
+    if coord:
+        display_opts(cfg)
 
     dataset_train = load_dataset(True, cfg)
     dataset_valid = load_dataset(False, cfg)
     logger_path = os.path.join(cfg.output_root, cfg.training_id,
                                cfg.exp_name)
     os.makedirs(logger_path, exist_ok=True)
-    cfg.save_json(os.path.join(logger_path, "opt.json"))
+    if coord:
+        cfg.save_json(os.path.join(logger_path, "opt.json"))
     trainer = Trainer(cfg, device=device, dtype=cfg.compute_dtype,
-                      logger_path=logger_path, conv_kernel=conv_kernel)
+                      logger_path=logger_path, conv_kernel=conv_kernel,
+                      mesh=mesh)
     if trainer.start_epoch > 0:
         print(f"{COLORS.OKGREEN}resumed from epoch "
               f"{trainer.start_epoch - 1}{COLORS.ENDC}")
@@ -267,14 +303,22 @@ def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
         eval_metrics.append("voxel_chamfer")  # never wires it (train.py:332)
 
     writer = _make_writer(os.path.join(logger_path, "logs"),
-                          trainer.start_epoch)
+                          trainer.start_epoch) if coord else None
+    # each data rank loads its rows of the one-process run's batches: its
+    # share of every microbatch
+    part = dict(process_index=mesh.data_rank, process_count=mesh.data,
+                global_draws=True) if mesh is not None else {}
     loader_train = DataLoader(dataset_train, cfg.nbatch, shuffle=True,
-                              seed=cfg.seed, num_workers=cfg.num_workers)
+                              seed=cfg.seed, num_workers=cfg.num_workers,
+                              microbatches=max(int(cfg.grad_accum), 1),
+                              **part)
     loader_valid = DataLoader(dataset_valid, cfg.nbatch, shuffle=False,
-                              seed=cfg.seed, num_workers=cfg.num_workers)
+                              seed=cfg.seed, num_workers=cfg.num_workers,
+                              **part)
+    metrics_path = os.path.join(logger_path, "metrics.jsonl") if coord \
+        else os.devnull
     try:
-        with loader_train, loader_valid, open(
-                os.path.join(logger_path, "metrics.jsonl"), "a") as log:
+        with loader_train, loader_valid, open(metrics_path, "a") as log:
             for epoch_id in range(trainer.start_epoch, cfg.nepoch):
                 t_epoch = time.time()
                 if device.type == "cuda":
@@ -282,24 +326,27 @@ def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
                 dataset_train.log_epoch(epoch_id)
                 dataset_valid.log_epoch(epoch_id)
                 trainer.sched.anneal(epoch_id)
-                if epoch_id % cfg.log_gif_every == 0:
+                if epoch_id % cfg.log_gif_every == 0 and coord:
                     display_phase(trainer.sched)
                 batches = prefetch_to_device(iter(loader_train),
                                              device=device)
-                if cfg.profile_dir and epoch_id == trainer.start_epoch + 1:
+                if cfg.profile_dir and epoch_id == trainer.start_epoch + 1 \
+                        and coord:
                     batches = _profiled(batches, cfg.profile_dir, device,
                                         epoch_id)
                 rec = trainer.train_epoch(epoch_id, batches)
-                display_it("train", "total loss", cfg, epoch_id, 0,
-                           rec["train"].get("total_loss", float("nan")))
+                if coord:
+                    display_it("train", "total loss", cfg, epoch_id, 0,
+                               rec["train"].get("total_loss", float("nan")))
                 valid, _ = trainer.validate(
                     epoch_id, prefetch_to_device(iter(loader_valid),
                                                  device=device),
                     eval_metrics)
-                for name in eval_metrics:
-                    if name in valid:
-                        display_it("eval", name, cfg, epoch_id, 0,
-                                   valid[name])
+                if coord:
+                    for name in eval_metrics:
+                        if name in valid:
+                            display_it("eval", name, cfg, epoch_id, 0,
+                                       valid[name])
                 record = {"epoch": epoch_id, "lr": rec["lr"],
                           "time": time.time() - t_epoch,
                           "train": rec["train"], "valid": valid}
@@ -310,24 +357,28 @@ def train(cfg: MarionetteConfig, conv_kernel: bool = False) -> Trainer:
                         for k, v in record[part].items():
                             writer.add_scalar(f"{part}/{k}", v, epoch_id)
                 if (epoch_id % cfg.log_gif_every == 0 or epoch_id < 10) \
-                        and trainer.first_batch is not None:
+                        and trainer.first_batch is not None and coord:
                     ms = _log_gifs(writer, cfg, logger_path, epoch_id,
                                    trainer)
                     trainer.gif_ms[epoch_id] = ms
                     print(f"epoch {epoch_id}: GIF logging {ms:.1f} ms")
-                print(f"epoch {epoch_id} stats "
-                      + json.dumps(_epoch_stats(rec, device)), flush=True)
-                if preempted():
+                if coord:
+                    print(f"epoch {epoch_id} stats "
+                          + json.dumps(_epoch_stats(rec, device)), flush=True)
+                stop = preempted()
+                if mesh is not None:   # every rank stops at the same epoch
+                    stop = all_reduce_max(stop, mesh, device)
+                if stop:
                     print(f"{COLORS.FAIL}SIGTERM received: checkpointing "
                           f"and exiting at epoch {epoch_id}{COLORS.ENDC}")
-                    trainer.ckpt.save(epoch_id, trainer.state,
-                                      trainer.skeleton)
+                    trainer.save_checkpoint(epoch_id)
                     return trainer
     finally:
         if writer is not None:
             writer.close()
-    _write_results(trainer, logger_path, eval_metrics,
-                   dataset_valid.gt_affinity())
+    if coord:
+        _write_results(trainer, logger_path, eval_metrics,
+                       dataset_valid.gt_affinity())
     print("kernel launches " + json.dumps(_kernel_launches()))
     print(f"{COLORS.OKGREEN}training complete{COLORS.ENDC}")
     return trainer

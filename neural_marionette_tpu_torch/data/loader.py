@@ -25,6 +25,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..parallel.mesh import local_rows
+
 # batches whose loads are queued on the threads beyond the one consumed
 LOOKAHEAD = 2
 
@@ -43,19 +45,30 @@ class DataLoader:
     batch): the steps take static batch shapes. ``batch_size`` is the
     global batch; with ``process_count > 1`` every process draws the same
     index order (same seed) and materializes only its
-    ``batch_size / process_count`` slice of each batch."""
+    ``batch_size / process_count`` slice of each batch: the contiguous
+    rows ``[p B/P, (p+1) B/P)``, or with ``microbatches`` > 1 its share of
+    each of that many contiguous microbatches
+    (``parallel.mesh.local_rows``), the rows the one-process step's
+    microbatches give it. A process draws the random choices (window,
+    points) of its own items only, as the JAX loader's processes do, so
+    the items depend on the process count; with ``global_draws`` it draws
+    those of every item of the batch, in the one-process order, and loads
+    its own: N processes then hold the rows of the one-process loader's
+    batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, drop_last: bool = True,
                  seed: int = 0, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, microbatches: int = 1,
+                 global_draws: bool = False):
         if batch_size < 1 or num_workers < 0:
             raise ValueError(f"batch_size {batch_size}, num_workers "
                              f"{num_workers}")
         if process_count > 1:
-            if batch_size % process_count:
+            if batch_size % (process_count * microbatches):
                 raise ValueError(f"global batch {batch_size} is not a "
-                                 f"multiple of {process_count} processes")
+                                 f"multiple of {process_count} processes x "
+                                 f"{microbatches} microbatches")
             if not drop_last:
                 raise ValueError("loading in several processes needs "
                                  "drop_last (static per-process shapes)")
@@ -69,6 +82,8 @@ class DataLoader:
         self.drop_last = drop_last
         self.process_index = process_index
         self.process_count = process_count
+        self.microbatches = microbatches
+        self.global_draws = global_draws
         self._rng = random.Random(seed)
         self._pool = (cf.ThreadPoolExecutor(num_workers)
                       if num_workers > 0 else None)
@@ -91,7 +106,8 @@ class DataLoader:
         self.close()
 
     def _batch_indices(self):
-        """This process's item indices of each batch of one epoch."""
+        """The item indices of each global batch of one epoch, and this
+        process's positions in it."""
         order = list(range(len(self.dataset)))
         if self.shuffle:
             self._rng.shuffle(order)
@@ -100,23 +116,34 @@ class DataLoader:
             idx = order[i:i + bs]
             if self.drop_last and len(idx) < bs:
                 return
+            rows = range(len(idx))
             if self.process_count > 1:
-                per = bs // self.process_count
-                idx = idx[self.process_index * per:
-                          (self.process_index + 1) * per]
-            yield idx
+                rows = local_rows(bs, self.process_count, self.process_index,
+                                  self.microbatches)
+            yield idx, rows
+
+    def _plans(self, idx, rows) -> tuple[list, list]:
+        """(this process's items of a batch, their random choices), drawn
+        on this thread in index order."""
+        ds = self.dataset
+        own = [idx[r] for r in rows]
+        if not self.global_draws:
+            return own, [ds.draw(j) for j in own]
+        plans = [ds.draw(j) for j in idx]
+        return own, [plans[r] for r in rows]
 
     def __iter__(self) -> Iterator:
         ds = self.dataset
         if self._pool is None:
-            for idx in self._batch_indices():
-                yield _stack([ds.load(j, ds.draw(j)) for j in idx])
+            for idx, rows in self._batch_indices():
+                own, plans = self._plans(idx, rows)
+                yield _stack([ds.load(j, p) for j, p in zip(own, plans)])
             return
         pending = collections.deque()
-        for idx in self._batch_indices():
-            plans = [ds.draw(j) for j in idx]   # index order, this thread
+        for idx, rows in self._batch_indices():
+            own, plans = self._plans(idx, rows)
             pending.append([self._pool.submit(ds.load, j, p)
-                            for j, p in zip(idx, plans)])
+                            for j, p in zip(own, plans)])
             if len(pending) > LOOKAHEAD:
                 yield _stack([f.result() for f in pending.popleft()])
         while pending:

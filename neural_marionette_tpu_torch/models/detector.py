@@ -16,7 +16,7 @@ with Gumbel noise from an explicit generator or an injected draw),
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Collection, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -28,6 +28,7 @@ from ..ops.coords import add_coord_channels_first
 from ..ops.keypoints import (extract_keypoints_from_heatmap_first,
                              render_gaussian_maps_first)
 from ..ops.upsample import upsample2_trilinear_first
+from ..parallel.mesh import Mesh, frame_slice, gather_frames
 from .blocks import (LEAKY_SLOPE, Basic3DBlock, Hourglass, Pool3DBlock,
                      Res3DBlock, conv, group_norm, leaky_relu, norm)
 
@@ -133,10 +134,14 @@ class VoxToKyptNet(nn.Module):
         wide = torch.promote_types(heatmap.dtype, w.dtype)
         return F.softplus(w[0] * heatmap.to(wide) + w[1] * prev.to(wide) + b)
 
-    def forward(self, seq: torch.Tensor):
+    def forward(self, seq: torch.Tensor, mesh: Optional[Mesh] = None):
         """``seq`` (B, T, G, G, G, 1) -> (heatmaps (B, T, K, g, g, g),
         keypoints (B, T, K, 4), gaussians (B, T, K, g, g, g),
-        first_feature (B, C, g, g, g))."""
+        first_feature (B, C, g, g, g)). With a ``mesh`` whose model axis is
+        above 1, this rank runs the feature net and heatmap head on its
+        ``T / model`` frames, and the heatmaps and frame 0's feature are
+        gathered over the model row; the priors, the recurrence and the
+        keypoints stay replicated."""
         B, T = seq.shape[:2]
         ci = self.cfg.const_intensity
         prev = None                                       # (B, K, g, g, g)
@@ -151,12 +156,16 @@ class VoxToKyptNet(nn.Module):
             prev = self._prior((1.0 - seq.mean(dim=1) + 1.0 / T)
                                * torch.clamp(seq.sum(dim=1), 0, 1))
 
-        frames = _channels_last_vox(seq.reshape((B * T,) + seq.shape[2:]))
+        local = seq[:, frame_slice(mesh, T)]     # every frame without a mesh
+        Tl = local.shape[1]
+        frames = _channels_last_vox(local.reshape((B * Tl,) + seq.shape[2:]))
         features = self.extract_features(add_coord_channels_first(frames))
         heatmaps = self._heatmaps(self.extract_heatmaps_from_features,
                                   features)               # (BT, K, g, g, g)
-        heatmaps = heatmaps.reshape((B, T) + heatmaps.shape[1:])
-        first_feature = features.reshape((B, T) + features.shape[1:])[:, 0]
+        heatmaps = gather_frames(heatmaps.reshape((B, Tl)
+                                                  + heatmaps.shape[1:]), mesh)
+        first_feature = gather_frames(features.reshape(
+            (B, Tl) + features.shape[1:])[:, :1], mesh)[:, 0]
 
         if ci in (3, 4):
             heatmaps = self._propagate(heatmaps, prev[:, None])
@@ -222,9 +231,13 @@ class KyptToVoxNet(nn.Module):
         return conv(d[14], x, dt)
 
     def forward(self, gaussians, first_feature, first_frame,
-                sharpness: float = 10.0, translation: float = 0.5):
+                sharpness: float = 10.0, translation: float = 0.5,
+                mesh: Optional[Mesh] = None):
         """gaussians (B, T, K, g, g, g); first_feature (B, C, g, g, g);
-        first_frame (B, G, G, G, 1) -> (B, T, G, G, G, 1)."""
+        first_frame (B, G, G, G, 1) -> (B, T, G, G, G, 1). With a ``mesh``
+        whose model axis is above 1, this rank decodes its ``T / model``
+        frames (frame 0's maps and feature are on every rank) and the
+        logits are gathered over the model row."""
         B, T = gaussians.shape[:2]
         if self.cfg.gaussian_cat_type == "max":
             gaussians = gaussians.amax(dim=2, keepdim=True).expand_as(
@@ -232,21 +245,35 @@ class KyptToVoxNet(nn.Module):
         elif self.cfg.gaussian_cat_type == "sum":
             gaussians = torch.clamp(gaussians.sum(dim=2, keepdim=True), 0,
                                     1).expand_as(gaussians)
-        g0 = gaussians[:, :1].expand_as(gaussians)
-        ff = first_feature[:, None].expand((B, T) + first_feature.shape[1:])
+        first = gaussians[:, :1]
+        gaussians = gaussians[:, frame_slice(mesh, T)]
+        Tl = gaussians.shape[1]
+        g0 = first.expand_as(gaussians)
+        ff = first_feature[:, None].expand((B, Tl) + first_feature.shape[1:])
         combined = torch.cat([gaussians, ff, g0], dim=2)
-        combined = combined.reshape((B * T,) + combined.shape[2:])
+        combined = combined.reshape((B * Tl,) + combined.shape[2:])
         combined = add_coord_channels_first(combined)
         x = leaky_relu(conv(self.adjust_combined_representation[0], combined,
                             self.dtype))
         logits = self._decode(x)                          # (BT, 1, G, G, G)
-        logits = logits.reshape((B, T) + first_frame.shape[1:])
+        logits = gather_frames(
+            logits.reshape((B, Tl) + first_frame.shape[1:]), mesh)
         return torch.sigmoid(
             sharpness * (torch.tanh(logits) + first_frame[:, None]
                          - translation))
 
 
 GumbelSource = Union[torch.Tensor, torch.Generator, None]
+
+_GRAPH_CONSISTENCY_ORDER = ("local_const_loss", "time_const_loss",
+                            "sparsity_const_loss", "intensity_const_loss")
+_GRAPH_CONSISTENCY = frozenset(_GRAPH_CONSISTENCY_ORDER)
+#: the keys of ``KyptDetector.forward``
+DETECTOR_OUTPUTS = frozenset((
+    "recon", "keypoints", "heatmaps", "affinity", "recon_loss",
+    "vol_fit_reg", "kypt_const_loss", "separation_loss", "sparsity_loss",
+    "graph_traj_loss", "graph_vol_loss", "first_feature")) \
+    | _GRAPH_CONSISTENCY
 
 
 def gumbel_uniform(shape, generator: torch.Generator,
@@ -330,63 +357,79 @@ class KyptDetector(nn.Module):
         return W[..., None]
 
     def forward(self, seq: torch.Tensor, affinity_active: bool = True,
-                gumbel: GumbelSource = None) -> dict[str, Any]:
+                gumbel: GumbelSource = None,
+                outputs: Optional[Collection[str]] = None,
+                mesh: Optional[Mesh] = None) -> dict[str, Any]:
         """``gumbel``: version 4's uniform draw, or the generator to draw it
-        from (``get_affinity``)."""
+        from (``get_affinity``). ``outputs``: the keys wanted (None: every
+        key of :data:`DETECTOR_OUTPUTS`); only their work runs: the decoder
+        for ``recon`` and ``recon_loss``, the volume fit (kernel K2) for
+        ``vol_fit_reg``, the affinity for ``affinity`` and the graph losses,
+        each graph loss when asked. The keypoints, heatmaps and
+        ``first_feature`` are always there. ``mesh``: the frame axis
+        (``VoxToKyptNet.forward``, ``KyptToVoxNet.forward``)."""
         cfg = self.cfg
+        want = DETECTOR_OUTPUTS if outputs is None else frozenset(outputs)
+        unknown = want - DETECTOR_OUTPUTS
+        if unknown:
+            raise KeyError(f"unknown detector outputs {sorted(unknown)}")
         B, T = seq.shape[:2]
-        heatmaps, keypoints, gaussians, first_feature = self.vox_to_kypt(seq)
-        recon = self.kypt_to_vox(gaussians, first_feature, seq[:, 0])
-        heatmaps = heatmaps.permute(0, 1, 3, 4, 5, 2)  # channels-last
-
-        recon_loss = L.bce_recon_loss(recon, seq)
+        heatmaps, keypoints, gaussians, first_feature = self.vox_to_kypt(
+            seq, mesh)
         zero_bt = torch.zeros((B, T), dtype=seq.dtype, device=seq.device)
-        sparsity_loss = L.keypoint_sparsity_loss(heatmaps)
-        separation_loss = L.temporal_separation_loss(keypoints, cfg.sep_sigma)
-        vol_fit_reg = L.volume_fitting_loss(seq, keypoints,
-                                            self.vox_to_kypt.get_sigmas(),
-                                            cfg.vol_fit_type)
+        out = dict(keypoints=keypoints,
+                   heatmaps=heatmaps.permute(0, 1, 3, 4, 5, 2),
+                   kypt_const_loss=zero_bt.mean(),  # dead upstream
+                   graph_vol_loss=zero_bt.mean(),   # always zero upstream
+                   first_feature=first_feature.permute(0, 2, 3, 4, 1))
+        if want & {"recon", "recon_loss"}:
+            out["recon"] = self.kypt_to_vox(gaussians, first_feature,
+                                            seq[:, 0], mesh=mesh)
+            out["recon_loss"] = L.bce_recon_loss(out["recon"], seq).mean()
+        if "sparsity_loss" in want:
+            out["sparsity_loss"] = L.keypoint_sparsity_loss(
+                out["heatmaps"]).mean()
+        if "separation_loss" in want:
+            out["separation_loss"] = L.temporal_separation_loss(
+                keypoints, cfg.sep_sigma).mean()
+        if "vol_fit_reg" in want:
+            out["vol_fit_reg"] = L.volume_fitting_loss(
+                seq, keypoints, self.vox_to_kypt.get_sigmas(),
+                cfg.vol_fit_type).mean()
 
-        if cfg.keypoints_graph == "none" or not affinity_active:
-            affinity = None
-            local = time_c = sparsity_c = intensity_c = graph_traj = zero_bt
-        else:
-            if isinstance(gumbel, torch.Generator):
-                affinity = self.get_affinity(generator=gumbel)
-            else:
-                affinity = self.get_affinity(uniform=gumbel)
-            kp = keypoints.detach() if cfg.keypoints_detach else keypoints
-            local, time_c, sparsity_c, intensity_c = \
-                L.graph_consistency_losses(
-                    kp, affinity,
-                    local_const=bool(cfg.using_local_const),
-                    time_const=bool(cfg.using_time_const),
-                    sparsity_const=bool(cfg.using_sparsity_const),
-                    ver=cfg.graph_loss_ver)
+        affinity = None
+        graph = want & (_GRAPH_CONSISTENCY | {"graph_traj_loss"})
+        if cfg.keypoints_graph != "none" and affinity_active:
+            if want & {"affinity"} or graph:
+                if isinstance(gumbel, torch.Generator):
+                    affinity = self.get_affinity(generator=gumbel)
+                else:
+                    affinity = self.get_affinity(uniform=gumbel)
+            elif cfg.affinity_ver == 4 and gumbel is None:
+                self.get_affinity()   # raises, as the full forward does
+        out["affinity"] = affinity
+        if not graph:
+            return out
+        if affinity is None:
+            for name in graph:
+                out[name] = zero_bt.mean()
+            return out
+        kp = keypoints.detach() if cfg.keypoints_detach else keypoints
+        if graph & _GRAPH_CONSISTENCY:
+            losses = L.graph_consistency_losses(
+                kp, affinity, local_const=bool(cfg.using_local_const),
+                time_const=bool(cfg.using_time_const),
+                sparsity_const=bool(cfg.using_sparsity_const),
+                ver=cfg.graph_loss_ver)
+            for name, loss in zip(_GRAPH_CONSISTENCY_ORDER, losses):
+                out[name] = loss.mean()
+        if "graph_traj_loss" in graph:
             if cfg.graph_traj_weight > 0:
-                graph_traj = L.graph_trajectory_loss(kp, affinity,
-                                                     ver=cfg.graph_loss_ver)
+                out["graph_traj_loss"] = L.graph_trajectory_loss(
+                    kp, affinity, ver=cfg.graph_loss_ver).mean()
             else:
-                graph_traj = zero_bt
-
-        return dict(
-            recon=recon,
-            keypoints=keypoints,
-            heatmaps=heatmaps,
-            affinity=affinity,
-            recon_loss=recon_loss.mean(),
-            vol_fit_reg=vol_fit_reg.mean(),
-            kypt_const_loss=zero_bt.mean(),  # dead upstream
-            separation_loss=separation_loss.mean(),
-            sparsity_loss=sparsity_loss.mean(),
-            local_const_loss=local.mean(),
-            time_const_loss=time_c.mean(),
-            sparsity_const_loss=sparsity_c.mean(),
-            intensity_const_loss=intensity_c.mean(),
-            graph_traj_loss=graph_traj.mean(),
-            graph_vol_loss=zero_bt.mean(),  # always zero upstream
-            first_feature=first_feature.permute(0, 2, 3, 4, 1),
-        )
+                out["graph_traj_loss"] = zero_bt.mean()
+        return out
 
     def decode_from_dyna(self, keypoints, first_feature, first_frame
                          ) -> dict[str, Any]:

@@ -37,6 +37,14 @@ skeleton is extracted from the loaded affinity as the learner turns on.
 batches and scores them (``eval.py``), as the JAX ``train.py:271-306``
 does; the training CLI (``cli/train.py``) puts the loaders, validation,
 the logs and the result files around the trainer.
+
+Over several processes (``mesh``, ``parallel.mesh``) each rank's
+trainer takes its rows of each batch; the parameters are broadcast from
+rank 0 at the start and stay equal on every rank, as do the generators.
+Rank 0 writes the checkpoints, between two barriers, and every rank reads
+them: a checkpoint saved by N processes resumes on any topology.
+Validation averages the step's metrics over the world and scores the
+keypoints and recon gathered over the data ranks.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from ..config import MarionetteConfig
 from ..eval import evaluate
 from ..models import NeuralMarionette, SkeletonArrays
 from ..ops.voxelize import voxelize
+from ..parallel.mesh import Mesh, all_gather, barrier, replicate
 from ..skeleton import Skeleton
 from ..skeleton_device import extract_skeleton_host_api
 from ..weights import (init_weights, load_detector_state,
@@ -72,10 +81,11 @@ class Trainer:
                  dtype: str = "bfloat16",
                  model: Optional[NeuralMarionette] = None,
                  logger_path: Optional[str] = None,
-                 conv_kernel: bool = False):
+                 conv_kernel: bool = False, mesh: Optional[Mesh] = None):
         """``conv_kernel`` routes the eligible bfloat16 convs of the model it
         builds through kernel K3 (the JAX package's ``NM_PALLAS_CONV=1``);
-        a ``model`` passed in keeps its own route."""
+        a ``model`` passed in keeps its own route. ``mesh``: this process's
+        place among several (None: one process)."""
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self.cfg = cfg
@@ -86,6 +96,9 @@ class Trainer:
                                      conv_kernel=conv_kernel)
             init_weights(model, torch.Generator().manual_seed(cfg.seed))
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(mesh, model)
         self.sched = LossScheduler(cfg)
         self.sched.anneal(0)
         self.state = create_train_state(
@@ -173,7 +186,7 @@ class Trainer:
             self._steps[key] = make_train_step(
                 self.model, self.cfg, s.active_weights(),
                 s.module_actives["detector"], s.module_actives["learner"],
-                s.affinity_active)
+                s.affinity_active, mesh=self.mesh)
         return self._steps[key]
 
     def phase_eval_step(self):
@@ -184,7 +197,7 @@ class Trainer:
             self._eval_steps[key] = make_eval_step(
                 self.model, self.cfg, s.active_weights(),
                 s.module_actives["detector"], s.module_actives["learner"],
-                s.affinity_active)
+                s.affinity_active, mesh=self.mesh)
         return self._eval_steps[key]
 
     def phase_generate_step(self):
@@ -263,8 +276,32 @@ class Trainer:
                   "train": self.train_log.reset(),
                   "step_ms": (np.diff(stamps) * 1e3).tolist()}
         if self.ckpt is not None and epoch_id % self.cfg.save_every == 0:
-            self.ckpt.save(epoch_id, self.state, self.skeleton)
+            self.save_checkpoint(epoch_id)
         return record
+
+    @property
+    def is_coordinator(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def save_checkpoint(self, epoch_id: int) -> None:
+        """Checkpoint the state as epoch ``epoch_id``: over several
+        processes rank 0 writes it, after every rank has finished the
+        epoch's steps and before any goes on."""
+        if self.mesh is not None:
+            barrier(self.mesh, self.device)
+        if self.is_coordinator:
+            self.ckpt.save(epoch_id, self.state, self.skeleton)
+        if self.mesh is not None:
+            barrier(self.mesh, self.device)
+
+    def _gather_rows(self, x):
+        """The rows of ``x`` of every data rank, in rank order (the global
+        batch); ``x`` itself in one process."""
+        if self.mesh is None:
+            return x
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x)).to(self.device)
+        return all_gather(x, self.mesh.data_group, dim=0)
 
     def _checked_step(self, step, batch, sk, epoch_id: int, batch_id: int):
         """One train step for ``cfg.debug_nans`` (the JAX
@@ -332,11 +369,16 @@ class Trainer:
                 pts, sk, generator=torch.Generator(self.device).manual_seed(
                     seed), eps=None if eps is None else eps[batch_id])
             self._flush([metrics], self.valid_log)
+            if self.mesh is not None and (eval_metrics or batch_id == 0):
+                pts = self._gather_rows(pts)
+                gt = None if gt is None else self._gather_rows(gt)
+                tensors = {k: v if k == "affinity" else self._gather_rows(v)
+                           for k, v in tensors.items()}
             t1 = time.perf_counter()
             ms["eval_step"] += t1 - t0
             if batch_id == 0:
                 self.first_batch = dict(points=pts, tensors=tensors, gen=None)
-                if gen_step is not None:
+                if gen_step is not None and self.is_coordinator:
                     self.first_batch["gen"] = gen_step(
                         pts, sk, generator=torch.Generator(
                             self.device).manual_seed(self.cfg.seed + epoch_id),

@@ -20,6 +20,21 @@ the JAX step splits a ``"gumbel"`` key from the state's key for it).
 
 ``make_generate_step`` makes the generation the JAX training loop logs
 (``NeuralMarionette.generate`` on a batch, without gradients).
+
+With a ``mesh`` (``parallel.mesh``: several processes, the JAX steps'
+``P('data', 'model')``), the train and eval steps take this rank's rows
+of the global batch (``parallel.mesh.local_rows``: its share of each
+microbatch) and, with ``model`` above 1, split the frames in the detector.
+Each microbatch draws the noise of the *global* microbatch from the
+state's generator, in the order the one-process forward draws it
+(``affinity_ver`` 4's Gumbel draw, then the VRNN's), and keeps its rows,
+so the generators stay equal on every rank and the step equals the
+one-process step on the global batch. After the last backward one
+``all_reduce`` averages the gradients over the world (one flat buffer per
+dtype) before the optimizer's clip by the global norm, and the metrics
+(float32) are averaged too. It is written out, not
+``DistributedDataParallel``: the step's own microbatches, masks and Adam
+are the JAX step's semantics.
 """
 from __future__ import annotations
 
@@ -29,7 +44,9 @@ import torch
 
 from ..config import MarionetteConfig
 from ..models.dynamics import SkeletonArrays
+from ..models.detector import gumbel_uniform
 from ..ops.voxelize import voxelize
+from ..parallel.mesh import Mesh, all_reduce_mean_
 from .losses import LOSS_LIST
 from .state import TrainState, make_update_mask
 
@@ -65,14 +82,65 @@ def total_loss(out: dict[str, Any], weights: dict[str, float],
     return total, metrics
 
 
+# best-of-N samples of the VRNN encode in the train and eval steps (the
+# default of ``NeuralMarionette.forward``)
+SAMPLE_NUM = 10
+
+
+class _GlobalNoise:
+    """The noise one forward of a global microbatch of ``B`` rows draws,
+    drawn in the forward's order, and the rows ``rows`` of its VRNN
+    draws: what a rank of a mesh passes its forward."""
+
+    def __init__(self, model, cfg: MarionetteConfig, detector_active: bool,
+                 learner_active: bool, affinity_active: bool):
+        self.model = model
+        self.gumbel = ((detector_active or learner_active) and
+                       affinity_active and cfg.affinity_ver == 4 and
+                       cfg.keypoints_graph != "none")
+        self.learner = learner_active
+
+    def __call__(self, generator, B: int, T: int, rows: slice, device,
+                 eps=None, gumbel=None):
+        """(eps rows or None, the Gumbel draw or the generator) for a
+        microbatch on ``device``; ``eps`` (the global microbatch's) and
+        ``gumbel`` as the caller gave them, else drawn from ``generator``
+        (every rank draws the same: pass one)."""
+        if gumbel is None and self.gumbel:
+            P = self.model.kypt_detector.affinity_params
+            gumbel = gumbel_uniform(P.shape, generator, P.device)
+        if eps is None and self.learner:
+            eps = torch.randn((T, SAMPLE_NUM, B, self.model.dyna_module.Z),
+                              generator=generator, device=device)
+        return (None if eps is None else eps[:, :, rows],
+                generator if gumbel is None else gumbel)
+
+
+def _mesh_rows(mesh: Mesh, b: int) -> slice:
+    """This data rank's rows of a global microbatch, ``b`` of them."""
+    return slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+
+
+def _mean_metrics(metrics: dict, mesh: Mesh) -> dict:
+    """The metrics averaged over the world, in float32."""
+    keys = list(metrics)
+    flat = torch.stack([metrics[k].float() for k in keys])
+    all_reduce_mean_([flat], mesh)
+    return dict(zip(keys, flat.unbind()))
+
+
 def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
                     weights: dict[str, float], detector_active: bool,
-                    learner_active: bool, affinity_active: bool):
+                    learner_active: bool, affinity_active: bool,
+                    mesh: Optional[Mesh] = None):
     """The train step of one scheduler phase:
     ``step(state, batch, skeleton=None, eps=None) -> metrics``.
 
     Metrics: every loss of the registry, ``total_loss`` and ``grad_norm``
-    (the global norm of the masked gradients before clipping)."""
+    (the global norm of the masked gradients before clipping). With a
+    ``mesh``, ``batch`` is this rank's rows of the global batch, ``eps``
+    (and ``gumbel``) the global microbatches' noise, and the metrics the
+    world's means (module docstring)."""
     w = dict(weights)
     accum = max(int(cfg.grad_accum), 1)
     names = [n for n, _ in model.named_parameters()]
@@ -81,12 +149,15 @@ def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
     trainable = [mask[n] == 1.0 for n in names]
     params = [p for _, p in model.named_parameters()]
 
+    noise = _GlobalNoise(model, cfg, detector_active, learner_active,
+                         affinity_active)
+
     def loss_fn(micro, skeleton, eps, generator, gumbel):
         vox = _as_voxels(micro, cfg, model.dtype)
         out = model(vox, detector_active=detector_active,
                     learner_active=learner_active,
                     affinity_active=affinity_active, skeleton=skeleton,
-                    eps=eps, generator=generator, gumbel=gumbel)
+                    eps=eps, generator=generator, gumbel=gumbel, mesh=mesh)
         return total_loss(out, w, vox.dtype, vox.device)
 
     def step(state: TrainState, batch: torch.Tensor,
@@ -110,11 +181,14 @@ def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
         micros = batch.reshape((accum, B // accum) + batch.shape[1:])
         metrics = None
         for i in range(accum):
-            loss, m = loss_fn(micros[i], skeleton,
-                              None if eps is None else eps[i],
-                              state.generator,
-                              state.generator if gumbel is None
-                              else gumbel[i])
+            e = None if eps is None else eps[i]
+            u = state.generator if gumbel is None else gumbel[i]
+            if mesh is not None:
+                b = B // accum
+                e, u = noise(state.generator, b * mesh.data, batch.shape[1],
+                             _mesh_rows(mesh, b), batch.device, e,
+                             None if gumbel is None else gumbel[i])
+            loss, m = loss_fn(micros[i], skeleton, e, state.generator, u)
             if loss.requires_grad:
                 loss.backward()
             m = {k: v.detach() for k, v in m.items()}
@@ -127,6 +201,9 @@ def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
             if present:
                 torch._foreach_mul_(present, inv)
             metrics = {k: v * inv for k, v in metrics.items()}
+        if mesh is not None:
+            all_reduce_mean_([g for g in grads if g is not None], mesh)
+            metrics = _mean_metrics(metrics, mesh)
         metrics["grad_norm"] = state.optimizer.update(grads, trainable)
         for p in params:
             p.grad = None
@@ -138,25 +215,38 @@ def make_train_step(model: torch.nn.Module, cfg: MarionetteConfig,
 
 def make_eval_step(model: torch.nn.Module, cfg: MarionetteConfig,
                    weights: dict[str, float], detector_active: bool,
-                   learner_active: bool, affinity_active: bool):
+                   learner_active: bool, affinity_active: bool,
+                   mesh: Optional[Mesh] = None):
     """Forward only, the detector always on (as the JAX eval step):
     ``eval_step(batch, skeleton=None, generator=None, eps=None,
     gumbel=None) -> (metrics, tensors)`` with the tensors needed for
     logging. ``affinity_ver`` 4's Gumbel noise is ``gumbel`` (a uniform
     draw or a generator) or else drawn from ``generator``, as the JAX eval
-    step derives its ``"gumbel"`` key from its sample key."""
+    step derives its ``"gumbel"`` key from its sample key. With a
+    ``mesh``, ``batch`` is this rank's rows (one microbatch), the noise
+    the global batch's and the metrics the world's means; the tensors are
+    this rank's rows."""
     w = dict(weights)
+    noise = _GlobalNoise(model, cfg, True, learner_active, affinity_active)
 
     @torch.no_grad()
     def eval_fn(batch, skeleton=None, generator=None, eps=None,
                 gumbel=None):
         vox = _as_voxels(batch, cfg, model.dtype)
+        if gumbel is None:
+            gumbel = generator
+        if mesh is not None:
+            b = batch.shape[0]
+            eps, gumbel = noise(generator, b * mesh.data, batch.shape[1],
+                                _mesh_rows(mesh, b), batch.device, eps,
+                                None if gumbel is generator else gumbel)
         out = model(vox, detector_active=True,
                     learner_active=learner_active,
                     affinity_active=affinity_active, skeleton=skeleton,
-                    eps=eps, generator=generator,
-                    gumbel=generator if gumbel is None else gumbel)
+                    eps=eps, generator=generator, gumbel=gumbel, mesh=mesh)
         _, metrics = total_loss(out, w, vox.dtype, vox.device)
+        if mesh is not None:
+            metrics = _mean_metrics(metrics, mesh)
         tensors = {k: out[k] for k in
                    ("recon", "keypoints", "affinity", "kypt_recon")
                    if out.get(k) is not None}

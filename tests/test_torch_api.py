@@ -29,6 +29,7 @@ from neural_marionette_tpu.ops import voxelize_jnp
 from neural_marionette_tpu.skeleton import extract_skeleton as jax_skeleton
 
 from neural_marionette_tpu_torch.api import Marionette
+from neural_marionette_tpu_torch.models import SkeletonArrays
 
 from _torch_port import configs, jax_params
 
@@ -68,7 +69,8 @@ want = {pkg.__name__ + "." + n for n in (
     "utils.preemption", "viz.raster", "viz.visualize", "viz.image_files",
     "skeleton_device", "cli.flagship", "utils.flops", "utils.profiling",
     "data.meshsample", "data.smpl_np", "data.prepare_dfaust",
-    "data.prepare_aistpp")}
+    "data.prepare_aistpp", "parallel", "parallel.mesh",
+    "parallel.distributed")}
 assert want <= set(names), sorted(want - set(names))
 bad = [n for n in sys.modules if n == "jax" or n.startswith("jax.")
        or n == "neural_marionette_tpu"
@@ -139,6 +141,13 @@ except RuntimeError as e:
     assert "no CUDA device" in str(e), e
 else:
     raise AssertionError("prefetch_to_device without a card did not raise")
+from neural_marionette_tpu_torch.parallel.distributed import initialize
+try:
+    initialize("localhost:1", 2, 0)
+except RuntimeError as e:
+    assert "no CUDA device" in str(e), e
+else:
+    raise AssertionError("initialize without a card did not raise")
 print("clean")
 """
 
@@ -147,13 +156,13 @@ def test_port_imports_no_jax_and_wants_a_card():
     """In a fresh process (this one has jax loaded by conftest): importing
     every module of the port (the apps, ``retarget``, the data layer with
     the offline preparers, ``eval``, the CLIs with ``cli.flagship``,
-    ``viz``, ``skeleton_device`` and ``utils.flops`` / ``utils.profiling``
-    among them) loads neither ``jax`` nor any module of
+    ``viz``, ``skeleton_device``, ``utils.flops`` / ``utils.profiling``
+    and ``parallel.*`` among them) loads neither ``jax`` nor any module of
     ``neural_marionette_tpu`` nor ``h5py``, and the entry points (the
     serving model, the trainer, the loaders of an experiment directory,
-    the prefetcher, the renders and ``cli.flagship`` without ``--smoke``)
-    given no device ask for CUDA and raise without
-    a card, the flagship before it writes anything; renders on the CPU,
+    the prefetcher, the renders, ``cli.flagship`` without ``--smoke`` and
+    the process group's ``initialize``) given no device ask for CUDA and
+    raise without a card, the flagship before it writes anything; renders on the CPU,
     written to
     PNG and GIF files, and the device skeleton extraction load none of
     ``matplotlib``, ``imageio`` and ``PIL``."""
@@ -261,3 +270,95 @@ def test_stream_matches_jax_stream():
         for k in scalars:
             np.testing.assert_allclose(g[k], np.asarray(ref[k]), rtol=2e-3,
                                        err_msg=k)
+
+
+# ------------------------------------------------- the stream's pruned work
+DEFAULT_OUTPUTS = ("keypoints", "kypt_recon", "R")
+LOSS_SCALARS = ("recon_loss", "vol_fit_reg", "separation_loss",
+                "sparsity_loss", "local_const_loss", "time_const_loss",
+                "sparsity_const_loss", "intensity_const_loss",
+                "graph_traj_loss", "kl_kypt", "kypt_recon_loss")
+
+
+def _pruning_marionette():
+    jcfg, cfg = configs()
+    _, params = jax_params(jcfg, seed=5)
+    return Marionette.from_jax_params(cfg, params, device="cpu"), cfg
+
+
+@pytest.mark.parametrize("outputs", [DEFAULT_OUTPUTS,
+                                     ("recon", "affinity") + LOSS_SCALARS,
+                                     ("vol_fit_reg", "heatmaps", "R")])
+def test_encode_only_outputs_equal_the_full_path(outputs):
+    """``encode_only`` with ``outputs`` returns those keys, each equal to
+    the bit to the full path's (the same generator seed: the VRNN draws
+    the same noise)."""
+    m, cfg = _pruning_marionette()
+    vox = torch.from_numpy(np.stack([np.asarray(voxelize_jnp(
+        jnp.asarray(w), cfg.grid_size)) for w in _windows(1, 2, cfg.Ttot,
+                                                           seed=7)[0]]))
+    sk = SkeletonArrays.from_skeleton(m.extract_skeleton())
+    with torch.no_grad():
+        full = m.model.encode_only(vox, sk, sample_num=3,
+                                   generator=torch.Generator().manual_seed(1))
+        got = m.model.encode_only(vox, sk, sample_num=3, outputs=outputs,
+                                  generator=torch.Generator().manual_seed(1))
+    assert set(got) == set(outputs)
+    for k in outputs:
+        assert torch.equal(got[k], full[k]), k
+
+
+def _counted_stream(m, outputs, windows):
+    """The stream's results over ``windows`` and the calls of the decoder
+    and of K2's plain version (the kernel's counterpart on the CPU)."""
+    from neural_marionette_tpu_torch.ops import losses as L
+    calls = {"decoder": 0, "chamfer": 0}
+    plain = L.chamfer_num_plain
+
+    def counted(*a, **k):
+        calls["chamfer"] += 1
+        return plain(*a, **k)
+
+    with m.stream(dtype="float32", sample_num=3, outputs=outputs) as s:
+        hook = s.model.kypt_detector.kypt_to_vox.register_forward_hook(
+            lambda *_: calls.__setitem__("decoder", calls["decoder"] + 1))
+        L.chamfer_num_plain = counted
+        try:
+            results = list(s.run(windows))
+        finally:
+            L.chamfer_num_plain = plain
+            hook.remove()
+    return results, calls
+
+
+def test_stream_runs_only_the_work_of_its_outputs():
+    """The default window runs neither the decoder nor K2 (its plain
+    version here); ``recon`` runs the decoder once a window, ``vol_fit_reg``
+    K2 once a window, and a stream of ``recon`` and every loss scalar both,
+    as the full path does. The default keys are equal to the bit to those
+    of a stream that asks for everything."""
+    m, cfg = _pruning_marionette()
+    m.extract_skeleton()
+    windows = _windows(2, 2, cfg.Ttot, seed=8)
+    default, calls = _counted_stream(m, DEFAULT_OUTPUTS, windows)
+    assert calls == {"decoder": 0, "chamfer": 0}
+    _, calls = _counted_stream(m, ("keypoints", "recon"), windows)
+    assert calls == {"decoder": 2, "chamfer": 0}
+    _, calls = _counted_stream(m, ("vol_fit_reg",), windows)
+    assert calls == {"decoder": 0, "chamfer": 2}
+    everything, calls = _counted_stream(
+        m, DEFAULT_OUTPUTS + ("recon",) + LOSS_SCALARS, windows)
+    assert calls == {"decoder": 2, "chamfer": 2}
+    for a, b in zip(default, everything):
+        for k in DEFAULT_OUTPUTS:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_unknown_output_raises():
+    m, cfg = _pruning_marionette()
+    with pytest.raises(KeyError, match="nope"):
+        m.stream(outputs=("keypoints", "nope"))
+    vox = torch.zeros((1, cfg.Ttot) + (cfg.grid_size,) * 3 + (1,))
+    sk = SkeletonArrays.from_skeleton(m.extract_skeleton())
+    with pytest.raises(KeyError, match="nope"):
+        m.model.encode_only(vox, sk, outputs=("R", "nope"))
