@@ -113,7 +113,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
     configuration with a parameter poisoned with NaN that must raise
     ``FloatingPointError``; then the three demo CLIs (``cli.vis_*``) from
     the run's directory, their ``.npy`` outputs checked;
-16. the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
+16. the OBJ textures (``textures`` line): every fixture of
+    ``tests/torch_textures/`` (PNG of every colour type, depth and
+    interlace, JPEG baseline, extended and progressive at 4:4:4, 4:2:2,
+    4:2:0 and 4:4:0 with restart intervals, BMP, TGA) read by
+    ``viz.image_files.read_image`` (JPEG in the host library built on this
+    machine) and ``apps.retarget.texture_rgb``, equal to the bit to
+    ``MANIFEST.json`` (imageio's pixels on the machine that wrote them);
+    the GIF, TIFF, WebP, CMYK, arithmetic, lossless, hierarchical, 12-bit
+    and h4v1 files raising ``ValueError`` naming what they are; the host
+    ms of decoding a 1024 x 1024 baseline and progressive 4:2:0 JPEG;
+    then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
     camera (1025 x 958), each equal to the bit to the port's CPU run of the
@@ -123,7 +133,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
     their GIFs decoded equal to the frames; the generation and
     interpolation output sets of the apps phase's results and the retarget
     sets (10 frames) of its 4096-point surfel target and of a textured OBJ
-    the script writes (a PNG texture), every PNG and GIF decoded by this
+    the script writes (a PNG texture), then of a smaller textured sphere
+    whose texture is a JPEG fixture (a fresh retarget: K1 and K2 forward)
+    and of its twin textured with that fixture's expected pixels written
+    as a PNG (the same retarget), the two sets' PNGs equal to the bit;
+    every PNG and GIF decoded by this
     script's own readers (zlib; LZW): frame counts, sizes, delays, loops,
     each GIF frame within 3/255 mean of its PNG; ms per ``vis_*`` call, per
     rendered frame and per retarget set, split into host (normals,
@@ -177,7 +191,8 @@ K2's and K3's with their launches under the CLI), a
 ``{"conv3d_shapes": [...]}`` line, a ``{"stream": ...}`` and a
 ``{"stream_conv_kernel": ...}`` line, a ``{"profile": ...}`` line, a
 ``{"train": ...}`` line, an ``{"apps": ...}`` line, a ``{"cli": ...}``
-line, a ``{"render": ...}`` line, an ``{"options": ...}`` line, a
+line, a ``{"textures": ...}`` line, a ``{"render": ...}`` line, an
+``{"options": ...}`` line, a
 ``{"flagship": ...}`` line (K1's and K2's records carry
 ``launches_flagship`` per phase), a ``{"distributed": ...}`` line (K1's
 and K2's records carry ``launches_distributed`` per topology and rank, and
@@ -3860,9 +3875,10 @@ def _render_vis(device, work, G, K):
                 gif_frames_within_3_255=inexact)
 
 
-def _textured_target(work, res=70):
+def _textured_target(work, res=70, texture=None):
     """A textured OBJ the script writes: a UV sphere (4 * res^2 faces) with
-    UVs, an MTL and a 64 x 64 PNG texture (the port's writer)."""
+    UVs, an MTL and a texture: a 64 x 64 PNG (the port's writer), or a copy
+    of the image file ``texture``."""
     from neural_marionette_tpu_torch.viz import raster as R
     from neural_marionette_tpu_torch.viz.image_files import write_png
     work.mkdir(parents=True, exist_ok=True)
@@ -3876,11 +3892,107 @@ def _textured_target(work, res=70):
     lines += [f"f {a + 1}/{a + 1} {b + 1}/{b + 1} {c + 1}/{c + 1}"
               for a, b, c in f]
     (work / "target.obj").write_text("\n".join(lines) + "\n")
-    (work / "target.mtl").write_text("newmtl m\nmap_Kd texture.png\n")
-    y, x = np.mgrid[0:64, 0:64]
-    tex = np.stack([x * 4, y * 4, (x ^ y) * 4], -1).astype(np.uint8)
-    write_png(tex, str(work / "texture.png"))
+    name = "texture.png" if texture is None else Path(texture).name
+    (work / "target.mtl").write_text(f"newmtl m\nmap_Kd {name}\n")
+    if texture is None:
+        y, x = np.mgrid[0:64, 0:64]
+        tex = np.stack([x * 4, y * 4, (x ^ y) * 4], -1).astype(np.uint8)
+        write_png(tex, str(work / name))
+    else:
+        shutil.copyfile(texture, work / name)
     return work / "target.obj", len(f)
+
+
+# ---------------------------------------------------------------- textures
+TEXTURES = ROOT / "tests" / "torch_textures"
+TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg")
+RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
+JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
+
+
+def _texture_expected(entry, arrays):
+    """A manifest entry's expected (H, W, 3) float32 texture."""
+    return arrays[entry["key"]].astype(np.float32) / np.float32(
+        entry["divisor"])
+
+
+def phase_textures(card, reps=11):
+    """Every texture fixture of ``tests/torch_textures/`` through the
+    port's ``read_image`` and ``texture_rgb`` (the JPEG decoder of the host
+    library built on this machine), held against ``MANIFEST.json``: equal
+    to the bit to ``expected.npz``, or the SHA-256 of the two 1024 x 1024
+    JPEGs' pixels; a refused file must raise ``ValueError`` naming what it
+    is. Then each 1024 x 1024 JPEG's decode time on the host (p50 and min
+    of ``reps`` calls of ``native.jpeg_decode`` on the file's bytes, and
+    of ``read_image`` with the file read)."""
+    import hashlib
+    from neural_marionette_tpu_torch.apps.retarget import texture_rgb
+    from neural_marionette_tpu_torch.data import native
+    from neural_marionette_tpu_torch.viz.image_files import read_image
+    t_phase = time.perf_counter()
+    manifest = json.loads((TEXTURES / "MANIFEST.json").read_text())["files"]
+    with np.load(TEXTURES / "expected.npz") as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    checked, refused = 0, 0
+    for e in manifest:
+        path = str(TEXTURES / e["file"])
+        if "raises" in e:
+            try:
+                read_image(path)
+            except ValueError as err:
+                if e["raises"] not in str(err):
+                    raise AssertionError(f"textures {e['file']}: {err}; "
+                                         f"want {e['raises']!r}") from None
+            else:
+                raise AssertionError(f"textures {e['file']}: read; it must "
+                                     f"raise naming {e['raises']!r}")
+            refused += 1
+            continue
+        img = read_image(path)
+        tex = texture_rgb(img)
+        if list(tex.shape) != e["shape"] or tex.dtype != np.float32:
+            raise AssertionError(f"textures {e['file']}: {tex.shape} "
+                                 f"{tex.dtype}, want {e['shape']}")
+        if "sha256" in e:
+            ok = hashlib.sha256(img.tobytes()).hexdigest() == e["sha256"]
+        else:
+            ok = np.array_equal(tex, _texture_expected(e, arrays))
+        if not ok:
+            raise AssertionError(f"textures {e['file']}: differs from the "
+                                 "manifest")
+        checked += 1
+    times = {}
+    for name in TEXTURE_TIMED:
+        data = (TEXTURES / name).read_bytes()
+        decode, read = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            native.jpeg_decode(data)
+            decode.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            read_image(str(TEXTURES / name))
+            read.append((time.perf_counter() - t0) * 1e3)
+        info = native.jpeg_info(data)
+        times[name] = {
+            "process": info["process"], "bytes": len(data),
+            "pixels": info["width"] * info["height"],
+            "decode_ms_p50": float(np.median(decode)),
+            "decode_ms_min": float(np.min(decode)),
+            "read_image_ms_p50": float(np.median(read)), "reps": reps}
+    out = {"card": card, "checked": checked, "refused": refused,
+           "fixtures": len(manifest), "decode": times,
+           "phase_s": time.perf_counter() - t_phase}
+    b, pr = (times[n] for n in TEXTURE_TIMED)
+    log(f"[textures] {checked} fixtures equal to the manifest, {refused} "
+        f"refused as it names; 1024 x 1024 JPEG decode p50 baseline "
+        f"{b['decode_ms_p50']:.2f} ms, progressive "
+        f"{pr['decode_ms_p50']:.2f} ms (host; {card}); phase "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
+RETARGET_KINDS = ("surfels", "textured_mesh", "textured_mesh_jpeg",
+                  "textured_mesh_jpeg_twin")
 
 
 def phase_render(cfg, device, card, apps_keep, trained_affinity):
@@ -3890,6 +4002,7 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
     from neural_marionette_tpu_torch.apps import generation as AG
     from neural_marionette_tpu_torch.apps import interpolation as AI
     from neural_marionette_tpu_torch.apps import retarget as AR
+    from neural_marionette_tpu_torch.viz.image_files import write_png
     G, K = cfg.grid_size, cfg.nkeypoints
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_render_"))
     t_phase = time.perf_counter()
@@ -3925,17 +4038,38 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
         # textured mesh target the script writes
         m = apps_keep["marionette"]
         sets = ("source", "smooth", "skeleton", "overlay")
-        for kind in ("surfels", "textured_mesh"):
+        # the JPEG set's twin: the same sphere textured with the fixture's
+        # expected pixels written as a PNG, drawn from the same retarget
+        entry = next(e for e in json.loads((TEXTURES / "MANIFEST.json")
+                                           .read_text())["files"]
+                     if e["file"] == RENDER_JPEG)
+        twin = work / "expected.png"
+        with np.load(TEXTURES / "expected.npz") as npz:
+            write_png(npz[entry["key"]], str(twin))
+        for kind in RETARGET_KINDS:
             if kind == "surfels":
                 ret, points, mesh = apps_keep["ret"], apps_keep["target"], None
                 faces = 0
             else:
-                obj, faces = _textured_target(work / "obj")
+                tex, res = {"textured_mesh": (None, 70),
+                            "textured_mesh_jpeg": (
+                                TEXTURES / RENDER_JPEG, JPEG_SET_RES),
+                            "textured_mesh_jpeg_twin": (
+                                twin, JPEG_SET_RES)}[kind]
+                obj, faces = _textured_target(work / f"obj_{kind}", res, tex)
                 points, mesh = AR.load_target_points(str(obj),
                                                      return_mesh=True)
                 if mesh["texture"] is None or mesh["uv"] is None:
                     raise AssertionError("render: the OBJ's texture not read")
-                ret = m.retarget(apps_keep["source"], points)
+                if kind == "textured_mesh_jpeg_twin":
+                    jpeg_mesh = out["retarget_textured_mesh_jpeg"]["mesh"]
+                    if not np.array_equal(mesh["texture"],
+                                          jpeg_mesh["texture"]):
+                        raise AssertionError(
+                            "render: the JPEG texture differs from its "
+                            "expected pixels")
+                else:
+                    ret = m.retarget(apps_keep["source"], points)
             d = work / f"retarget_{kind}"
             stats, t = _sync_ms(lambda: AR.save_outputs(
                 ret, str(d), source_vox=apps_keep["source"],
@@ -3950,6 +4084,25 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
             out[f"retarget_{kind}"] = {"ms": t, "points": int(len(points)),
                                        "faces": int(faces), "sets": names,
                                        "split_ms": stats, "files": files}
+            if kind == "textured_mesh_jpeg":
+                out[f"retarget_{kind}"]["mesh"] = mesh
+            elif kind == "textured_mesh_jpeg_twin":
+                # every PNG of the JPEG-textured set equal to the bit to
+                # its twin's
+                pngs = sorted(p.relative_to(d) for p in d.rglob("*.png"))
+                jd = work / "retarget_textured_mesh_jpeg"
+                if pngs != sorted(p.relative_to(jd)
+                                  for p in jd.rglob("*.png")):
+                    raise AssertionError("render: the JPEG set's files "
+                                         "differ from its twin's")
+                for rel in pngs:
+                    if not np.array_equal(read_png_file(jd / rel),
+                                          read_png_file(d / rel)):
+                        raise AssertionError(
+                            f"render: {rel} of the JPEG-textured set "
+                            "differs from its twin's")
+                out[f"retarget_{kind}"]["pngs_equal"] = len(pngs)
+                out["retarget_textured_mesh_jpeg"].pop("mesh")
         out["skeleton_device"] = _render_skeleton(device, trained_affinity)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3960,11 +4113,14 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
         f"{g_['ms_per_frame']['normals_ms']:.1f}, card "
         f"{g_['ms_per_frame']['render_ms']:.1f}, PNG/GIF "
         f"{g_['ms_per_frame']['encode_ms']:.1f} ms; files {g_['files']}")
-    for kind in ("surfels", "textured_mesh"):
+    for kind in RETARGET_KINDS:
         r = out[f"retarget_{kind}"]
         log(f"[render] retarget sets ({kind}, 10 frames onto {r['points']} "
             f"points): {r['ms']:.0f} ms, split {r['split_ms']}, files "
             f"{r['files']}")
+    log(f"[render] the JPEG-textured retarget set ({RENDER_JPEG}): "
+        f"{out['retarget_textured_mesh_jpeg_twin']['pngs_equal']} PNGs "
+        "equal to the bit to its twin's (the expected pixels as a PNG)")
     log(f"[render] phase {out['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     return out
@@ -4639,6 +4795,7 @@ def main() -> int:
         outputs=tuple(_all_outputs(cfg, SERVE_B, SERVE_T)))
     cli = phase_cli(device, card)
     torch.cuda.empty_cache()
+    textures = phase_textures(card)
     render = phase_render(cfg, device, card, apps_keep, trained_affinity)
     del apps_keep
     torch.cuda.empty_cache()
@@ -4695,6 +4852,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"apps": apps}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"textures": textures}))
     print(json.dumps({"render": render}))
     print(json.dumps({"options": options}))
     print(json.dumps({"flagship": flag}))

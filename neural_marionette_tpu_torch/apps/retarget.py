@@ -22,8 +22,7 @@ from ..models import SkeletonArrays
 from ..ops.voxelize import voxelize_np
 from ..retarget import retarget_motion
 from ..viz import raster as R
-from ..viz.image_files import (PNG_SIGNATURE, read_png, to_uint8, write_gif,
-                               write_png)
+from ..viz.image_files import read_image, to_uint8, write_gif, write_png
 from .common import detect_and_extract_skeleton
 
 RENDER_DELAY_S = 0.1   # the JAX save_gif's duration=0.1
@@ -91,11 +90,12 @@ def load_obj_mesh(path: str) -> dict:
 
 
 def _find_texture(mtl_path: str):
-    """The ``map_Kd`` image of an .mtl file as float RGB in [0, 1]; None
-    when the file is absent or declares no texture, and, with a warning,
-    when the declared image is missing (the JAX function's None). The
-    texture must be a PNG (8-bit RGB or RGBA, read by
-    ``viz.image_files.read_png``): an image of another format raises."""
+    """The ``map_Kd`` image of an .mtl file as (H, W, 3) float32 RGB in
+    [0, 1]; None when the file is absent or declares no texture, and, with
+    a warning, when the declared image is missing (the JAX function's
+    None). The image is read by ``viz.image_files.read_image`` (PNG, JPEG,
+    BMP, TGA); a file that is present but cannot be read raises
+    ``ValueError``."""
     if not os.path.exists(mtl_path):
         return None
     tex_file = None
@@ -111,21 +111,20 @@ def _find_texture(mtl_path: str):
         warnings.warn(f"{mtl_path} names the texture {img_path}, which does "
                       "not exist; the mesh is drawn without it")
         return None
-    with open(img_path, "rb") as f:
-        magic = f.read(8)
-    if magic != PNG_SIGNATURE:
-        fmt = next((name for sig, name in _IMAGE_MAGIC if
-                    magic.startswith(sig)),
-                   os.path.splitext(img_path)[1] or "unknown")
-        raise ValueError(f"{img_path}: a {fmt} texture; the port reads PNG "
-                         "textures only, convert the texture to PNG")
-    img = read_png(img_path).astype(np.float32) / 255.0
-    return img[..., :3]
+    return texture_rgb(read_image(img_path))
 
 
-_IMAGE_MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
-                (b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                (b"RIFF", "WebP"))
+def texture_rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, C) samples -> (H, W, 3) float32 in [0, 1]. Where the JAX
+    function's result is an RGB image (8-bit samples, C = 3 or 4) this is
+    its ``/ 255`` then ``[..., :3]``, equal to the bit. Elsewhere it is
+    defined: grey is replicated to RGB, alpha is dropped and a 16-bit
+    sample is divided by 65535 (the JAX function keeps 3 columns of a grey
+    image, 2 channels of grey + alpha, and divides 16-bit grey by 255)."""
+    scale = np.float32(65535.0 if img.dtype == np.uint16 else 255.0)
+    rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3,
+                                                           axis=-1)
+    return rgb.astype(np.float32) / scale
 
 
 def load_target_points(path: str, scale: float = 0.8, x_trans: float = 0.0,

@@ -1,5 +1,6 @@
 """ctypes binding of the port's host library (``csrc/nm_host.cpp``): the
-data layer's loops, and the GIF and PNG coders of ``viz/image_files.py``.
+data layer's loops, the GIF and PNG coders of ``viz/image_files.py``, and
+its JPEG decoder and TGA run-length expansion.
 
 Counterpart of ``neural_marionette_tpu/data/native.py``. The library is
 built by ``kernels.py`` with ``g++`` into ``_build/`` at first use. Where
@@ -45,6 +46,15 @@ def library() -> ctypes.CDLL:
             lib.nm_png_unfilter.argtypes = [u8p, i64, i64, ctypes.c_int,
                                             u8p]
             lib.nm_png_unfilter.restype = i64
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            lib.nm_tga_unrle.argtypes = [u8p, i64, i64, ctypes.c_int, u8p]
+            lib.nm_tga_unrle.restype = i64
+            lib.nm_jpeg_info.argtypes = [u8p, i64, i32p, ctypes.c_char_p,
+                                         i64]
+            lib.nm_jpeg_info.restype = ctypes.c_int
+            lib.nm_jpeg_decode.argtypes = [u8p, i64, u8p, i64,
+                                           ctypes.c_char_p, i64]
+            lib.nm_jpeg_decode.restype = ctypes.c_int
             lib.nm_version.argtypes = []
             lib.nm_version.restype = ctypes.c_int
             _lib = lib
@@ -134,4 +144,50 @@ def png_unfilter(rows: np.ndarray, height: int, stride: int,
     bad = library().nm_png_unfilter(src, height, stride, bpp, out)
     if bad:
         raise ValueError(f"PNG row {bad - 1}: unknown filter type")
+    return out
+
+
+def tga_unrle(data: np.ndarray, n_pixels: int, bpp: int) -> np.ndarray:
+    """The ``n_pixels * bpp`` bytes of a run-length TGA image from its
+    packets ``data`` (uint8, from the first packet to the end of the
+    file)."""
+    src = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    out = np.empty(n_pixels * bpp, dtype=np.uint8)
+    if library().nm_tga_unrle(src, src.size, n_pixels, bpp, out) < 0:
+        raise ValueError("TGA: the run-length data ends before the image")
+    return out
+
+
+JPEG_PROCESSES = ("baseline", "extended sequential", "progressive")
+_JPEG_NO_ROOM = 3   # nm_jpeg_decode's code for memory that runs out
+
+
+def jpeg_info(data: bytes) -> dict:
+    """The frame of a JPEG file: width, height, channels (1 or 3) and
+    process (``JPEG_PROCESSES``). Raises ``ValueError`` with the decoder's
+    message on a corrupt or unsupported file."""
+    src = np.frombuffer(data, np.uint8)
+    info = np.zeros(4, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    if library().nm_jpeg_info(src, src.size, info, msg, len(msg)):
+        raise ValueError(msg.value.decode(errors="replace"))
+    return dict(width=int(info[0]), height=int(info[1]),
+                channels=int(info[2]), process=JPEG_PROCESSES[info[3]])
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """A JPEG file's pixels as (H, W, channels) uint8, equal to what
+    libjpeg-turbo gives Pillow by default. Raises ``ValueError`` with the
+    decoder's message on a corrupt or unsupported file."""
+    info = jpeg_info(data)
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((info["height"], info["width"], info["channels"]),
+                   np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    code = library().nm_jpeg_decode(src, src.size, out, out.size, msg,
+                                    len(msg))
+    if code == _JPEG_NO_ROOM:
+        raise MemoryError(msg.value.decode(errors="replace"))
+    if code:
+        raise ValueError(msg.value.decode(errors="replace"))
     return out

@@ -1,4 +1,5 @@
-"""PNG and GIF files of the port's renders, with no imaging library.
+"""Image files of the port, with no imaging library: the renders' PNG and
+GIF files, and the textures it reads.
 
 Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
 (imageio) and ``viz/visualize._save_gifs``:
@@ -6,15 +7,18 @@ Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
 * :func:`to_uint8` — the JAX package's truncating cast;
 * :func:`save_png` / :func:`write_png` — 8-bit RGB, zlib, lossless: the
   decoded pixels equal ``to_uint8(img)``;
-* :func:`read_png` — 8-bit RGB or RGBA, non-interlaced (textures, checks);
+* :func:`read_png` — any PNG, as Pillow (and imageio) reads it;
+* :func:`read_image` / :func:`decode_image` — PNG, JPEG, BMP or TGA by
+  the file's magic number (the OBJ textures of ``apps/retarget``);
 * :func:`write_gif` — GIF89a with the loop extension, an adaptive palette
   of at most 256 colours per frame (exact when the frame has no more; else
   a count-weighted median cut, each colour mapped to its nearest entry)
   and the frame delay the caller asks for, in seconds.
 
-The LZW coder of the GIF frames and the PNG row filters run in the port's
-host library (``csrc/nm_host.cpp`` through ``data/native.py``), which
-raises when it cannot be built.
+The LZW coder of the GIF frames, the PNG row filters, the JPEG decoder
+and TGA's run-length packets run in the port's host library
+(``csrc/nm_host.cpp`` through ``data/native.py``), which raises when it
+cannot be built.
 """
 from __future__ import annotations
 
@@ -66,34 +70,311 @@ def save_png(img, path: str) -> None:
     write_png(to_uint8(img), path)
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit RGB or RGBA, non-interlaced PNG as (H, W, 3 or 4) uint8."""
+def _read_bytes(path: str) -> bytes:
     with open(path, "rb") as f:
-        data = f.read()
+        return f.read()
+
+
+def _png_chunks(data: bytes, path: str):
+    """(kind, body) of each chunk through IEND, each length and CRC
+    checked."""
+    pos = 8
+    while True:
+        if pos + 12 > len(data):
+            raise ValueError(f"{path}: PNG truncated before its IEND chunk")
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind = data[pos + 4:pos + 8]
+        end = pos + 12 + n
+        if end > len(data):
+            raise ValueError(f"{path}: PNG chunk {kind!r} runs past the end "
+                             "of the file")
+        body = data[pos + 8:end - 4]
+        if zlib.crc32(kind + body) != int.from_bytes(data[end - 4:end],
+                                                     "big"):
+            raise ValueError(f"{path}: PNG chunk {kind!r} fails its CRC")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos = end
+
+
+# bit depths of each colour type, and its samples per pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+_PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7 passes: first column and row, column and row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unpack_samples(rows: np.ndarray, width: int, depth: int,
+                    samples: int) -> np.ndarray:
+    """Unfiltered PNG rows (h, stride) -> (h, width, samples) samples,
+    uint16 at depth 16, else uint8."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, -1).view(">u2")[:, :width * samples].astype(
+            np.uint16).reshape(h, width, samples)
+    if depth == 8:
+        return rows[:, :width * samples].reshape(h, width, samples)
+    bits = np.unpackbits(rows, axis=1)[:, :width * depth]
+    bits = bits.reshape(h, width, depth).astype(np.uint8)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
+    header, palette, idat = None, None, []
+    for kind, body in _png_chunks(data, path):
         if kind == b"IHDR":
+            if header is not None or len(body) != 13:
+                raise ValueError(f"{path}: bad PNG IHDR chunk")
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
         elif kind == b"IDAT":
             idat.append(body)
-        elif kind == b"IEND":
-            break
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
-    W, H, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in (2, 6) or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit RGB/RGBA non-interlaced PNGs "
-                         f"are read (bit depth {depth}, colour type {ctype}, "
-                         f"interlace {interlace})")
-    bpp = 3 if ctype == 2 else 4
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    return native.png_unfilter(raw, H, W * bpp, bpp).reshape(H, W, bpp)
+    W, H, depth, ctype, method, filt, interlace = header
+    if ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype]:
+        raise ValueError(f"{path}: PNG colour type {ctype} at bit depth "
+                         f"{depth} is not a valid PNG")
+    if method != 0 or filt != 0 or interlace > 1 or not 0 < W < 2 ** 31 \
+            or not 0 < H < 2 ** 31:
+        raise ValueError(f"{path}: bad PNG header {header}")
+    if ctype == 3 and (palette is None or len(palette) % 3
+                       or not 0 < len(palette) <= 768):
+        raise ValueError(f"{path}: paletted PNG without a valid PLTE chunk")
+    samples = _PNG_SAMPLES[ctype]
+    bits = depth * samples
+    passes = []
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if pw > 0 and ph > 0:
+            passes.append((x0, y0, dx, dy, pw, ph, (pw * bits + 7) // 8))
+    size = sum(ph * (stride + 1) for *_, ph, stride in passes)
+    inflate = zlib.decompressobj()
+    try:
+        raw = inflate.decompress(b"".join(idat), size)
+    except zlib.error as e:
+        raise ValueError(f"{path}: PNG image data: {e}") from None
+    if len(raw) < size:
+        raise ValueError(f"{path}: PNG image data ends early ({len(raw)} of "
+                         f"{size} bytes)")
+    raw = np.frombuffer(raw, np.uint8)
+    img = np.empty((H, W, samples), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy, pw, ph, stride in passes:
+        n = ph * (stride + 1)
+        rows = native.png_unfilter(raw[pos:pos + n], ph, stride,
+                                   max(1, bits // 8))
+        img[y0::dy, x0::dx] = _unpack_samples(rows, pw, depth, samples)
+        pos += n
+    # what Pillow makes of the samples, as imageio returns them
+    if ctype == 3:      # palette -> RGB; indices past it are black
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette) // 3] = np.frombuffer(palette, np.uint8).reshape(
+            -1, 3)
+        return lut[img[..., 0]]
+    if depth < 8:       # grey scaled to 8 bits
+        return img * np.uint8(255 // ((1 << depth) - 1))
+    if depth == 16 and ctype != 0:   # 8 bits a sample: the high byte
+        return (img >> 8).astype(np.uint8)
+    return img
+
+
+def read_png(path: str) -> np.ndarray:
+    """Any PNG (colour types 0, 2, 3, 4, 6 at every bit depth, Adam7
+    interlaced or not; each chunk's length and CRC checked) as (H, W, C):
+    C = 1 grey, 2 grey + alpha, 3 RGB (a palette is expanded to it), 4
+    RGBA. The samples are Pillow's: uint8, with 1-, 2- and 4-bit grey
+    scaled to 8 bits, 16-bit colour cut to its high byte; 16-bit grey is
+    uint16."""
+    return _decode_png(_read_bytes(path), path)
+
+
+# --------------------------------------------------------------------- BMP
+def _le(data: bytes, pos: int, n: int, signed: bool = False) -> int:
+    return int.from_bytes(data[pos:pos + n], "little", signed=signed)
+
+
+def _decode_bmp(data: bytes, path: str) -> np.ndarray:
+    """A ``BI_RGB`` BMP at 1, 4, 8 (paletted), 24 or 32 bits a pixel,
+    bottom-up or top-down, as (H, W, 3) uint8 (32 bits: the fourth byte
+    ignored, as Pillow does)."""
+    if data[:2] != b"BM" or len(data) < 26:
+        raise ValueError(f"{path}: not a BMP file")
+    offset, hsize = _le(data, 10, 4), _le(data, 14, 4)
+    if hsize == 12:
+        W, H, bits = _le(data, 18, 2), _le(data, 20, 2), _le(data, 24, 2)
+        compression, colors, entry = 0, 0, 3
+    elif hsize in (40, 52, 56, 64, 108, 124) and len(data) >= 14 + hsize:
+        W, H = _le(data, 18, 4, True), _le(data, 22, 4, True)
+        bits, compression = _le(data, 28, 2), _le(data, 30, 4)
+        colors, entry = _le(data, 46, 4), 4
+    else:
+        raise ValueError(f"{path}: BMP header of {hsize} bytes is not read")
+    if compression != 0:
+        raise ValueError(f"{path}: BMP compression {compression} is not "
+                         "read (only BI_RGB)")
+    if bits not in (1, 4, 8, 24, 32):
+        raise ValueError(f"{path}: BMP at {bits} bits a pixel is not read")
+    top_down, H = H < 0, abs(H)
+    if W <= 0 or H == 0:
+        raise ValueError(f"{path}: BMP of {W} x {H} pixels")
+    lut = None
+    if bits <= 8:
+        colors = colors or 1 << bits
+        if not 0 < colors <= 256:
+            raise ValueError(f"{path}: BMP palette of {colors} colours")
+        if offset == 14 + hsize:   # Pillow: the palette lies before offset
+            offset += 4 * colors
+        pal = data[14 + hsize:14 + hsize + entry * colors]
+        if len(pal) < entry * colors:
+            raise ValueError(f"{path}: BMP palette truncated")
+        pal = np.frombuffer(pal, np.uint8).reshape(colors, entry)[:, 2::-1]
+        # Pillow reads a palette of grey levels 0, 1, ... (or black and
+        # white) as grey: the index is the level
+        ramp = (np.array([[0] * 3, [255] * 3]) if colors == 2 else
+                np.repeat(np.arange(colors)[:, None], 3, 1))
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:colors] = pal
+        if colors != 2 and np.array_equal(pal, ramp):
+            lut = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    stride = (W * bits + 31) // 32 * 4
+    if offset + stride * H > len(data):
+        raise ValueError(f"{path}: BMP pixel data truncated")
+    rows = np.frombuffer(data, np.uint8, stride * H, offset).reshape(H,
+                                                                     stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bits >= 24:
+        n = bits // 8
+        return np.ascontiguousarray(
+            rows[:, :W * n].reshape(H, W, n)[..., 2::-1])
+    return lut[_unpack_samples(rows, W, bits, 1)[..., 0]]
+
+
+# --------------------------------------------------------------------- TGA
+def _tga_header(data: bytes):
+    """The fields of an 18-byte TGA header, or None where Pillow would not
+    take the file for a TGA."""
+    if len(data) < 18:
+        return None
+    h = dict(id_len=data[0], cmap=data[1], kind=data[2],
+             cmap_start=_le(data, 3, 2), cmap_len=_le(data, 5, 2),
+             cmap_depth=data[7],
+             width=_le(data, 12, 2), height=_le(data, 14, 2),
+             depth=data[16], flags=data[17])
+    if h["cmap"] not in (0, 1) or h["width"] == 0 or h["height"] == 0 \
+            or h["depth"] not in (1, 8, 16, 24, 32) \
+            or h["kind"] not in (1, 2, 3, 9, 10, 11):
+        return None
+    return h
+
+
+def _decode_tga(data: bytes, path: str) -> np.ndarray:
+    """A TGA of image type 2 or 10 (true colour, 24 or 32 bits: (H, W, 3)
+    or (H, W, 4) RGBA), 3 or 11 (grey, 8 bits: (H, W, 1)) or 1 or 9
+    (8-bit indices into a 24- or 32-bit colour map: RGB or RGBA; indices
+    past the map black, as Pillow pads it), raw or run-length, with the
+    origin bits honoured (bottom-up unless bit 5, mirrored when bit 4)."""
+    h = _tga_header(data)
+    if h is None:
+        raise ValueError(f"{path}: not a TGA file")
+    kind, depth = h["kind"], h["depth"]
+    mapped = (kind & 7) == 1
+    if not ((kind & 7) == 2 and depth in (24, 32)
+            or (kind & 7) == 3 and depth == 8
+            or mapped and depth == 8 and h["cmap"]):
+        raise ValueError(f"{path}: TGA image type {kind} at {depth} bits is "
+                         "not read (types 1, 9 at 8 bits; 2, 10 at 24 and "
+                         "32; 3, 11 at 8)")
+    pos = 18 + h["id_len"]
+    lut = None
+    if h["cmap"]:
+        if h["cmap_depth"] not in (16, 24, 32):
+            raise ValueError(f"{path}: TGA colour map of "
+                             f"{h['cmap_depth']} bits")
+        n, size = h["cmap_len"], h["cmap_depth"] // 8
+        if mapped:
+            if size == 2:
+                raise ValueError(f"{path}: TGA 16-bit colour map is not read")
+            entries = data[pos:pos + n * size]
+            if len(entries) < n * size:
+                raise ValueError(f"{path}: TGA colour map truncated")
+            start = h["cmap_start"]
+            lut = np.zeros((max(256, start + n), size), np.uint8)
+            lut[start:start + n] = np.frombuffer(entries, np.uint8).reshape(
+                n, size)[:, [2, 1, 0, 3][:size]]
+        pos += n * size
+    W, H, n = h["width"], h["height"], depth // 8
+    if kind & 8:
+        px = native.tga_unrle(np.frombuffer(data[pos:], np.uint8), W * H, n)
+    else:
+        if pos + W * H * n > len(data):
+            raise ValueError(f"{path}: TGA pixel data truncated")
+        px = np.frombuffer(data, np.uint8, W * H * n, pos)
+    px = px.reshape(H, W, n)
+    if not h["flags"] & 0x20:
+        px = px[::-1]
+    if h["flags"] & 0x10:
+        px = px[:, ::-1]
+    if lut is not None:
+        return lut[px[..., 0]]
+    if n == 1:
+        return np.ascontiguousarray(px)
+    return np.ascontiguousarray(px[..., [2, 1, 0, 3][:n]])
+
+
+# ------------------------------------------------------------- any format
+_MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
+          (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
+          (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
+READ_FORMATS = ("PNG", "JPEG", "BMP", "TGA")
+
+
+def image_format(data: bytes, path: str = "") -> str:
+    """The format of an image file's bytes, as Pillow would take it: by
+    its magic number, else TGA where the header passes Pillow's TGA checks
+    or the extension is ``.tga``; "unknown" otherwise."""
+    for magic, name in _MAGIC:
+        if data.startswith(magic):
+            return name
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if _tga_header(data) is not None or path.lower().endswith(".tga"):
+        return "TGA"
+    return "unknown"
+
+
+def decode_image(data: bytes, path: str = "") -> np.ndarray:
+    """An image file's bytes as (H, W, C) samples, by its format
+    (:func:`image_format`; ``path`` names the file in errors and decides a
+    TGA without a valid header): PNG (:func:`read_png`), JPEG (baseline,
+    extended sequential or progressive, Huffman-coded, 8-bit, 1 or 3
+    components; uint8, decoded by the host library as libjpeg-turbo does),
+    BMP and TGA (uint8). A GIF, TIFF, WebP or unknown file, or one that
+    cannot be decoded, raises ``ValueError`` naming the format."""
+    fmt = image_format(data, path)
+    if fmt not in READ_FORMATS:
+        raise ValueError(f"{path}: a {fmt} image; the port reads "
+                         f"{', '.join(READ_FORMATS)} images")
+    if fmt == "JPEG":
+        try:
+            return native.jpeg_decode(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    return {"PNG": _decode_png, "BMP": _decode_bmp,
+            "TGA": _decode_tga}[fmt](data, path)
+
+
+def read_image(path: str) -> np.ndarray:
+    """:func:`decode_image` of the file at ``path``."""
+    return decode_image(_read_bytes(path), path)
 
 
 # --------------------------------------------------------------------- GIF

@@ -130,6 +130,16 @@ from neural_marionette_tpu_torch.skeleton_device import \
     extract_skeleton_host_api
 extract_skeleton_host_api(np.random.default_rng(1).uniform(
     size=(2, 6, 6, 1)), device="cpu")
+# an OBJ whose texture is a JPEG, decoded by the host library
+with open(os.path.join(work, "t.obj"), "w") as f:
+    f.write("mtllib t.mtl\\nv 0 0 0\\nv 1 0 0\\nv 0 1 0\\nvt 0 0\\nvt 1 0\\n"
+            "vt 0 1\\nf 1/1 2/2 3/3\\n")
+with open(os.path.join(work, "t.mtl"), "w") as f:
+    f.write("map_Kd " + os.path.abspath(
+        "tests/torch_textures/jpeg_progressive_420.jpg") + "\\n")
+from neural_marionette_tpu_torch.apps.retarget import load_obj_mesh
+assert load_obj_mesh(os.path.join(work, "t.obj"))["texture"].shape == \
+    (29, 37, 3)
 shutil.rmtree(work)
 imaging = [n for n in sys.modules if n.split(".")[0] in
            ("matplotlib", "imageio", "PIL", "mpl_toolkits")]
@@ -164,8 +174,8 @@ def test_port_imports_no_jax_and_wants_a_card():
     the process group's ``initialize``) given no device ask for CUDA and
     raise without a card, the flagship before it writes anything; renders on the CPU,
     written to
-    PNG and GIF files, and the device skeleton extraction load none of
-    ``matplotlib``, ``imageio`` and ``PIL``."""
+    PNG and GIF files, the device skeleton extraction and an OBJ's JPEG
+    texture read load none of ``matplotlib``, ``imageio`` and ``PIL``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
