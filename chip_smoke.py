@@ -116,13 +116,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
 16. the OBJ textures (``textures`` line): every fixture of
     ``tests/torch_textures/`` (PNG of every colour type, depth and
     interlace, JPEG baseline, extended and progressive at 4:4:4, 4:2:2,
-    4:2:0 and 4:4:0 with restart intervals, BMP, TGA) read by
-    ``viz.image_files.read_image`` (JPEG in the host library built on this
+    4:2:0 and 4:4:0 with restart intervals, BMP with run-length and
+    bitfields, TGA at 16 bits, GIF, TIFF of every layout and compression
+    imageio reads, WebP lossless, lossy, with alpha and animated) read by
+    ``viz.image_files.read_image`` (JPEG and WebP, and the LZW, PackBits
+    and run-length expansions, in the host libraries built on this
     machine) and ``apps.retarget.texture_rgb``, equal to the bit to
     ``MANIFEST.json`` (imageio's pixels on the machine that wrote them);
-    the GIF, TIFF, WebP, CMYK, arithmetic, lossless, hierarchical, 12-bit
-    and h4v1 files raising ``ValueError`` naming what they are; the host
-    ms of decoding a 1024 x 1024 baseline and progressive 4:2:0 JPEG;
+    the refused files (CMYK, arithmetic, lossless, hierarchical, 12-bit
+    and h4v1 JPEG; TIFF JPEG, CCITT, old-style LZW, YCbCr subsampling;
+    truncated GIF and WebP, a bad LZW code, BMP layouts Pillow refuses)
+    raising ``ValueError`` naming what they are; the host ms of decoding
+    each 1024 x 1024 file (baseline and progressive 4:2:0 JPEG, GIF, TIFF
+    LZW, WebP lossless and lossy);
     then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
@@ -136,7 +142,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     the script writes (a PNG texture), then of a smaller textured sphere
     whose texture is a JPEG fixture (a fresh retarget: K1 and K2 forward)
     and of its twin textured with that fixture's expected pixels written
-    as a PNG (the same retarget), the two sets' PNGs equal to the bit;
+    as a PNG (the same retarget), the two sets' PNGs equal to the bit, and
+    the same for a sphere textured with the 1024 x 1024 lossless WebP;
     every PNG and GIF decoded by this
     script's own readers (zlib; LZW): frame counts, sizes, delays, loops,
     each GIF frame within 3/255 mean of its PNG; ms per ``vis_*`` call, per
@@ -3905,9 +3912,13 @@ def _textured_target(work, res=70, texture=None):
 
 # ---------------------------------------------------------------- textures
 TEXTURES = ROOT / "tests" / "torch_textures"
-TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg")
+TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
+                 "gif_1024.gif", "tiff_1024_lzw.tif",
+                 "webp_1024_lossless.webp", "webp_1024_lossy.webp")
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
+RENDER_WEBP = "webp_1024_lossless.webp"    # the WebP-textured retarget set
+WEBP_SET_RES = 28                           # its sphere: 4 * 28^2 faces
 
 
 def _texture_expected(entry, arrays):
@@ -3918,24 +3929,27 @@ def _texture_expected(entry, arrays):
 
 def phase_textures(card, reps=11):
     """Every texture fixture of ``tests/torch_textures/`` through the
-    port's ``read_image`` and ``texture_rgb`` (the JPEG decoder of the host
-    library built on this machine), held against ``MANIFEST.json``: equal
-    to the bit to ``expected.npz``, or the SHA-256 of the two 1024 x 1024
-    JPEGs' pixels; a refused file must raise ``ValueError`` naming what it
-    is. Then each 1024 x 1024 JPEG's decode time on the host (p50 and min
-    of ``reps`` calls of ``native.jpeg_decode`` on the file's bytes, and
+    port's ``read_image`` and ``texture_rgb`` (the JPEG and WebP decoders
+    and the LZW, PackBits and run-length expansions of the host libraries
+    built on this machine), held against ``MANIFEST.json``: equal to the
+    bit to ``expected.npz``, or the SHA-256 of the 1024 x 1024 files'
+    pixels; a refused file must raise ``ValueError`` naming what it is.
+    Then each 1024 x 1024 file's decode time on the host (p50 and min of
+    ``reps`` calls of ``image_files.decode_image`` on the file's bytes, and
     of ``read_image`` with the file read)."""
     import hashlib
     from neural_marionette_tpu_torch.apps.retarget import texture_rgb
-    from neural_marionette_tpu_torch.data import native
-    from neural_marionette_tpu_torch.viz.image_files import read_image
+    from neural_marionette_tpu_torch.viz.image_files import (
+        decode_image, image_format, read_image)
     t_phase = time.perf_counter()
     manifest = json.loads((TEXTURES / "MANIFEST.json").read_text())["files"]
     with np.load(TEXTURES / "expected.npz") as npz:
         arrays = {k: npz[k] for k in npz.files}
-    checked, refused = 0, 0
+    checked, refused, per_format = 0, 0, {}
     for e in manifest:
         path = str(TEXTURES / e["file"])
+        fmt = image_format((TEXTURES / e["file"]).read_bytes(), e["file"])
+        per_format.setdefault(fmt, {"checked": 0, "refused": 0})
         if "raises" in e:
             try:
                 read_image(path)
@@ -3947,6 +3961,7 @@ def phase_textures(card, reps=11):
                 raise AssertionError(f"textures {e['file']}: read; it must "
                                      f"raise naming {e['raises']!r}")
             refused += 1
+            per_format[fmt]["refused"] += 1
             continue
         img = read_image(path)
         tex = texture_rgb(img)
@@ -3961,43 +3976,50 @@ def phase_textures(card, reps=11):
             raise AssertionError(f"textures {e['file']}: differs from the "
                                  "manifest")
         checked += 1
+        per_format[fmt]["checked"] += 1
     times = {}
     for name in TEXTURE_TIMED:
         data = (TEXTURES / name).read_bytes()
         decode, read = [], []
         for _ in range(reps):
             t0 = time.perf_counter()
-            native.jpeg_decode(data)
+            img = decode_image(data, name)
             decode.append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
             read_image(str(TEXTURES / name))
             read.append((time.perf_counter() - t0) * 1e3)
-        info = native.jpeg_info(data)
         times[name] = {
-            "process": info["process"], "bytes": len(data),
-            "pixels": info["width"] * info["height"],
+            "format": image_format(data, name), "bytes": len(data),
+            "pixels": int(img.shape[0] * img.shape[1]),
             "decode_ms_p50": float(np.median(decode)),
             "decode_ms_min": float(np.min(decode)),
             "read_image_ms_p50": float(np.median(read)), "reps": reps}
     out = {"card": card, "checked": checked, "refused": refused,
-           "fixtures": len(manifest), "decode": times,
-           "phase_s": time.perf_counter() - t_phase}
-    b, pr = (times[n] for n in TEXTURE_TIMED)
+           "fixtures": len(manifest), "per_format": per_format,
+           "decode": times, "phase_s": time.perf_counter() - t_phase}
     log(f"[textures] {checked} fixtures equal to the manifest, {refused} "
-        f"refused as it names; 1024 x 1024 JPEG decode p50 baseline "
-        f"{b['decode_ms_p50']:.2f} ms, progressive "
-        f"{pr['decode_ms_p50']:.2f} ms (host; {card}); phase "
-        f"{out['phase_s']:.1f} s")
+        "refused as it names; 1024 x 1024 decode p50 (min) on the host: "
+        + ", ".join(f"{n} {t['decode_ms_p50']:.2f} ({t['decode_ms_min']:.2f})"
+                    " ms" for n, t in times.items())
+        + f" ({card}); phase {out['phase_s']:.1f} s")
     return out
 
 
 RETARGET_KINDS = ("surfels", "textured_mesh", "textured_mesh_jpeg",
-                  "textured_mesh_jpeg_twin")
+                  "textured_mesh_jpeg_twin", "textured_mesh_webp",
+                  "textured_mesh_webp_twin")
+# each twin: the same sphere textured with its fixture's expected pixels as
+# a PNG, drawn from the same retarget; its PNGs equal to the bit to its
+# fixture's set
+TWINS = {"textured_mesh_jpeg_twin": "textured_mesh_jpeg",
+         "textured_mesh_webp_twin": "textured_mesh_webp"}
 
 
 def phase_render(cfg, device, card, apps_keep, trained_affinity):
     """The renders on the card (``viz/``, the demos' render sets) and the
     device skeleton extraction; see the module docstring, phase 16."""
+    import hashlib
+
     import torch
     from neural_marionette_tpu_torch.apps import generation as AG
     from neural_marionette_tpu_torch.apps import interpolation as AI
@@ -4038,14 +4060,23 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
         # textured mesh target the script writes
         m = apps_keep["marionette"]
         sets = ("source", "smooth", "skeleton", "overlay")
-        # the JPEG set's twin: the same sphere textured with the fixture's
-        # expected pixels written as a PNG, drawn from the same retarget
-        entry = next(e for e in json.loads((TEXTURES / "MANIFEST.json")
-                                           .read_text())["files"]
-                     if e["file"] == RENDER_JPEG)
+        # the JPEG and WebP sets' twins: the same sphere textured with the
+        # fixture's expected pixels written as a PNG (the JPEG's from
+        # expected.npz; the 1024 x 1024 WebP's decoded here and held to
+        # imageio's SHA-256), drawn from the same retarget
+        entries = {e["file"]: e for e in json.loads(
+            (TEXTURES / "MANIFEST.json").read_text())["files"]}
         twin = work / "expected.png"
         with np.load(TEXTURES / "expected.npz") as npz:
-            write_png(npz[entry["key"]], str(twin))
+            write_png(npz[entries[RENDER_JPEG]["key"]], str(twin))
+        from neural_marionette_tpu_torch.viz.image_files import read_image
+        webp_px = read_image(str(TEXTURES / RENDER_WEBP))
+        if hashlib.sha256(webp_px.tobytes()).hexdigest() != \
+                entries[RENDER_WEBP]["sha256"]:
+            raise AssertionError("render: the WebP fixture's pixels differ "
+                                 "from imageio's")
+        twin_webp = work / "expected_webp.png"
+        write_png(webp_px[..., :3], str(twin_webp))
         for kind in RETARGET_KINDS:
             if kind == "surfels":
                 ret, points, mesh = apps_keep["ret"], apps_keep["target"], None
@@ -4055,19 +4086,22 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
                             "textured_mesh_jpeg": (
                                 TEXTURES / RENDER_JPEG, JPEG_SET_RES),
                             "textured_mesh_jpeg_twin": (
-                                twin, JPEG_SET_RES)}[kind]
+                                twin, JPEG_SET_RES),
+                            "textured_mesh_webp": (
+                                TEXTURES / RENDER_WEBP, WEBP_SET_RES),
+                            "textured_mesh_webp_twin": (
+                                twin_webp, WEBP_SET_RES)}[kind]
                 obj, faces = _textured_target(work / f"obj_{kind}", res, tex)
                 points, mesh = AR.load_target_points(str(obj),
                                                      return_mesh=True)
                 if mesh["texture"] is None or mesh["uv"] is None:
                     raise AssertionError("render: the OBJ's texture not read")
-                if kind == "textured_mesh_jpeg_twin":
-                    jpeg_mesh = out["retarget_textured_mesh_jpeg"]["mesh"]
-                    if not np.array_equal(mesh["texture"],
-                                          jpeg_mesh["texture"]):
+                if kind in TWINS:
+                    first = out[f"retarget_{TWINS[kind]}"]["mesh"]
+                    if not np.array_equal(mesh["texture"], first["texture"]):
                         raise AssertionError(
-                            "render: the JPEG texture differs from its "
-                            "expected pixels")
+                            f"render: the texture of {TWINS[kind]} differs "
+                            "from its expected pixels")
                 else:
                     ret = m.retarget(apps_keep["source"], points)
             d = work / f"retarget_{kind}"
@@ -4084,25 +4118,26 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
             out[f"retarget_{kind}"] = {"ms": t, "points": int(len(points)),
                                        "faces": int(faces), "sets": names,
                                        "split_ms": stats, "files": files}
-            if kind == "textured_mesh_jpeg":
+            if kind in TWINS.values():
                 out[f"retarget_{kind}"]["mesh"] = mesh
-            elif kind == "textured_mesh_jpeg_twin":
-                # every PNG of the JPEG-textured set equal to the bit to
+            elif kind in TWINS:
+                # every PNG of the fixture-textured set equal to the bit to
                 # its twin's
                 pngs = sorted(p.relative_to(d) for p in d.rglob("*.png"))
-                jd = work / "retarget_textured_mesh_jpeg"
+                jd = work / f"retarget_{TWINS[kind]}"
                 if pngs != sorted(p.relative_to(jd)
                                   for p in jd.rglob("*.png")):
-                    raise AssertionError("render: the JPEG set's files "
-                                         "differ from its twin's")
+                    raise AssertionError(f"render: the files of "
+                                         f"{TWINS[kind]} differ from its "
+                                         "twin's")
                 for rel in pngs:
                     if not np.array_equal(read_png_file(jd / rel),
                                           read_png_file(d / rel)):
                         raise AssertionError(
-                            f"render: {rel} of the JPEG-textured set "
-                            "differs from its twin's")
+                            f"render: {rel} of {TWINS[kind]} differs from "
+                            "its twin's")
                 out[f"retarget_{kind}"]["pngs_equal"] = len(pngs)
-                out["retarget_textured_mesh_jpeg"].pop("mesh")
+                out[f"retarget_{TWINS[kind]}"].pop("mesh")
         out["skeleton_device"] = _render_skeleton(device, trained_affinity)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4118,9 +4153,11 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
         log(f"[render] retarget sets ({kind}, 10 frames onto {r['points']} "
             f"points): {r['ms']:.0f} ms, split {r['split_ms']}, files "
             f"{r['files']}")
-    log(f"[render] the JPEG-textured retarget set ({RENDER_JPEG}): "
-        f"{out['retarget_textured_mesh_jpeg_twin']['pngs_equal']} PNGs "
-        "equal to the bit to its twin's (the expected pixels as a PNG)")
+    for kind, first in TWINS.items():
+        fixture = RENDER_JPEG if "jpeg" in kind else RENDER_WEBP
+        log(f"[render] the {first} retarget set ({fixture}): "
+            f"{out[f'retarget_{kind}']['pngs_equal']} PNGs equal to the bit "
+            "to its twin's (the expected pixels as a PNG)")
     log(f"[render] phase {out['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     return out

@@ -94,8 +94,8 @@ def _find_texture(mtl_path: str):
     [0, 1]; None when the file is absent or declares no texture, and, with
     a warning, when the declared image is missing (the JAX function's
     None). The image is read by ``viz.image_files.read_image`` (PNG, JPEG,
-    BMP, TGA); a file that is present but cannot be read raises
-    ``ValueError``."""
+    BMP, TGA, GIF, TIFF, WebP); a file that is present but cannot be read
+    raises ``ValueError``."""
     if not os.path.exists(mtl_path):
         return None
     tex_file = None
@@ -115,15 +115,27 @@ def _find_texture(mtl_path: str):
 
 
 def texture_rgb(img: np.ndarray) -> np.ndarray:
-    """(H, W, C) samples -> (H, W, 3) float32 in [0, 1]. Where the JAX
-    function's result is an RGB image (8-bit samples, C = 3 or 4) this is
-    its ``/ 255`` then ``[..., :3]``, equal to the bit. Elsewhere it is
-    defined: grey is replicated to RGB, alpha is dropped and a 16-bit
-    sample is divided by 65535 (the JAX function keeps 3 columns of a grey
-    image, 2 channels of grey + alpha, and divides 16-bit grey by 255)."""
-    scale = np.float32(65535.0 if img.dtype == np.uint16 else 255.0)
+    """(H, W, C) samples of ``viz.image_files.read_image`` -> (H, W, 3)
+    float32 in [0, 1]. Where the JAX function's result is an RGB image
+    (imageio gives 8-bit samples, C = 3 or 4) this is its ``/ 255`` then
+    ``[..., :3]``, equal to the bit. Elsewhere it is defined, and
+    ``ROADMAP.md`` (Queue 3) lists each case as a fault of the JAX function
+    that the port does not share: grey is replicated to RGB, alpha is
+    dropped, a 16-bit sample is divided by 65535 (the JAX function keeps 3
+    columns of a grey image, 2 channels of grey + alpha, and divides 16-bit
+    samples by 255); float samples are clipped to [0, 1], NaN read as 0 (the
+    JAX function divides them by 255). ``read_image`` has already applied the rest of
+    the rules to a TIFF: a palette's indices mapped through its colour map
+    (16-bit entries, so / 65535), planar samples read as (H, W, C), the
+    first page of several, CMYK made RGB as Pillow's ``convert("RGB")``
+    does, min-is-white inverted, 1-, 2- and 4-bit samples scaled to 8 bits
+    (the JAX function gets tifffile's raw indices, (C, H, W), all pages,
+    the CMYK samples, the stored levels)."""
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3,
                                                            axis=-1)
+    if img.dtype.kind == "f":
+        return np.clip(np.nan_to_num(rgb, nan=0.0), 0, 1).astype(np.float32)
+    scale = np.float32(65535.0 if img.dtype == np.uint16 else 255.0)
     return rgb.astype(np.float32) / scale
 
 

@@ -140,42 +140,27 @@ class MarionetteConfig:
     compute_dtype: str = "float32"  # bfloat16 optionally for conv stacks
     debug_nans: int = 0
     profile_dir: str = ""  # capture a jax.profiler trace of early steps
-    # rematerialize detector conv stacks (trades backward recompute for
-    # HBM).  Measured policy at flagship scale (BASELINE.md r4): leave 0
-    # for microbatches <= 12 seqs (120 folded frames — fits, and is ~14%
-    # faster than remat=1); set 1 above that, 2 only to bound the
-    # single-microbatch peak further.
+    # The fields below up to frame_chunk are the JAX package's TPU layout
+    # options. The port reads each one (the CLI takes the flag, a
+    # checkpoint's opt.json keeps it) and ignores it: it has no
+    # rematerialization and no strip, upconv or frame-chunk rewrite of
+    # its convs, whose results those rewrites leave exactly as the plain
+    # conv's (models/detector.py, ROADMAP.md).
+    # remat: rematerialize the detector's conv stacks (0 = off, 1, 2).
     remat: int = 0
-    # strip-packed decoder convs (ops/stripconv.py): -1 = auto (TPU
-    # backend only — CPU XLA compiles the strip form pathologically
-    # slowly and its conv is already fine there), 0 = off, 1 = force on
+    # strip-packed decoder convs (JAX ops/stripconv.py): -1 = auto,
+    # 0 = off, 1 = on.
     strip_decoder: int = -1
-    # fused upsample+conv (ops/upconv.py) for the decoder's second
-    # upsample stage (32^3 64->32): measured 1.73-1.85x on hardware vs
-    # upsample2_trilinear + conv3d (scripts/bench_upconv.py); -1 = auto
-    # (TPU only), 0 = off, 1 = force on
+    # fused upsample + conv for the decoder's second upsample stage (JAX
+    # ops/upconv.py): -1 = auto, 0 = off, 1 = on.
     upconv_decoder: int = -1
-    # strip-packed encoder front end (stem + first pool lane-packed at
-    # the full grid; ops/stripconv + coord-split field): measured stem
-    # fwd 9.6->5.5 ms / wgrad 17.9->2.7 ms, pool 4.5->2.2 ms at 40
-    # frames (scripts/bench_encoder_parts.py); -1 = auto (TPU only),
-    # 0 = off, 1 = force on
+    # strip-packed encoder stem and first pool: -1 = auto, 0 = off, 1 = on.
     strip_encoder: int = -1
-    # strip-path routing gate: fold-frame count at or below which the
-    # strip (lane-packed) conv paths are used; 0 = env NM_STRIP_MAX_FRAMES
-    # or 64 (the measured FORWARD crossover — at >=~128 frames XLA's
-    # batch-minor layouts win).  The training driver raises it to 96:
-    # the strip BACKWARD (weight-grad) still wins there (measured
-    # B=8 accum=1: strip 12.63 vs plain 11.23 seqs/sec).
+    # folded-frame count at or below which the JAX strip paths are taken;
+    # 0 = the JAX package's default.
     strip_max_frames: int = 0
-    # folded-frame chunking through the conv stacks: XLA lays large conv
-    # temps out batch-minor with the folded B*T frame count padded to the
-    # next 128-lane multiple, so e.g. B=16 (160 frames -> 256 lanes)
-    # silently wastes 1.6x of every conv store/load.  Splitting the
-    # folded axis into a (N//128)*128 head (zero pad) plus a <128 tail
-    # (strip-packed when under the strip gate) makes per-frame throughput
-    # flat in B instead of cliffed at 128-multiples.  -1 = auto (128 on
-    # TPU, off elsewhere), 0 = off, >0 = chunk size
+    # chunking of the folded frame axis through the conv stacks: -1 =
+    # auto, 0 = off, > 0 = chunk size.
     frame_chunk: int = -1
     grad_accum: int = 1  # microbatches per step (activation-memory relief)
     # 1 = recreate fresh Adam moments at every epoch start — the

@@ -17,6 +17,10 @@
 //                          image_files.py writes the blocks around it)
 //   * nm_png_unfilter   — undo the per-row filters of a PNG (one pass)
 //   * nm_tga_unrle      — expand the run-length packets of a TGA image
+//   * nm_gif_unlzw      — decode one GIF frame's LZW code stream
+//   * nm_tiff_unlzw / nm_packbits — TIFF's LZW (MSB first, early change)
+//                          and PackBits strips, as tifffile decodes them
+//   * nm_bmp_unrle      — a BI_RLE8 / BI_RLE4 BMP, as Pillow expands it
 //   * nm_jpeg_info / nm_jpeg_decode — a Huffman-coded 8-bit JPEG
 //                          (baseline, extended sequential, progressive;
 //                          1 or 3 components, sampling factors 1 or 2)
@@ -1221,6 +1225,240 @@ int64_t nm_tga_unrle(const uint8_t* src, int64_t size, int64_t n, int bpp,
   return p;
 }
 
+// GIF's LZW code stream (sub-blocks already joined) of one frame with
+// minimum code size mcs (2..11) into n palette indices. Codes are read LSB
+// first; a clear code resets the table; the code size grows when the next
+// free code reaches 1 << size, up to 12 bits, and a full table adds nothing
+// until the next clear. Stops at end-of-information, at the end of src, or
+// once n indices are written. Returns the indices written, or -1 on a code
+// that names no entry yet.
+int64_t nm_gif_unlzw(const uint8_t* src, int64_t size, int mcs, uint8_t* out,
+                     int64_t n) {
+  if (mcs < 2 || mcs > 11) return -1;
+  const int clear = 1 << mcs, eoi = clear + 1;
+  std::vector<uint16_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  std::vector<uint16_t> length(4096);
+  for (int i = 0; i < clear; ++i) {
+    prefix[i] = 0xFFFF;
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+    length[i] = 1;
+  }
+  int next = clear + 2, code_size = mcs + 1, prev = -1;
+  uint64_t acc = 0;
+  int bits = 0;
+  int64_t pos = 0, written = 0;
+  while (written < n) {
+    while (bits < code_size && pos < size) {
+      acc |= static_cast<uint64_t>(src[pos++]) << bits;
+      bits += 8;
+    }
+    if (bits < code_size) break;   // the data ends
+    const int code = static_cast<int>(acc & ((1u << code_size) - 1));
+    acc >>= code_size;
+    bits -= code_size;
+    if (code == clear) {
+      next = clear + 2;
+      code_size = mcs + 1;
+      prev = -1;
+      continue;
+    }
+    if (code == eoi) break;
+    if (prev < 0) {            // the first code after a clear: a literal
+      if (code >= clear) return -1;
+      out[written++] = static_cast<uint8_t>(code);
+      prev = code;
+      continue;
+    }
+    if (code > next || (code == next && next >= 4096)) return -1;
+    const int entry = code < next ? code : prev;
+    const uint8_t head = first[entry];
+    if (next < 4096) {         // add prev + the first byte of this string
+      prefix[next] = static_cast<uint16_t>(prev);
+      suffix[next] = head;
+      first[next] = first[prev];
+      length[next] = static_cast<uint16_t>(length[prev] + 1);
+      ++next;
+      if (next == (1 << code_size) && code_size < 12) ++code_size;
+    }
+    // write the string of code (now in the table) backwards
+    const int len = length[code];
+    const int64_t keep = std::min<int64_t>(len, n - written);
+    int c = code;
+    for (int k = len - 1; k >= 0; --k) {
+      if (k < keep) out[written + k] = suffix[c];
+      c = prefix[c];
+    }
+    written += keep;
+    prev = code;
+  }
+  return written;
+}
+
+// TIFF's LZW (compression 5) of one strip or tile, as tifffile's
+// decode_lzw reads it: codes MSB first, 9 bits after a clear, widening
+// one code early (at table sizes 511, 1023, 2047); the stream must start
+// with a clear code; it ends at end-of-information or once a code reaches
+// the end of src (that code unused). At most cap bytes are written.
+// Returns the bytes written, -1 when the stream does not start with a
+// clear code, -2 on a code that names no entry.
+int64_t nm_tiff_unlzw(const uint8_t* src, int64_t size, uint8_t* out,
+                      int64_t cap) {
+  if (size < 4) return -1;
+  const int64_t max_bits = size * 8;
+  int64_t bitpos = 0;
+  auto read_code = [&](int width) {
+    uint32_t v = 0;
+    const int64_t start = bitpos >> 3;
+    for (int k = 0; k < 4; ++k)
+      v = (v << 8) | (start + k < size ? src[start + k] : 0u);
+    v <<= (bitpos & 7);
+    return static_cast<int>(v >> (32 - width));
+  };
+  if (read_code(9) != 256) return -1;
+  std::vector<int32_t> prefix(4096, -1);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  std::vector<int32_t> length(4096, 1);
+  for (int i = 0; i < 256; ++i) suffix[i] = first[i] = static_cast<uint8_t>(i);
+  int64_t table = 258, written = 0;
+  int width = 9, old = 0;
+  auto emit = [&](int code) {
+    const int len = length[code];
+    int c = code;
+    for (int k = len - 1; k >= 0; --k) {
+      if (written + k < cap) out[written + k] = suffix[c];
+      c = prefix[c];
+    }
+    written = std::min<int64_t>(written + len, cap);
+  };
+  auto add = [&](int pre, uint8_t last) {
+    if (table < 4096) {
+      prefix[table] = pre;
+      suffix[table] = last;
+      first[table] = first[pre];
+      length[table] = length[pre] + 1;
+    }
+    ++table;
+  };
+  while (written < cap) {
+    int code = read_code(width);
+    bitpos += width;
+    if (code == 257 || bitpos >= max_bits) break;
+    if (code == 256) {
+      table = 258;
+      width = 9;
+      code = read_code(width);
+      bitpos += width;
+      if (code == 257) break;
+      if (code >= 256) return -2;      // a fresh table holds only bytes
+      emit(code);
+    } else {
+      if (old >= table || old >= 4096) return -2;
+      if (code < table) {
+        add(old, first[code]);
+        emit(code);
+      } else {                         // the entry this code adds
+        add(old, first[old]);
+        emit(static_cast<int>(table - 1));
+      }
+    }
+    old = code;
+    if (table == 511) width = 10;
+    else if (table == 1023) width = 11;
+    else if (table == 2047) width = 12;
+  }
+  return written;
+}
+
+// PackBits (TIFF compression 32773), as tifffile's decode_packbits: a
+// header n < 128 copies n + 1 bytes, n > 128 repeats the next byte 257 - n
+// times, 128 is skipped; a run cut by the end of src is kept as far as it
+// goes. At most cap bytes are written. Returns the bytes written.
+int64_t nm_packbits(const uint8_t* src, int64_t size, uint8_t* out,
+                    int64_t cap) {
+  int64_t i = 0, w = 0;
+  while (i < size && w < cap) {
+    const int n = src[i++];
+    if (n < 128) {
+      const int64_t take = std::min<int64_t>({n + 1, size - i, cap - w});
+      std::memcpy(out + w, src + i, take);
+      w += take;
+      i += n + 1;
+    } else if (n > 128) {
+      if (i >= size) break;
+      const int64_t take = std::min<int64_t>(257 - n, cap - w);
+      std::memset(out + w, src[i], take);
+      w += take;
+      i += 1;
+    }
+  }
+  return w;
+}
+
+// A BI_RLE8 (rle4 = 0) or BI_RLE4 (rle4 = 1) BMP's pixel data src (size
+// bytes, starting at byte file_pos of the file) into width x height palette
+// indices, as Pillow's BmpRleDecoder expands it: runs clipped to the row,
+// end of line padding the row with index 0, a delta skipping with index 0
+// (Pillow reads its two offset bytes after two it ignores), an absolute run
+// of RLE4 keeping 2 * (n / 2) indices, the stream realigned to an even file
+// position after each absolute run. Writes the first width * height
+// indices to out; returns how many the stream gave (it may give more), or
+// -1 where Pillow fails on a delta that the data cuts short.
+int64_t nm_bmp_unrle(const uint8_t* src, int64_t size, int64_t file_pos,
+                     int64_t width, int64_t height, int rle4, uint8_t* out) {
+  const int64_t total = width * height;
+  int64_t len = 0, x = 0, p = 0;
+  auto put = [&](uint8_t v, int64_t count) {
+    if (count <= 0) return;
+    if (len < total) std::memset(out + len, v, std::min(count, total - len));
+    len += count;
+  };
+  while (len < total) {
+    if (p + 2 > size) break;
+    int64_t count = src[p];
+    const uint8_t byte = src[p + 1];
+    p += 2;
+    if (count) {                       // encoded run
+      if (x + count > width) count = std::max<int64_t>(0, width - x);
+      if (rle4) {
+        for (int64_t k = 0; k < count; ++k)
+          put(k % 2 ? byte & 0x0F : byte >> 4, 1);
+      } else {
+        put(byte, count);
+      }
+      x += count;
+    } else if (byte == 0) {            // end of line
+      if (len % width) put(0, width - len % width);
+      x = 0;
+    } else if (byte == 1) {            // end of bitmap
+      break;
+    } else if (byte == 2) {            // delta
+      if (p + 2 > size) break;
+      p += 2;
+      if (p + 2 > size) return -1;
+      put(0, src[p] + int64_t(src[p + 1]) * width);
+      p += 2;
+      x = len % width;
+    } else {                           // absolute run
+      const int64_t want = rle4 ? byte / 2 : byte;
+      const int64_t got = std::min(want, std::max<int64_t>(0, size - p));
+      for (int64_t k = 0; k < got; ++k) {
+        if (rle4) {
+          put(src[p + k] >> 4, 1);
+          put(src[p + k] & 0x0F, 1);
+        } else {
+          put(src[p + k], 1);
+        }
+      }
+      p += got;
+      if (got < want) break;
+      x += byte;
+      if ((file_pos + p) % 2) ++p;
+    }
+  }
+  return len;
+}
+
 // The frame of a JPEG file: info = {width, height, channels (1 or 3),
 // process (0 baseline, 1 extended sequential, 2 progressive)}. Returns 0,
 // or 1 (corrupt) / 2 (unsupported) with a message in msg (msg_cap bytes).
@@ -1250,6 +1488,6 @@ int nm_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out,
   });
 }
 
-int nm_version() { return 3; }
+int nm_version() { return 4; }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-"""ctypes binding of the port's host library (``csrc/nm_host.cpp``): the
-data layer's loops, the GIF and PNG coders of ``viz/image_files.py``, and
-its JPEG decoder and TGA run-length expansion.
+"""ctypes binding of the port's host libraries: ``csrc/nm_host.cpp`` (the
+data layer's loops, the GIF and PNG coders of ``viz/image_files.py``, its
+JPEG decoder, and the LZW, PackBits and run-length expansions of its GIF,
+TIFF, BMP and TGA readers) and ``csrc/nm_webp.cpp`` (its WebP decoder).
 
 Counterpart of ``neural_marionette_tpu/data/native.py``. The library is
 built by ``kernels.py`` with ``g++`` into ``_build/`` at first use. Where
@@ -19,6 +20,7 @@ import numpy as np
 from .. import kernels
 
 _lib: Optional[ctypes.CDLL] = None
+_webp: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()   # the loader's threads may ask for it at once
 
 
@@ -49,6 +51,15 @@ def library() -> ctypes.CDLL:
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
             lib.nm_tga_unrle.argtypes = [u8p, i64, i64, ctypes.c_int, u8p]
             lib.nm_tga_unrle.restype = i64
+            lib.nm_gif_unlzw.argtypes = [u8p, i64, ctypes.c_int, u8p, i64]
+            lib.nm_gif_unlzw.restype = i64
+            lib.nm_tiff_unlzw.argtypes = [u8p, i64, u8p, i64]
+            lib.nm_tiff_unlzw.restype = i64
+            lib.nm_packbits.argtypes = [u8p, i64, u8p, i64]
+            lib.nm_packbits.restype = i64
+            lib.nm_bmp_unrle.argtypes = [u8p, i64, i64, i64, i64,
+                                         ctypes.c_int, u8p]
+            lib.nm_bmp_unrle.restype = i64
             lib.nm_jpeg_info.argtypes = [u8p, i64, i32p, ctypes.c_char_p,
                                          i64]
             lib.nm_jpeg_info.restype = ctypes.c_int
@@ -59,6 +70,25 @@ def library() -> ctypes.CDLL:
             lib.nm_version.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def webp_library() -> ctypes.CDLL:
+    """The loaded WebP decoder (``csrc/nm_webp.cpp``); built on first use,
+    raises if it cannot be built."""
+    global _webp
+    with _lock:
+        if _webp is None:
+            lib = kernels.library("nm_webp")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            i64 = ctypes.c_int64
+            lib.nm_webp_info.argtypes = [u8p, i64, i32p, ctypes.c_char_p, i64]
+            lib.nm_webp_info.restype = ctypes.c_int
+            lib.nm_webp_decode.argtypes = [u8p, i64, u8p, i64,
+                                           ctypes.c_char_p, i64]
+            lib.nm_webp_decode.restype = ctypes.c_int
+            _webp = lib
+    return _webp
 
 
 def _frames(points: np.ndarray) -> np.ndarray:
@@ -158,8 +188,77 @@ def tga_unrle(data: np.ndarray, n_pixels: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _bytes(data) -> np.ndarray:
+    return np.frombuffer(data, np.uint8) if isinstance(
+        data, (bytes, bytearray, memoryview)) else np.ascontiguousarray(
+            data, dtype=np.uint8).reshape(-1)
+
+
+def gif_unlzw(data, min_code_size: int, n_pixels: int) -> np.ndarray:
+    """A GIF frame's ``n_pixels`` palette indices (uint8, in the order the
+    frame stores its rows) from its LZW code stream ``data`` (the
+    sub-blocks joined). Raises ``ValueError`` on a code that names no
+    entry, and when the stream ends (or says end-of-information) before
+    ``n_pixels`` indices."""
+    src = _bytes(data)
+    out = np.zeros(n_pixels, np.uint8)
+    n = library().nm_gif_unlzw(src, src.size, int(min_code_size), out,
+                               n_pixels)
+    if n < 0:
+        raise ValueError("GIF: a bad LZW code (or minimum code size "
+                         f"{min_code_size})")
+    if n < n_pixels:
+        raise ValueError(f"GIF: the LZW data ends after {n} of {n_pixels} "
+                         "pixels (truncated)")
+    return out
+
+
+def tiff_unlzw(data, cap: int) -> np.ndarray:
+    """The bytes of a TIFF LZW strip or tile (at most ``cap``), as
+    tifffile's ``decode_lzw`` gives them. Raises ``ValueError`` on an
+    old-style (LSB-first) stream, one that does not start with a clear
+    code, or a code that names no entry."""
+    src = _bytes(data)
+    out = np.empty(cap, np.uint8)
+    n = library().nm_tiff_unlzw(src, src.size, out, cap)
+    if n == -1:
+        raise ValueError("TIFF: the LZW strip does not start with a clear "
+                         "code (old-style LZW is not read)")
+    if n < 0:
+        raise ValueError("TIFF: a bad LZW code")
+    return out[:n]
+
+
+def packbits(data, cap: int) -> np.ndarray:
+    """The bytes of a PackBits strip or tile (at most ``cap``), as
+    tifffile's ``decode_packbits`` gives them."""
+    src = _bytes(data)
+    out = np.empty(cap, np.uint8)
+    return out[:library().nm_packbits(src, src.size, out, cap)]
+
+
+def bmp_unrle(data, file_pos: int, width: int, height: int,
+              rle4: bool) -> np.ndarray:
+    """The ``height`` rows of ``width`` palette indices (as stored: the
+    bottom row first for a bottom-up BMP) of a BI_RLE8 or BI_RLE4 BMP from
+    its pixel data ``data``, which starts at byte ``file_pos`` of the file;
+    expanded as Pillow does. Raises ``ValueError`` when the data ends before
+    the image does."""
+    src = _bytes(data)
+    out = np.zeros(width * height, np.uint8)
+    n = library().nm_bmp_unrle(src, src.size, file_pos, width, height,
+                               int(rle4), out)
+    if n < 0:
+        raise ValueError("BMP: a run-length delta cut short by the end of "
+                         "the file")
+    if n < width * height:
+        raise ValueError(f"BMP: the run-length data ends after {n} of "
+                         f"{width * height} pixels")
+    return out.reshape(height, width)
+
+
 JPEG_PROCESSES = ("baseline", "extended sequential", "progressive")
-_JPEG_NO_ROOM = 3   # nm_jpeg_decode's code for memory that runs out
+_NO_ROOM = 3   # the decoders' code for memory that runs out
 
 
 def jpeg_info(data: bytes) -> dict:
@@ -186,7 +285,40 @@ def jpeg_decode(data: bytes) -> np.ndarray:
     msg = ctypes.create_string_buffer(256)
     code = library().nm_jpeg_decode(src, src.size, out, out.size, msg,
                                     len(msg))
-    if code == _JPEG_NO_ROOM:
+    if code == _NO_ROOM:
+        raise MemoryError(msg.value.decode(errors="replace"))
+    if code:
+        raise ValueError(msg.value.decode(errors="replace"))
+    return out
+
+
+def webp_info(data: bytes) -> dict:
+    """The facts of a WebP file: width, height (of the canvas), channels
+    (3, or 4 where Pillow reads alpha), lossless, animated. Raises
+    ``ValueError`` with the decoder's message on a corrupt file."""
+    src = np.frombuffer(data, np.uint8)
+    info = np.zeros(5, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    if webp_library().nm_webp_info(src, src.size, info, msg, len(msg)):
+        raise ValueError(msg.value.decode(errors="replace"))
+    return dict(width=int(info[0]), height=int(info[1]),
+                channels=int(info[2]), lossless=bool(info[3]),
+                animated=bool(info[4]))
+
+
+def webp_decode(data: bytes) -> np.ndarray:
+    """A WebP file's pixels (the first frame of an animation, on its
+    canvas) as (H, W, channels) uint8, equal to what libwebp's
+    ``WebPAnimDecoder`` gives Pillow. Raises ``ValueError`` with the
+    decoder's message on a corrupt or unsupported file."""
+    info = webp_info(data)
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((info["height"], info["width"], info["channels"]),
+                   np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    code = webp_library().nm_webp_decode(src, src.size, out, out.size, msg,
+                                         len(msg))
+    if code == _NO_ROOM:
         raise MemoryError(msg.value.decode(errors="replace"))
     if code:
         raise ValueError(msg.value.decode(errors="replace"))

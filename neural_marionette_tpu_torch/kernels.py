@@ -3,8 +3,8 @@ data library.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on first use into its own
 shared library with a plain C interface, loaded through ``ctypes``; the
-host library ``csrc/nm_host.cpp`` (``data/native.py``) is compiled the same
-way by ``g++``. The libraries land in ``_build/`` beside this file
+host libraries ``csrc/nm_host.cpp`` and ``csrc/nm_webp.cpp``
+(``data/native.py``) are compiled the same way by ``g++``. The libraries land in ``_build/`` beside this file
 (git-ignored), under a name that carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale one is never loaded. All
 sources build in parallel, one compiler process each.
@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("voxelize", "chamfer", "conv3d", "groupnorm")
-HOST_SOURCES = ("nm_host",)   # csrc/<name>.cpp, built by g++
+HOST_SOURCES = ("nm_host", "nm_webp")   # csrc/<name>.cpp, built by g++
 
 # No --use_fast_math: the voxelizer depends on true IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,8 +61,9 @@ _SIGNATURES = {
         "nm_groupnorm_act": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 5
                             + [_L] * 10 + [_I, _P],
     },
-    # the host library returns void; its signatures live in data/native.py
+    # the host libraries' signatures live in data/native.py
     "nm_host": {},
+    "nm_webp": {},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -8,17 +8,19 @@ Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
 * :func:`save_png` / :func:`write_png` — 8-bit RGB, zlib, lossless: the
   decoded pixels equal ``to_uint8(img)``;
 * :func:`read_png` — any PNG, as Pillow (and imageio) reads it;
-* :func:`read_image` / :func:`decode_image` — PNG, JPEG, BMP or TGA by
-  the file's magic number (the OBJ textures of ``apps/retarget``);
+* :func:`read_image` / :func:`decode_image` — PNG, JPEG, BMP, TGA, GIF,
+  TIFF (``viz/tiff.py``) or WebP by the file's magic number (the OBJ
+  textures of ``apps/retarget``), as imageio reads them;
 * :func:`write_gif` — GIF89a with the loop extension, an adaptive palette
   of at most 256 colours per frame (exact when the frame has no more; else
   a count-weighted median cut, each colour mapped to its nearest entry)
   and the frame delay the caller asks for, in seconds.
 
-The LZW coder of the GIF frames, the PNG row filters, the JPEG decoder
-and TGA's run-length packets run in the port's host library
-(``csrc/nm_host.cpp`` through ``data/native.py``), which raises when it
-cannot be built.
+The LZW coder of the GIF frames, the PNG row filters, the JPEG decoder,
+the LZW, PackBits and run-length expansions of GIF, TIFF, BMP and TGA, and
+the WebP decoder run in the port's host libraries (``csrc/nm_host.cpp``
+and ``csrc/nm_webp.cpp`` through ``data/native.py``), which raise when
+they cannot be built.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from scipy.spatial import cKDTree
 
 from ..data import native
+from .tiff import decode_tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -201,10 +204,52 @@ def _le(data: bytes, pos: int, n: int, signed: bool = False) -> int:
     return int.from_bytes(data[pos:pos + n], "little", signed=signed)
 
 
+# Pillow refuses an image of more pixels (twice its MAX_IMAGE_PIXELS)
+MAX_PIXELS = 178956970
+
+
+def check_pixels(width: int, height: int, path: str, fmt: str) -> None:
+    """Raise ``ValueError`` for an image past Pillow's decompression-bomb
+    limit, which the port holds every format to."""
+    if width * height > MAX_PIXELS:
+        raise ValueError(f"{path}: a {fmt} image of {width} x {height} "
+                         f"pixels, past the limit of {MAX_PIXELS}")
+
+
+# Pillow's BI_BITFIELDS layouts at 32 bits: (R, G, B, A) masks -> the byte
+# of each of R, G, B (and A) in the little-endian pixel
+_BMP_MASKS32 = {
+    (0xFF0000, 0xFF00, 0xFF, 0): (2, 1, 0),
+    (0xFF000000, 0xFF0000, 0xFF00, 0): (3, 2, 1),
+    (0xFF000000, 0xFF00, 0xFF, 0): (3, 1, 0),
+    (0xFF000000, 0xFF0000, 0xFF00, 0xFF): (3, 2, 1, 0),
+    (0xFF, 0xFF00, 0xFF0000, 0xFF000000): (0, 1, 2, 3),
+    (0xFF0000, 0xFF00, 0xFF, 0xFF000000): (2, 1, 0, 3),
+    (0xFF000000, 0xFF00, 0xFF, 0xFF0000): (3, 1, 0, 2),
+    (0, 0, 0, 0): (2, 1, 0, 3)}
+# at 16 bits: (R, G, B) masks -> the bits of R, G, B (shift, width)
+_BMP_MASKS16 = {(0x7C00, 0x3E0, 0x1F): ((10, 5), (5, 5), (0, 5)),
+                (0xF800, 0x7E0, 0x1F): ((11, 5), (5, 6), (0, 5))}
+_BMP_COMPRESSION = {0: "BI_RGB", 1: "BI_RLE8", 2: "BI_RLE4",
+                    3: "BI_BITFIELDS", 4: "BI_JPEG", 5: "BI_PNG",
+                    6: "BI_ALPHABITFIELDS"}
+
+
+def _unpack16(px: np.ndarray, fields) -> np.ndarray:
+    """(H, W) uint16 pixels -> (H, W, 3) uint8 of ``fields`` ((shift,
+    width) per channel), each scaled as Pillow does: v * 255 // (2^w - 1)."""
+    out = [((px >> s) & ((1 << w) - 1)).astype(np.uint32) * 255
+           // ((1 << w) - 1) for s, w in fields]
+    return np.stack(out, -1).astype(np.uint8)
+
+
 def _decode_bmp(data: bytes, path: str) -> np.ndarray:
-    """A ``BI_RGB`` BMP at 1, 4, 8 (paletted), 24 or 32 bits a pixel,
-    bottom-up or top-down, as (H, W, 3) uint8 (32 bits: the fourth byte
-    ignored, as Pillow does)."""
+    """A BMP as Pillow reads it: ``BI_RGB`` at 1, 4, 8 (paletted), 16
+    (5-5-5), 24 or 32 bits a pixel (the fourth byte ignored);
+    ``BI_RLE8`` / ``BI_RLE4``; ``BI_BITFIELDS`` in the mask layouts Pillow
+    accepts (16 bits 5-5-5 and 5-6-5, 24, and seven 32-bit layouts, four
+    of them with alpha); bottom-up or top-down. (H, W, 3) uint8, or
+    (H, W, 4) RGBA for a 32-bit layout with alpha."""
     if data[:2] != b"BM" or len(data) < 26:
         raise ValueError(f"{path}: not a BMP file")
     offset, hsize = _le(data, 10, 4), _le(data, 14, 4)
@@ -217,14 +262,33 @@ def _decode_bmp(data: bytes, path: str) -> np.ndarray:
         colors, entry = _le(data, 46, 4), 4
     else:
         raise ValueError(f"{path}: BMP header of {hsize} bytes is not read")
-    if compression != 0:
-        raise ValueError(f"{path}: BMP compression {compression} is not "
-                         "read (only BI_RGB)")
-    if bits not in (1, 4, 8, 24, 32):
+    name = _BMP_COMPRESSION.get(compression, str(compression))
+    if compression not in (0, 1, 2, 3):
+        raise ValueError(f"{path}: BMP compression {compression} ({name}) "
+                         "is not read (Pillow reads none of it)")
+    if bits not in (1, 4, 8, 16, 24, 32):
         raise ValueError(f"{path}: BMP at {bits} bits a pixel is not read")
+    if compression in (1, 2) and bits > 8:
+        raise ValueError(f"{path}: BMP compression {name} at {bits} bits a "
+                         "pixel is not read")
+    masks = None
+    if compression == 3:
+        # the masks follow a 40-byte header; later headers hold them
+        if len(data) < 14 + max(hsize, 40) + 12:
+            raise ValueError(f"{path}: BMP bitfield masks truncated")
+        masks = tuple(_le(data, 54 + 4 * i, 4) for i in range(3)) + (
+            _le(data, 66, 4) if hsize >= 56 else 0,)
+        if not (bits == 32 and masks in _BMP_MASKS32
+                or bits == 24 and masks[:3] == (0xFF0000, 0xFF00, 0xFF)
+                or bits == 16 and masks[:3] in _BMP_MASKS16):
+            raise ValueError(
+                f"{path}: BMP bitfields layout at {bits} bits (masks "
+                + ", ".join(f"{m:#x}" for m in masks)
+                + ") is not one that Pillow reads")
     top_down, H = H < 0, abs(H)
     if W <= 0 or H == 0:
         raise ValueError(f"{path}: BMP of {W} x {H} pixels")
+    check_pixels(W, H, path, "BMP")
     lut = None
     if bits <= 8:
         colors = colors or 1 << bits
@@ -244,6 +308,10 @@ def _decode_bmp(data: bytes, path: str) -> np.ndarray:
         lut[:colors] = pal
         if colors != 2 and np.array_equal(pal, ramp):
             lut = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    if compression in (1, 2):
+        idx = native.bmp_unrle(np.frombuffer(data, np.uint8)[offset:], offset,
+                               W, H, compression == 2)
+        return lut[idx if top_down else idx[::-1]]
     stride = (W * bits + 31) // 32 * 4
     if offset + stride * H > len(data):
         raise ValueError(f"{path}: BMP pixel data truncated")
@@ -251,10 +319,15 @@ def _decode_bmp(data: bytes, path: str) -> np.ndarray:
                                                                      stride)
     if not top_down:
         rows = rows[::-1]
+    if bits == 16:
+        px = rows[:, :2 * W].copy().view("<u2")
+        return _unpack16(px, _BMP_MASKS16[masks[:3]] if masks else
+                         _BMP_MASKS16[(0x7C00, 0x3E0, 0x1F)])
     if bits >= 24:
         n = bits // 8
+        order = (2, 1, 0) if masks is None or n == 3 else _BMP_MASKS32[masks]
         return np.ascontiguousarray(
-            rows[:, :W * n].reshape(H, W, n)[..., 2::-1])
+            rows[:, :W * n].reshape(H, W, n)[..., list(order)])
     return lut[_unpack_samples(rows, W, bits, 1)[..., 0]]
 
 
@@ -276,23 +349,35 @@ def _tga_header(data: bytes):
     return h
 
 
+def _tga15(px: np.ndarray) -> np.ndarray:
+    """(..., 2) little-endian A1R5G5B5 bytes -> (..., 4) RGBA uint8, as
+    Pillow's "BGRA;15Z": each 5-bit field times 255 // 31, alpha 255 where
+    the top bit is clear and 0 where it is set."""
+    v = px[..., 0].astype(np.uint16) | (px[..., 1].astype(np.uint16) << 8)
+    rgb = _unpack16(v, ((10, 5), (5, 5), (0, 5)))
+    alpha = np.where(v & 0x8000, 0, 255).astype(np.uint8)
+    return np.concatenate([rgb, alpha[..., None]], -1)
+
+
 def _decode_tga(data: bytes, path: str) -> np.ndarray:
-    """A TGA of image type 2 or 10 (true colour, 24 or 32 bits: (H, W, 3)
-    or (H, W, 4) RGBA), 3 or 11 (grey, 8 bits: (H, W, 1)) or 1 or 9
-    (8-bit indices into a 24- or 32-bit colour map: RGB or RGBA; indices
-    past the map black, as Pillow pads it), raw or run-length, with the
-    origin bits honoured (bottom-up unless bit 5, mirrored when bit 4)."""
+    """A TGA of image type 2 or 10 (true colour: 24 bits (H, W, 3), 32 bits
+    or 16 bits A1R5G5B5 (H, W, 4) RGBA, the 16-bit alpha set where the top
+    bit is clear, as Pillow reads it), 3 or 11 (grey: 8 bits (H, W, 1), 16
+    bits grey + alpha (H, W, 2)) or 1 or 9 (8-bit indices into a 24-bit
+    colour map: RGB; a 32- or 16-bit map: RGBA; indices past the map
+    black, as Pillow pads it), raw or run-length, with the origin bits
+    honoured (bottom-up unless bit 5, mirrored when bit 4)."""
     h = _tga_header(data)
     if h is None:
         raise ValueError(f"{path}: not a TGA file")
     kind, depth = h["kind"], h["depth"]
     mapped = (kind & 7) == 1
-    if not ((kind & 7) == 2 and depth in (24, 32)
-            or (kind & 7) == 3 and depth == 8
+    if not ((kind & 7) == 2 and depth in (16, 24, 32)
+            or (kind & 7) == 3 and depth in (8, 16)
             or mapped and depth == 8 and h["cmap"]):
         raise ValueError(f"{path}: TGA image type {kind} at {depth} bits is "
-                         "not read (types 1, 9 at 8 bits; 2, 10 at 24 and "
-                         "32; 3, 11 at 8)")
+                         "not read (types 1, 9 at 8 bits; 2, 10 at 16, 24 "
+                         "and 32; 3, 11 at 8 and 16)")
     pos = 18 + h["id_len"]
     lut = None
     if h["cmap"]:
@@ -301,17 +386,21 @@ def _decode_tga(data: bytes, path: str) -> np.ndarray:
                              f"{h['cmap_depth']} bits")
         n, size = h["cmap_len"], h["cmap_depth"] // 8
         if mapped:
-            if size == 2:
-                raise ValueError(f"{path}: TGA 16-bit colour map is not read")
             entries = data[pos:pos + n * size]
             if len(entries) < n * size:
                 raise ValueError(f"{path}: TGA colour map truncated")
             start = h["cmap_start"]
-            lut = np.zeros((max(256, start + n), size), np.uint8)
-            lut[start:start + n] = np.frombuffer(entries, np.uint8).reshape(
-                n, size)[:, [2, 1, 0, 3][:size]]
+            entries = np.frombuffer(entries, np.uint8).reshape(n, size)
+            lut = np.zeros((max(256, start + n), 4 if size == 2 else size),
+                           np.uint8)
+            if size == 2:
+                lut[:start + n] = _tga15(np.concatenate(
+                    [np.zeros((start, 2), np.uint8), entries]))
+            else:
+                lut[start:start + n] = entries[:, [2, 1, 0, 3][:size]]
         pos += n * size
     W, H, n = h["width"], h["height"], depth // 8
+    check_pixels(W, H, path, "TGA")
     if kind & 8:
         px = native.tga_unrle(np.frombuffer(data[pos:], np.uint8), W * H, n)
     else:
@@ -325,16 +414,127 @@ def _decode_tga(data: bytes, path: str) -> np.ndarray:
         px = px[:, ::-1]
     if lut is not None:
         return lut[px[..., 0]]
-    if n == 1:
+    if (kind & 7) == 3:
         return np.ascontiguousarray(px)
+    if n == 2:
+        return _tga15(px)
     return np.ascontiguousarray(px[..., [2, 1, 0, 3][:n]])
+
+
+# --------------------------------------------------------------------- GIF
+def _gif_palette(table: bytes):
+    """A GIF colour table as (256, 3) uint8 (entries past it black), or
+    None where Pillow drops it: every entry i is the grey (i, i, i), and
+    the frame reads as grey levels (mode "L")."""
+    pal = np.frombuffer(table, np.uint8).reshape(-1, 3)
+    if np.array_equal(pal, np.repeat(np.arange(len(pal))[:, None], 3, 1)):
+        return None
+    lut = np.zeros((256, 3), np.uint8)
+    lut[:len(pal)] = pal
+    return lut
+
+
+def _gif_sub_blocks(data: bytes, pos: int):
+    """The data sub-blocks from ``pos`` through their terminator (or the
+    end of the file): (joined bytes, position after them)."""
+    out = []
+    while pos < len(data) and data[pos]:
+        n = data[pos]
+        out.append(data[pos + 1:pos + 1 + n])
+        pos += 1 + n
+    return b"".join(out), pos + 1
+
+
+def _decode_gif(data: bytes, path: str) -> np.ndarray:
+    """The first frame of a GIF as Pillow (and imageio) reads it: its
+    palette indices through the frame's colour table (the local one, else
+    the global one; entries past the table black) as (H, W, 3) uint8, or
+    the indices themselves as (H, W, 1) grey where that table is the grey
+    ramp 0, 1, 2, ... or there is none. The canvas is the logical screen,
+    grown to hold the frame; outside the frame it holds the GCE's
+    transparency index, else index 0. Interlaced rows are put in order."""
+    if len(data) < 13:
+        raise ValueError(f"{path}: GIF header truncated")
+    screen_w, screen_h, flags = _le(data, 6, 2), _le(data, 8, 2), data[10]
+    pos, table = 13, None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        if pos + n > len(data):
+            raise ValueError(f"{path}: GIF global colour table truncated")
+        table = _gif_palette(data[pos:pos + n])
+        pos += n
+    transparency = None
+    while True:   # Pillow skips bytes that start no block
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise ValueError(f"{path}: GIF holds no image")
+        kind = data[pos]
+        pos += 1
+        if kind == 0x21:            # extension: label, then sub-blocks
+            if pos >= len(data):
+                raise ValueError(f"{path}: GIF extension truncated")
+            label = data[pos]
+            pos += 1
+            first = None
+            if pos < len(data) and data[pos]:
+                first = data[pos + 1:pos + 1 + data[pos]]
+                if len(first) < data[pos]:
+                    raise ValueError(f"{path}: GIF extension truncated")
+                pos += 1 + data[pos]
+            else:
+                pos += 1
+            if label == 0xF9 and first is not None and first[0] & 1:
+                if len(first) < 4:
+                    raise ValueError(f"{path}: GIF graphic control "
+                                     "extension truncated")
+                transparency = first[3]
+            if label != 0xFE or first is not None:
+                pos = _gif_sub_blocks(data, pos)[1]
+        elif kind == 0x2C:          # image descriptor
+            break
+    if pos + 9 > len(data):
+        raise ValueError(f"{path}: GIF image descriptor truncated")
+    x0, y0, w, h = (_le(data, pos + 2 * i, 2) for i in range(4))
+    flags = data[pos + 8]
+    pos += 9
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        if pos + n > len(data):
+            raise ValueError(f"{path}: GIF local colour table truncated")
+        table = _gif_palette(data[pos:pos + n])
+        pos += n
+    if w == 0 or h == 0:
+        raise ValueError(f"{path}: GIF frame of {w} x {h} pixels")
+    if pos >= len(data):
+        raise ValueError(f"{path}: GIF image data truncated")
+    mcs = data[pos]
+    if not 2 <= mcs <= 8:
+        raise ValueError(f"{path}: GIF minimum code size {mcs} is not read")
+    check_pixels(max(screen_w, x0 + w), max(screen_h, y0 + h), path, "GIF")
+    stream = _gif_sub_blocks(data, pos + 1)[0]
+    try:
+        idx = native.gif_unlzw(stream, mcs, w * h).reshape(h, w)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    if flags & 0x40:                # interlaced: rows in four passes
+        order = np.concatenate([np.arange(start, h, step) for start, step
+                                in ((0, 8), (4, 8), (2, 4), (1, 2))])
+        rows = np.empty_like(idx)
+        rows[order] = idx
+        idx = rows
+    H, W = max(screen_h, y0 + h), max(screen_w, x0 + w)
+    canvas = np.full((H, W), 0 if transparency is None else transparency,
+                     np.uint8)
+    canvas[y0:y0 + h, x0:x0 + w] = idx
+    if table is None:
+        return canvas[..., None]
+    return table[canvas]
 
 
 # ------------------------------------------------------------- any format
 _MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
           (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
           (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
-READ_FORMATS = ("PNG", "JPEG", "BMP", "TGA")
+READ_FORMATS = ("PNG", "JPEG", "BMP", "TGA", "GIF", "TIFF", "WebP")
 
 
 def image_format(data: bytes, path: str = "") -> str:
@@ -354,22 +554,28 @@ def image_format(data: bytes, path: str = "") -> str:
 def decode_image(data: bytes, path: str = "") -> np.ndarray:
     """An image file's bytes as (H, W, C) samples, by its format
     (:func:`image_format`; ``path`` names the file in errors and decides a
-    TGA without a valid header): PNG (:func:`read_png`), JPEG (baseline,
+    TGA without a valid header), each as imageio reads it for the JAX
+    package's ``_find_texture``: PNG (:func:`read_png`), JPEG (baseline,
     extended sequential or progressive, Huffman-coded, 8-bit, 1 or 3
-    components; uint8, decoded by the host library as libjpeg-turbo does),
-    BMP and TGA (uint8). A GIF, TIFF, WebP or unknown file, or one that
-    cannot be decoded, raises ``ValueError`` naming the format."""
+    components; decoded by the host library as libjpeg-turbo does), BMP,
+    TGA and GIF (the first frame; uint8), TIFF (the first page,
+    ``viz/tiff.decode_tiff``: uint8, uint16 or float32) and WebP (lossless
+    and lossy, the first frame of an animation; RGB, or RGBA where the file
+    has alpha; decoded by the host library as libwebp does). An unknown
+    file, or one that cannot be decoded, raises ``ValueError`` naming the
+    format."""
     fmt = image_format(data, path)
     if fmt not in READ_FORMATS:
         raise ValueError(f"{path}: a {fmt} image; the port reads "
                          f"{', '.join(READ_FORMATS)} images")
-    if fmt == "JPEG":
+    if fmt in ("JPEG", "WebP"):
         try:
-            return native.jpeg_decode(data)
+            return (native.jpeg_decode if fmt == "JPEG" else
+                    native.webp_decode)(data)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from None
-    return {"PNG": _decode_png, "BMP": _decode_bmp,
-            "TGA": _decode_tga}[fmt](data, path)
+    return {"PNG": _decode_png, "BMP": _decode_bmp, "TGA": _decode_tga,
+            "GIF": _decode_gif, "TIFF": decode_tiff}[fmt](data, path)
 
 
 def read_image(path: str) -> np.ndarray:
