@@ -115,20 +115,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
     the run's directory, their ``.npy`` outputs checked;
 16. the OBJ textures (``textures`` line): every fixture of
     ``tests/torch_textures/`` (PNG of every colour type, depth and
-    interlace, JPEG baseline, extended and progressive at 4:4:4, 4:2:2,
-    4:2:0 and 4:4:0 with restart intervals, BMP with run-length and
-    bitfields, TGA at 16 bits, GIF, TIFF of every layout and compression
-    imageio reads, WebP lossless, lossy, with alpha and animated) read by
-    ``viz.image_files.read_image`` (JPEG and WebP, and the LZW, PackBits
-    and run-length expansions, in the host libraries built on this
-    machine) and ``apps.retarget.texture_rgb``, equal to the bit to
+    interlace; JPEG baseline, extended, progressive and lossless, Huffman
+    and arithmetic, at 4:4:4, 4:2:2, 4:2:0, 4:4:0 and sampling factors 3
+    and 4, with restart intervals, CMYK and YCCK, without DHT, progressive
+    files cut short (block smoothing); BMP with run-length and bitfields;
+    TGA at 16 bits; GIF; TIFF of every layout and compression imageio
+    reads, signed and YCbCr samples; WebP lossless, lossy, with alpha and
+    animated; DDS uncompressed and BC1-BC7; QOI; PNM and PFM) read by
+    ``viz.image_files.read_image`` (JPEG, WebP, QOI and BCn, and the LZW,
+    PackBits and run-length expansions, in the host libraries built on
+    this machine) and ``apps.retarget.texture_rgb``, equal to the bit to
     ``MANIFEST.json`` (imageio's pixels on the machine that wrote them);
-    the refused files (CMYK, arithmetic, lossless, hierarchical, 12-bit
-    and h4v1 JPEG; TIFF JPEG, CCITT, old-style LZW, YCbCr subsampling;
-    truncated GIF and WebP, a bad LZW code, BMP layouts Pillow refuses)
-    raising ``ValueError`` naming what they are; the host ms of decoding
-    each 1024 x 1024 file (baseline and progressive 4:2:0 JPEG, GIF, TIFF
-    LZW, WebP lossless and lossy);
+    the refused files (hierarchical, 12-bit, fractionally sampled,
+    lossless YCbCr or without tables or arithmetic-coded JPEG, an
+    arithmetic scan past 64 KiB; TIFF JPEG, CCITT, old-style LZW, YCbCr
+    subsampling; truncated GIF, WebP, DDS and QOI, a bad LZW code, BMP
+    layouts and a DDS format Pillow refuses; PSD, which imageio does not
+    read) raising ``ValueError`` naming what they are; the host ms of
+    decoding each 1024 x 1024 file (baseline and progressive 4:2:0 JPEG,
+    arithmetic sequential and progressive 4:2:0 JPEG, CMYK JPEG, GIF,
+    TIFF LZW, WebP lossless and lossy, BC1 and BC7 DDS, QOI);
     then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
@@ -3914,7 +3920,10 @@ def _textured_target(work, res=70, texture=None):
 TEXTURES = ROOT / "tests" / "torch_textures"
 TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
                  "gif_1024.gif", "tiff_1024_lzw.tif",
-                 "webp_1024_lossless.webp", "webp_1024_lossy.webp")
+                 "webp_1024_lossless.webp", "webp_1024_lossy.webp",
+                 "jpeg_1024_arith_sequential_420.jpg",
+                 "jpeg_1024_arith_progressive_420.jpg", "jpeg_1024_cmyk.jpg",
+                 "dds_1024_bc1.dds", "dds_1024_bc7.dds", "qoi_1024.qoi")
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
 RENDER_WEBP = "webp_1024_lossless.webp"    # the WebP-textured retarget set
@@ -3929,11 +3938,12 @@ def _texture_expected(entry, arrays):
 
 def phase_textures(card, reps=11):
     """Every texture fixture of ``tests/torch_textures/`` through the
-    port's ``read_image`` and ``texture_rgb`` (the JPEG and WebP decoders
-    and the LZW, PackBits and run-length expansions of the host libraries
-    built on this machine), held against ``MANIFEST.json``: equal to the
-    bit to ``expected.npz``, or the SHA-256 of the 1024 x 1024 files'
-    pixels; a refused file must raise ``ValueError`` naming what it is.
+    port's ``read_image`` and ``texture_rgb`` (the JPEG, WebP, QOI and BCn
+    decoders and the LZW, PackBits and run-length expansions of the host
+    libraries built on this machine), held against ``MANIFEST.json``:
+    equal to the bit to ``expected.npz``, or the SHA-256 of the 1024 x
+    1024 files' samples; a refused file must raise ``ValueError`` naming
+    what it is.
     Then each 1024 x 1024 file's decode time on the host (p50 and min of
     ``reps`` calls of ``image_files.decode_image`` on the file's bytes, and
     of ``read_image`` with the file read)."""

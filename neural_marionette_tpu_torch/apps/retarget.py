@@ -94,8 +94,9 @@ def _find_texture(mtl_path: str):
     [0, 1]; None when the file is absent or declares no texture, and, with
     a warning, when the declared image is missing (the JAX function's
     None). The image is read by ``viz.image_files.read_image`` (PNG, JPEG,
-    BMP, TGA, GIF, TIFF, WebP); a file that is present but cannot be read
-    raises ``ValueError``."""
+    BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM); a file that is present but
+    cannot be read (a PSD, which imageio does not read either) raises
+    ``ValueError``."""
     if not os.path.exists(mtl_path):
         return None
     tex_file = None
@@ -124,18 +125,30 @@ def texture_rgb(img: np.ndarray) -> np.ndarray:
     dropped, a 16-bit sample is divided by 65535 (the JAX function keeps 3
     columns of a grey image, 2 channels of grey + alpha, and divides 16-bit
     samples by 255); float samples are clipped to [0, 1], NaN read as 0 (the
-    JAX function divides them by 255). ``read_image`` has already applied the rest of
-    the rules to a TIFF: a palette's indices mapped through its colour map
+    JAX function divides them by 255); a signed d-bit sample (TIFF's int8,
+    int16) is offset by 2^(d-1) and divided by 2^d - 1 (the JAX texture is
+    negative); int32 (Pillow's mode "I" of a PGM past 8 bits, 0-65535) is
+    divided by 65535. ``read_image`` has already applied the rest of the
+    rules: to a TIFF, a palette's indices mapped through its colour map
     (16-bit entries, so / 65535), planar samples read as (H, W, C), the
     first page of several, CMYK made RGB as Pillow's ``convert("RGB")``
-    does, min-is-white inverted, 1-, 2- and 4-bit samples scaled to 8 bits
-    (the JAX function gets tifffile's raw indices, (C, H, W), all pages,
-    the CMYK samples, the stored levels)."""
+    does and YCbCr as libtiff's ``TIFFYCbCrToRGB`` does, min-is-white
+    inverted, 1-, 2- and 4-bit samples scaled to 8 bits (the JAX function
+    gets tifffile's raw indices, (C, H, W), all pages, the CMYK and YCbCr
+    samples, the stored levels); to a CMYK or YCCK JPEG, Pillow's CMYK
+    made RGB as for TIFF (the JAX texture is C, M, Y); a bitmap's bool as 0
+    and 255."""
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3,
                                                            axis=-1)
     if img.dtype.kind == "f":
         return np.clip(np.nan_to_num(rgb, nan=0.0), 0, 1).astype(np.float32)
-    scale = np.float32(65535.0 if img.dtype == np.uint16 else 255.0)
+    if img.dtype in (np.int8, np.int16):   # signed: offset, then / 2^d - 1
+        bits = 8 * img.dtype.itemsize
+        return (rgb.astype(np.float32) + np.float32(1 << (bits - 1))) \
+            / np.float32((1 << bits) - 1)
+    # int32: a PGM past 8 bits, which Pillow scales to 0-65535
+    scale = np.float32(65535.0 if img.dtype in (np.uint16, np.int32)
+                       else 255.0)
     return rgb.astype(np.float32) / scale
 
 

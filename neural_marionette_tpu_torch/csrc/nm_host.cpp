@@ -21,12 +21,16 @@
 //   * nm_tiff_unlzw / nm_packbits — TIFF's LZW (MSB first, early change)
 //                          and PackBits strips, as tifffile decodes them
 //   * nm_bmp_unrle      — a BI_RLE8 / BI_RLE4 BMP, as Pillow expands it
-//   * nm_jpeg_info / nm_jpeg_decode — a Huffman-coded 8-bit JPEG
-//                          (baseline, extended sequential, progressive;
-//                          1 or 3 components, sampling factors 1 or 2)
-//                          decoded as libjpeg-turbo does by default: its
-//                          integer IDCT, fancy upsampling and YCbCr
-//                          tables, so the pixels equal Pillow's
+//   * nm_qoi_decode     — a QOI image's ops, as Pillow's QoiDecoder reads
+//                          them
+//   * nm_jpeg_info / nm_jpeg_decode — an 8-bit JPEG (baseline, extended
+//                          sequential, progressive and lossless; Huffman
+//                          or arithmetic coding; 1, 3 or 4 components,
+//                          sampling factors 1-4) decoded as libjpeg-turbo
+//                          3 does by default: its integer IDCT, block
+//                          smoothing, fancy upsampling, colour tables and
+//                          colour space guess, so the pixels equal
+//                          Pillow's
 //
 // Exposed with C linkage for ctypes. Nothing throws across that boundary:
 // the JPEG entry points return an error code and write a message.
@@ -79,15 +83,20 @@ void parallel_for(int64_t count, F&& fn, int max_threads = 0) {
 
 namespace {
 // ------------------------------------------------------------------ JPEG
-// A Huffman-coded 8-bit JPEG decoder that reproduces libjpeg-turbo's
-// default output (what Pillow, and through it imageio, returns): the
-// integer IDCT jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2), "fancy"
-// upsampling (jdsample.c: the h2v1 and h2v2 triangle filters, h1v2), the
-// fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16) and the
-// colour space guess of jdapimin.c (JFIF, the Adobe APP14 transform, the
-// component IDs). Every read is bounds-checked; a bad file throws a
-// Failure inside this namespace, which the C entry points turn into an
-// error code and a message.
+// An 8-bit JPEG decoder that reproduces libjpeg-turbo 3's default output
+// (what Pillow, and through it imageio, returns): Huffman (jdhuff.c,
+// jdphuff.c, jdlhuff.c, with jstdhuff.c's tables for a sequential frame
+// without DHT, and its zero-filled MCUs once the data runs out) and
+// arithmetic (jdarith.c) entropy decoding; the integer IDCT
+// jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2) after the block smoothing
+// of jdcoefct.c where a progressive file leaves coefficients unrefined;
+// lossless prediction (jdpred.c); "fancy" upsampling (jdsample.c: the h2v1
+// and h2v2 triangle filters, h1v2) and int_upsample for the other whole
+// ratios; the fixed-point YCbCr -> RGB and YCCK -> CMYK tables of jdcolor.c
+// (SCALEBITS 16) and the colour space guess of jdapimin.c (JFIF, the Adobe
+// APP14 transform, the component IDs). Every read is bounds-checked; a bad
+// file throws a Failure inside this namespace, which the C entry points
+// turn into an error code and a message.
 namespace jpeg {
 
 enum Status { kOk = 0, kCorrupt = 1, kUnsupported = 2, kNoRoom = 3 };
@@ -154,8 +163,9 @@ void build_table(HuffTable& t, const uint8_t* counts, const uint8_t* vals,
 
 // The bits of an entropy-coded segment, MSB first, with 0xFF00 unstuffed
 // and 0xFF fill bytes skipped. At a marker or the end of the data it feeds
-// zeros, as libjpeg does; a symbol that consumes one of them fails, since a
-// well-formed file never needs them.
+// zeros, as libjpeg does. A symbol that consumes one of them sets
+// insufficient (libjpeg's insufficient_data: the MCU is finished on zeros
+// and the segment's later MCUs are left zero), or fails where strict.
 struct BitReader {
   const uint8_t* d = nullptr;
   size_t n = 0, pos = 0;
@@ -163,6 +173,7 @@ struct BitReader {
   int cnt = 0;          // valid bits in acc, from its top
   int pad = 0;          // of which the last pad bits are fed zeros
   bool at_marker = false;
+  bool strict = false, insufficient = false;
 
   void reset(const uint8_t* data, size_t size, size_t p) {
     d = data;
@@ -170,7 +181,7 @@ struct BitReader {
     pos = p;
     acc = 0;
     cnt = pad = 0;
-    at_marker = false;
+    at_marker = insufficient = false;
   }
   void fill() {
     while (cnt <= 56) {
@@ -205,7 +216,10 @@ struct BitReader {
   void skip(int k) {
     acc <<= k;
     cnt -= k;
-    if (pad > cnt) fail(kCorrupt, "JPEG: entropy-coded data ends early");
+    if (pad > cnt) {
+      if (strict) fail(kCorrupt, "JPEG: entropy-coded data ends early");
+      insufficient = true;
+    }
   }
   int get(int k) {
     if (k == 0) return 0;
@@ -236,6 +250,165 @@ inline int extend(int r, int s) {
   return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r;
 }
 
+// jaricom.c's jpeg_aritab: the QM coder's probability estimation state
+// machine of ITU T.81 table D.2, each entry (Qe << 16) | (Next_Index_MPS
+// << 8) | (Switch_MPS << 7) | Next_Index_LPS; entry 113 is the fixed
+// probability 0.5 of the sign and refinement bits
+constexpr uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// jstdhuff.c: the tables of ITU T.81 annex K.3 (DC 0, AC 0, DC 1, AC 1),
+// which libjpeg installs in each of those slots that no DHT has filled by
+// the first scan (Motion-JPEG frames carry none)
+constexpr uint8_t kStdCounts[4][16] = {
+    {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+    {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+    {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+    {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119}};
+constexpr uint8_t kStdDc[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kStdAcLuma[162] = {
+    1,   2,   3,   0,   4,   17,  5,   18,  33,  49,  65,  6,   19,  81,
+    97,  7,   34,  113, 20,  50,  129, 145, 161, 8,   35,  66,  177, 193,
+    21,  82,  209, 240, 36,  51,  98,  114, 130, 9,   10,  22,  23,  24,
+    25,  26,  37,  38,  39,  40,  41,  42,  52,  53,  54,  55,  56,  57,
+    58,  67,  68,  69,  70,  71,  72,  73,  74,  83,  84,  85,  86,  87,
+    88,  89,  90,  99,  100, 101, 102, 103, 104, 105, 106, 115, 116, 117,
+    118, 119, 120, 121, 122, 131, 132, 133, 134, 135, 136, 137, 138, 146,
+    147, 148, 149, 150, 151, 152, 153, 154, 162, 163, 164, 165, 166, 167,
+    168, 169, 170, 178, 179, 180, 181, 182, 183, 184, 185, 186, 194, 195,
+    196, 197, 198, 199, 200, 201, 202, 210, 211, 212, 213, 214, 215, 216,
+    217, 218, 225, 226, 227, 228, 229, 230, 231, 232, 233, 234, 241, 242,
+    243, 244, 245, 246, 247, 248, 249, 250};
+constexpr uint8_t kStdAcChroma[162] = {
+    0,   1,   2,   3,   17,  4,   5,   33,  49,  6,   18,  65,  81,  7,
+    97,  113, 19,  34,  50,  129, 8,   20,  66,  145, 161, 177, 193, 9,
+    35,  51,  82,  240, 21,  98,  114, 209, 10,  22,  36,  52,  225, 37,
+    241, 23,  24,  25,  26,  38,  39,  40,  41,  42,  53,  54,  55,  56,
+    57,  58,  67,  68,  69,  70,  71,  72,  73,  74,  83,  84,  85,  86,
+    87,  88,  89,  90,  99,  100, 101, 102, 103, 104, 105, 106, 115, 116,
+    117, 118, 119, 120, 121, 122, 130, 131, 132, 133, 134, 135, 136, 137,
+    138, 146, 147, 148, 149, 150, 151, 152, 153, 154, 162, 163, 164, 165,
+    166, 167, 168, 169, 170, 178, 179, 180, 181, 182, 183, 184, 185, 186,
+    194, 195, 196, 197, 198, 199, 200, 201, 202, 210, 211, 212, 213, 214,
+    215, 216, 217, 218, 226, 227, 228, 229, 230, 231, 232, 233, 234, 242,
+    243, 244, 245, 246, 247, 248, 249, 250};
+
+// Pillow's limit on the pixels of an image (twice its MAX_IMAGE_PIXELS),
+// past which it refuses to decode
+constexpr int64_t kMaxPixels = 178956970;
+
+// Pillow feeds libjpeg the file in blocks of this many bytes (ImageFile's
+// MAXBLOCK), one more block each time libjpeg runs out and suspends.
+// libjpeg's arithmetic decoder cannot suspend: a scan whose data runs past
+// the blocks fed when it starts fails, and imageio with it.
+constexpr size_t kFeed = 65536;
+
+// jdarith.c's QM decoder (ITU T.81 annex D) over one scan's entropy-coded
+// data. Bytes are read as its get_byte and arith_decode read them: 0xFF00
+// is a 0xFF data byte, fill 0xFF bytes are swallowed, and once a marker is
+// met (which ends a segment legally in arithmetic coding) zeros are fed.
+// The data ending without a marker is a failure, as it is for libjpeg
+// (which cannot suspend in this decoder); so is data past limit, the bytes
+// Pillow has handed libjpeg by then (see kFeed).
+struct ArithReader {
+  const uint8_t* d = nullptr;
+  size_t n = 0, pos = 0, limit = 0;
+  bool marker = false;     // libjpeg's unread_marker: a marker was met
+  int marker_code = 0;
+  size_t marker_pos = 0;   // the 0xFF before the marker's code
+  int64_t c = 0, a = 0;
+  int ct = -16;            // -16: two bytes to read; -1: a decoding error
+
+  void reset(const uint8_t* data, size_t size, size_t p) {
+    d = data;
+    n = size;
+    pos = p;
+    marker = false;
+    c = a = 0;
+    ct = -16;
+  }
+  void check() const {
+    if (pos >= n) fail(kCorrupt, "JPEG: arithmetic-coded data ends early");
+    if (pos >= limit)
+      fail(kUnsupported, "JPEG: arithmetic-coded data past byte %zu, the "
+                         "end of the 64 KiB blocks Pillow hands libjpeg, "
+                         "whose arithmetic decoder cannot wait for more "
+                         "(imageio refuses the file)", limit);
+  }
+  int byte() {
+    if (marker) return 0;
+    check();
+    int v = d[pos++];
+    if (v != 0xFF) return v;
+    do {
+      check();
+      v = d[pos++];
+    } while (v == 0xFF);
+    if (v == 0) return 0xFF;
+    marker = true;
+    marker_code = v;
+    marker_pos = pos - 2;
+    return 0;
+  }
+  // arith_decode: one binary decision under the statistics bin st
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    const int sv = *st;
+    uint32_t qe = kAritab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    int bit = sv >> 7;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        bit ^= 1;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        bit ^= 1;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return bit;
+  }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int dw = 0, dh = 0;     // samples per row and column (downsampled_*)
@@ -248,6 +421,7 @@ struct Component {
                           // zigzag position, -1 before any
   std::vector<int16_t> coef;   // bw * bh blocks of 64, natural order
   std::vector<uint8_t> plane;  // bw * 8 x bh * 8 samples after the IDCT
+  std::vector<int32_t> diff;   // lossless: one scan's sample differences
 };
 
 // jpeg_idct_islow of libjpeg-turbo's jidctint.c, dequantizing on the way
@@ -370,7 +544,11 @@ void idct_islow(const int16_t* in, const uint16_t* quant, uint8_t* out,
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {}
+  Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {
+    std::fill(dac_l_, dac_l_ + 16, 0);
+    std::fill(dac_u_, dac_u_ + 16, 1);
+    std::fill(dac_k_, dac_k_ + 16, 5);
+  }
 
   // The markers up to and including the frame header (SOF).
   void read_header() {
@@ -386,9 +564,12 @@ class Decoder {
 
   // The rest of the file, then the pixels: (height, width, channels()).
   void decode(uint8_t* out) {
-    for (int c = 0; c < ncomp_; ++c)
-      comp_[c].coef.assign(
-          static_cast<size_t>(comp_[c].bw) * comp_[c].bh * 64, 0);
+    for (int c = 0; c < ncomp_; ++c) {
+      Component& k = comp_[c];
+      const size_t blocks = static_cast<size_t>(k.bw) * k.bh;
+      if (lossless_) k.plane.assign(blocks * 64, 0);
+      else k.coef.assign(blocks * 64, 0);
+    }
     for (;;) {
       const int m = next_marker();
       if (m < 0) fail(kCorrupt, "JPEG: the data ends before the EOI marker");
@@ -396,33 +577,46 @@ class Decoder {
       marker(m);   // a second frame header fails there
     }
     if (scans_ == 0) fail(kCorrupt, "JPEG: no scan");
-    if (process_ == 2 && would_smooth())
-      fail(kUnsupported, "JPEG: a progressive file whose scans leave low "
-                         "AC coefficients unrefined (libjpeg's block "
-                         "smoothing is not reproduced)");
-    for (int c = 0; c < ncomp_; ++c) inverse_dct(comp_[c]);
+    if (!lossless_) {
+      const bool smooth = process_ == 2 && smoothing_ok();
+      for (int c = 0; c < ncomp_; ++c) {
+        if (smooth) smooth_idct(comp_[c]);
+        else inverse_dct(comp_[c]);
+      }
+    }
     write_pixels(out);
   }
 
   int width() const { return width_; }
   int height() const { return height_; }
   int channels() const { return ncomp_; }
-  int process() const { return process_; }
+  // the frame marker's number: 0-3 Huffman (baseline, extended
+  // sequential, progressive, lossless), 9-11 arithmetic
+  int process() const { return process_ + (arith_ ? 8 : 0); }
 
  private:
+  enum Kind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine,
+              kLossless };
+
   const uint8_t* d_;
   size_t n_, pos_ = 0;
   int width_ = 0, height_ = 0, ncomp_ = 0, process_ = -1;
+  bool arith_ = false, lossless_ = false;
   int hmax_ = 1, vmax_ = 1, mcusx_ = 0, mcusy_ = 0;
-  Component comp_[3];
+  Component comp_[4];
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
   HuffTable dc_[4], ac_[4];
+  uint8_t dac_l_[16], dac_u_[16], dac_k_[16];   // arith_dc_L/U, arith_ac_K
   int restart_interval_ = 0, scans_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
   BitReader br_;
   int eobrun_ = 0;
+  // the arithmetic decoder's state (jdarith.c arith_entropy_decoder)
+  ArithReader ar_;
+  uint8_t dc_stats_[16][64], ac_stats_[16][256], fixed_bin_ = 113;
+  int dc_context_[4] = {0, 0, 0, 0};   // per component of the scan
 
   int byte_at(size_t i) const {
     if (i >= n_) fail(kCorrupt, "JPEG: truncated marker segment");
@@ -457,28 +651,23 @@ class Decoder {
   bool marker(int m) {
     size_t len = 0, p = 0;
     switch (m) {
-      case 0xC0: case 0xC1: case 0xC2:
+      case 0xC0: case 0xC1: case 0xC2: case 0xC3:
+      case 0xC9: case 0xCA: case 0xCB:
         if (process_ >= 0) fail(kCorrupt, "JPEG: a second frame header");
         p = segment(&len);
         frame(m - 0xC0, p, len);
         return true;
-      case 0xC3:
-        fail(kUnsupported, "JPEG: lossless JPEG (SOF3) is not supported");
       case 0xC5: case 0xC6: case 0xC7:
         fail(kUnsupported, "JPEG: hierarchical (differential, SOF%d) JPEG "
                            "is not supported", m - 0xC0);
-      case 0xC9: case 0xCA: case 0xCB:
-        fail(kUnsupported, "JPEG: arithmetic coding (SOF%d, %s) is not "
-                           "supported", m - 0xC0,
-             m == 0xC9 ? "sequential" : m == 0xCA ? "progressive"
-                                                   : "lossless");
       case 0xCD: case 0xCE: case 0xCF:
         fail(kUnsupported, "JPEG: arithmetic coding in a hierarchical "
                            "(differential, SOF%d) JPEG is not supported",
              m - 0xC0);
       case 0xCC:
-        fail(kUnsupported, "JPEG: arithmetic coding (DAC marker) is not "
-                           "supported");
+        p = segment(&len);
+        conditioning(p, len);
+        return false;
       case 0xC8:
         fail(kUnsupported, "JPEG: the JPG extension marker (0xC8) is not "
                            "supported");
@@ -564,26 +753,49 @@ class Decoder {
     }
   }
 
-  void frame(int process, size_t p, size_t len) {
+  // jdmarker.c get_dac: the conditioning of the arithmetic DC (L, U) and
+  // AC (Kx) statistics of each table
+  void conditioning(size_t p, size_t len) {
+    if (len % 2) fail(kCorrupt, "JPEG: bad DAC segment length");
+    for (size_t i = 0; i < len; i += 2) {
+      const int index = d_[p + i], val = d_[p + i + 1];
+      if (index >= 32) fail(kCorrupt, "JPEG: bad DAC table index %d", index);
+      if (index >= 16) {
+        dac_k_[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dac_l_[index] = static_cast<uint8_t>(val & 15);
+        dac_u_[index] = static_cast<uint8_t>(val >> 4);
+        if (dac_l_[index] > dac_u_[index])
+          fail(kCorrupt, "JPEG: bad DAC value 0x%02X", val);
+      }
+    }
+  }
+
+  void frame(int sof, size_t p, size_t len) {
     if (len < 6) fail(kCorrupt, "JPEG: bad frame header");
+    const int process = sof & 3;
+    const bool arith = sof >= 8;
     const int precision = d_[p];
     height_ = be16(p + 1);
     width_ = be16(p + 3);
     const int nc = d_[p + 5];
-    const char* name = process == 0 ? "baseline"
-                       : process == 1 ? "extended sequential"
-                                      : "progressive";
+    static const char* const kNames[4] = {
+        "baseline", "extended sequential", "progressive", "lossless"};
+    const char* name = kNames[process];
     if (precision != 8)
       fail(kUnsupported, "JPEG: %d-bit samples (%s, SOF%d); only 8-bit "
-                         "JPEG is read", precision, name, process);
+                         "JPEG is read", precision, name, sof);
+    if (arith && process == 3)
+      fail(kUnsupported, "JPEG: arithmetic-coded lossless JPEG (SOF11) is "
+                         "not supported (libjpeg-turbo does not read it)");
     if (width_ == 0) fail(kCorrupt, "JPEG: frame width 0");
     if (height_ == 0)
       fail(kUnsupported, "JPEG: a DNL marker (height 0 in the frame "
                          "header) is not supported");
-    if (nc == 4)
-      fail(kUnsupported, "JPEG: 4-component (CMYK or YCCK) JPEG is not "
-                         "supported");
-    if (nc != 1 && nc != 3)
+    if (int64_t(width_) * height_ > kMaxPixels)
+      fail(kUnsupported, "JPEG: %d x %d pixels, past the limit of %lld",
+           width_, height_, static_cast<long long>(kMaxPixels));
+    if (nc != 1 && nc != 3 && nc != 4)
       fail(kUnsupported, "JPEG: %d-component JPEG is not supported", nc);
     if (len != 6 + 3 * static_cast<size_t>(nc))
       fail(kCorrupt, "JPEG: bad frame header length");
@@ -598,41 +810,56 @@ class Decoder {
       for (int e = 0; e < c; ++e)
         if (comp_[e].id == k.id)
           fail(kCorrupt, "JPEG: two components with ID %d", k.id);
+      hmax_ = std::max(hmax_, k.h);
+      vmax_ = std::max(vmax_, k.v);
     }
+    // jdsample.c: each component's ratio to the largest sampling factors
+    // must be whole (jinit_upsampler's JERR_FRACT_SAMPLE_NOTIMPL)
     for (int c = 0; c < nc; ++c)
-      if (comp_[c].h > 2 || comp_[c].v > 2)
-        fail(kUnsupported, "JPEG: sampling factors %dx%d (above 2) are not "
-                           "supported", comp_[c].h, comp_[c].v);
+      if (hmax_ % comp_[c].h || vmax_ % comp_[c].v)
+        fail(kUnsupported, "JPEG: sampling factors %dx%d under a largest "
+                           "%dx%d need fractional upsampling, which libjpeg "
+                           "does not implement", comp_[c].h, comp_[c].v,
+             hmax_, vmax_);
     process_ = process;
+    arith_ = arith;
+    lossless_ = process == 3;
     ncomp_ = nc;
-    for (int c = 0; c < nc; ++c) {
-      hmax_ = std::max(hmax_, comp_[c].h);
-      vmax_ = std::max(vmax_, comp_[c].v);
-    }
-    mcusx_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcusy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
-    int64_t blocks = 0;
+    // a data unit is an 8 x 8 block, or one sample in a lossless file
+    const int unit = lossless_ ? 1 : 8;
+    mcusx_ = (width_ + unit * hmax_ - 1) / (unit * hmax_);
+    mcusy_ = (height_ + unit * vmax_ - 1) / (unit * vmax_);
+    int64_t units = 0;
     for (int c = 0; c < nc; ++c) {
       Component& k = comp_[c];
       k.dw = static_cast<int>((int64_t(width_) * k.h + hmax_ - 1) / hmax_);
       k.dh = static_cast<int>((int64_t(height_) * k.v + vmax_ - 1) / vmax_);
-      if (nc == 1) {
-        k.bw = (k.dw + 7) / 8;
-        k.bh = (k.dh + 7) / 8;
-      } else {
-        k.bw = mcusx_ * k.h;
-        k.bh = mcusy_ * k.v;
-      }
-      blocks += int64_t(k.bw) * k.bh;
+      // blocks stored: whole MCUs (a lossless file's samples in blocks of
+      // 8 x 8)
+      k.bw = lossless_ ? (mcusx_ * k.h + 7) / 8 : mcusx_ * k.h;
+      k.bh = lossless_ ? (mcusy_ * k.v + 7) / 8 : mcusy_ * k.v;
+      units += int64_t(mcusx_ * k.h) * mcusy_ * k.v;
       std::fill(k.coef_bits, k.coef_bits + 64, -1);
     }
-    // every block takes at least one bit of entropy-coded data (two in a
-    // sequential file): a header that claims more is refused before any
-    // allocation
-    if (blocks > 8 * static_cast<int64_t>(n_) + 64)
+    // every data unit takes at least one bit of Huffman-coded data: a
+    // header that claims more is refused before any allocation
+    // (arithmetic coding may code a unit in less, and is held to the pixel
+    // limit only)
+    if (!arith_ && units > 8 * static_cast<int64_t>(n_) + 64)
       fail(kCorrupt, "JPEG: the frame header claims %dx%d pixels, more "
                      "than the file's %zu bytes can code", width_, height_,
            n_);
+  }
+
+  // jstdhuff.c std_huff_tables, at the first scan of a sequential
+  // Huffman-coded file (jdhuff.c jinit_huff_decoder; the progressive and
+  // lossless decoders install none, and libjpeg refuses such a file)
+  void standard_tables() {
+    if (!dc_[0].defined) build_table(dc_[0], kStdCounts[0], kStdDc, 12);
+    if (!ac_[0].defined) build_table(ac_[0], kStdCounts[1], kStdAcLuma, 162);
+    if (!dc_[1].defined) build_table(dc_[1], kStdCounts[2], kStdDc, 12);
+    if (!ac_[1].defined)
+      build_table(ac_[1], kStdCounts[3], kStdAcChroma, 162);
   }
 
   void scan(size_t p, size_t len) {
@@ -640,7 +867,7 @@ class Decoder {
     const int ns = d_[p];
     if (ns < 1 || ns > ncomp_ || len != 4 + 2 * static_cast<size_t>(ns))
       fail(kCorrupt, "JPEG: bad scan header");
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       const int id = d_[p + 1 + 2 * i], tables = d_[p + 2 + 2 * i];
       Component* k = nullptr;
@@ -652,7 +879,7 @@ class Decoder {
         if (sc[e] == k) fail(kCorrupt, "JPEG: a component twice in a scan");
       k->dc_table = tables >> 4;
       k->ac_table = tables & 15;
-      if (k->dc_table > 3 || k->ac_table > 3)
+      if (!arith_ && (k->dc_table > 3 || k->ac_table > 3))
         fail(kCorrupt, "JPEG: bad Huffman table number");
       sc[i] = k;
     }
@@ -663,95 +890,172 @@ class Decoder {
       for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
       if (blocks > 10) fail(kCorrupt, "JPEG: more than 10 blocks in an MCU");
     }
-    // jdinput.c latch_quant_tables
-    for (int i = 0; i < ns; ++i) {
-      Component& k = *sc[i];
-      if (k.latched) continue;
-      if (!qt_defined_[k.tq])
-        fail(kCorrupt, "JPEG: quantization table %d not defined", k.tq);
-      std::memcpy(k.quant, qt_[k.tq], sizeof k.quant);
-      k.latched = true;
-    }
-    enum Kind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine } kind;
-    if (process_ != 2) {
-      kind = kSequential;
+    Kind kind;
+    if (lossless_) {
+      // jdlossls.c start_pass: Ss is the predictor, Al the point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+        fail(kCorrupt, "JPEG: bad lossless scan (predictor %d, Se %d, Ah "
+                       "%d, Al %d)", ss, se, ah, al);
+      kind = kLossless;
     } else {
-      // jdphuff.c start_pass_phuff_decoder's checks
-      const bool dc = ss == 0;
-      bool bad = dc ? se != 0 : (ss > se || se > 63 || ns != 1);
-      if (ah != 0 && al != ah - 1) bad = true;
-      if (al > 13) bad = true;
-      if (bad) fail(kCorrupt, "JPEG: bad progression (Ss %d, Se %d, Ah %d, "
-                              "Al %d)", ss, se, ah, al);
-      kind = dc ? (ah == 0 ? kDcFirst : kDcRefine)
-                : (ah == 0 ? kAcFirst : kAcRefine);
-      for (int i = 0; i < ns; ++i)
-        for (int k = ss; k <= se; ++k) sc[i]->coef_bits[k] = al;
-    }
-    for (int i = 0; i < ns; ++i) {
-      const bool need_dc = kind == kSequential || kind == kDcFirst;
-      const bool need_ac = kind == kSequential || kind == kAcFirst ||
-                           kind == kAcRefine;
-      if (need_dc && !dc_[sc[i]->dc_table].defined)
-        fail(kCorrupt, "JPEG: Huffman table DC %d not defined",
-             sc[i]->dc_table);
-      if (need_ac && !ac_[sc[i]->ac_table].defined)
-        fail(kCorrupt, "JPEG: Huffman table AC %d not defined",
-             sc[i]->ac_table);
-    }
-    for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
-    eobrun_ = 0;
-    br_.reset(d_, n_, pos_);
-
-    // MCUs: one block of the component in a single-component scan (over
-    // its own blocks, not the MCU-padded ones), else every component's
-    // h x v blocks
-    int64_t mcus;
-    int bx = 0;
-    if (ns == 1) {
-      bx = (sc[0]->dw + 7) / 8;
-      mcus = int64_t(bx) * ((sc[0]->dh + 7) / 8);
-    } else {
-      mcus = int64_t(mcusx_) * mcusy_;
-    }
-    int restarts_left = restart_interval_, next_rst = 0;
-    for (int64_t m = 0; m < mcus; ++m) {
-      if (restart_interval_ && restarts_left == 0) {
-        restart(next_rst);
-        next_rst = (next_rst + 1) & 7;
-        for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
-        eobrun_ = 0;
-        restarts_left = restart_interval_;
+      // jdinput.c latch_quant_tables
+      for (int i = 0; i < ns; ++i) {
+        Component& k = *sc[i];
+        if (k.latched) continue;
+        if (!qt_defined_[k.tq])
+          fail(kCorrupt, "JPEG: quantization table %d not defined", k.tq);
+        std::memcpy(k.quant, qt_[k.tq], sizeof k.quant);
+        k.latched = true;
       }
-      if (ns == 1) {
-        Component& k = *sc[0];
-        const int by = static_cast<int>(m / bx), bxx = static_cast<int>(m % bx);
-        block(kind, k, &k.coef[(int64_t(by) * k.bw + bxx) * 64], ss, se, al);
+      if (process_ != 2) {
+        kind = kSequential;
       } else {
-        const int my = static_cast<int>(m / mcusx_),
-                  mx = static_cast<int>(m % mcusx_);
-        for (int i = 0; i < ns; ++i) {
-          Component& k = *sc[i];
-          for (int v = 0; v < k.v; ++v)
-            for (int h = 0; h < k.h; ++h)
-              block(kind, k,
-                    &k.coef[((int64_t(my) * k.v + v) * k.bw + mx * k.h + h) *
-                            64],
-                    ss, se, al);
-        }
+        // jdphuff.c / jdarith.c start_pass's checks
+        const bool dc = ss == 0;
+        bool bad = dc ? se != 0 : (ss > se || se > 63 || ns != 1);
+        if (ah != 0 && al != ah - 1) bad = true;
+        if (al > 13) bad = true;
+        if (bad) fail(kCorrupt, "JPEG: bad progression (Ss %d, Se %d, Ah "
+                                "%d, Al %d)", ss, se, ah, al);
+        kind = dc ? (ah == 0 ? kDcFirst : kDcRefine)
+                  : (ah == 0 ? kAcFirst : kAcRefine);
+        for (int i = 0; i < ns; ++i)
+          for (int k = ss; k <= se; ++k) sc[i]->coef_bits[k] = al;
+      }
+    }
+    if (arith_) {
+      clear_stats(sc, ns, kind);
+      ar_.reset(d_, n_, pos_);
+      ar_.limit = (pos_ + kFeed - 1) / kFeed * kFeed;
+    } else {
+      if (scans_ == 0 && process_ < 2) standard_tables();
+      for (int i = 0; i < ns; ++i) {
+        const bool need_dc = kind == kSequential || kind == kDcFirst ||
+                             kind == kLossless;
+        const bool need_ac = kind == kSequential || kind == kAcFirst ||
+                             kind == kAcRefine;
+        if (need_dc && !dc_[sc[i]->dc_table].defined)
+          fail(kCorrupt, "JPEG: Huffman table DC %d not defined",
+               sc[i]->dc_table);
+        if (need_ac && !ac_[sc[i]->ac_table].defined)
+          fail(kCorrupt, "JPEG: Huffman table AC %d not defined",
+               sc[i]->ac_table);
+      }
+      br_.reset(d_, n_, pos_);
+      br_.strict = lossless_;
+    }
+    for (int i = 0; i < ns; ++i) sc[i]->dc_pred = dc_context_[i] = 0;
+    eobrun_ = 0;
+
+    // MCUs: one data unit of the component in a single-component scan
+    // (over its own units, not the MCU-padded ones), else every
+    // component's h x v units
+    const int unit = lossless_ ? 1 : 8;
+    int per_row, rows;
+    if (ns == 1) {
+      per_row = (sc[0]->dw + unit - 1) / unit;
+      rows = (sc[0]->dh + unit - 1) / unit;
+    } else {
+      per_row = mcusx_;
+      rows = mcusy_;
+    }
+    // a lossless file restarts on MCU rows only (jddiffct.c)
+    if (lossless_ && restart_interval_ && restart_interval_ % per_row)
+      fail(kUnsupported, "JPEG: a lossless restart interval of %d MCUs, "
+                         "not a whole number of rows of %d MCUs",
+           restart_interval_, per_row);
+    std::vector<std::vector<char>> first_row;   // lossless: per component,
+    if (lossless_) {                            // the row groups restarted
+      for (int i = 0; i < ns; ++i) {
+        Component& k = *sc[i];
+        const int stride = mcusx_ * k.h;
+        k.diff.assign(static_cast<size_t>(stride) * mcusy_ * k.v, 0);
+        first_row.emplace_back((k.dh + k.v - 1) / k.v + 1, 0);
+        first_row[i][0] = 1;
+      }
+    }
+    const int64_t mcus = int64_t(per_row) * rows;
+    int restarts_left = restart_interval_, next_rst = 0;
+    int16_t* blk[10];
+    int32_t* smp[10];
+    int owner[10];
+    for (int64_t m = 0; m < mcus; ++m) {
+      const int my = static_cast<int>(m / per_row),
+                mx = static_cast<int>(m % per_row);
+      if (restart_interval_ && restarts_left == 0) {
+        restart(next_rst, sc, ns, kind);
+        next_rst = (next_rst + 1) & 7;
+        restarts_left = restart_interval_;
+        for (int i = 0; i < ns && lossless_; ++i)
+          first_row[i][ns == 1 ? my / sc[i]->v : my] = 1;
+      }
+      int nb = 0;
+      for (int i = 0; i < ns; ++i) {
+        Component& k = *sc[i];
+        const int bh = ns == 1 ? 1 : k.h, bv = ns == 1 ? 1 : k.v;
+        for (int v = 0; v < bv; ++v)
+          for (int h = 0; h < bh; ++h, ++nb) {
+            const int64_t x = int64_t(mx) * bh + h, y = int64_t(my) * bv + v;
+            owner[nb] = i;
+            if (lossless_) smp[nb] = &k.diff[y * mcusx_ * k.h + x];
+            else blk[nb] = &k.coef[(y * k.bw + x) * 64];
+          }
+      }
+      if (lossless_) {
+        for (int b = 0; b < nb; ++b) *smp[b] = lossless_diff(*sc[owner[b]]);
+      } else if (arith_) {
+        arith_mcu(kind, blk, owner, nb, sc, ss, se, al);
+      } else if (!br_.insufficient) {
+        for (int b = 0; b < nb; ++b)
+          block(kind, *sc[owner[b]], blk[b], ss, se, al);
       }
       if (restart_interval_) --restarts_left;
     }
-    pos_ = br_.pos;
+    if (arith_) pos_ = ar_.marker ? ar_.marker_pos : ar_.pos;
+    else pos_ = br_.pos;
+    for (int i = 0; i < ns && lossless_; ++i)
+      undifference(*sc[i], ss, al, first_row[i]);
     ++scans_;
   }
 
-  void restart(int expect) {
-    pos_ = br_.pos;
-    const int m = next_marker();
+  // The restart marker RSTn (n = expect) and the entropy decoder's reset
+  // (jdhuff.c / jdarith.c process_restart).
+  void restart(int expect, Component** sc, int ns, Kind kind) {
+    int m;
+    if (arith_ && ar_.marker) {
+      m = ar_.marker_code;
+      pos_ = ar_.pos;
+    } else {
+      pos_ = arith_ ? ar_.pos : br_.pos;
+      m = next_marker();
+    }
     if (m != 0xD0 + expect)
       fail(kCorrupt, "JPEG: expected the restart marker RST%d", expect);
-    br_.reset(d_, n_, pos_);
+    for (int i = 0; i < ns; ++i) sc[i]->dc_pred = dc_context_[i] = 0;
+    eobrun_ = 0;
+    if (!arith_) {
+      br_.reset(d_, n_, pos_);
+      return;
+    }
+    clear_stats(sc, ns, kind);
+    const size_t limit = ar_.limit;
+    if (pos_ > limit)
+      fail(kUnsupported, "JPEG: a restart marker past byte %zu, which "
+                         "libjpeg's arithmetic decoder cannot wait for "
+                         "(imageio refuses the file)", limit);
+    ar_.reset(d_, n_, pos_);
+    ar_.limit = limit;
+  }
+
+  // jdarith.c start_pass and process_restart: the statistics of the
+  // tables the scan codes with start at zero
+  void clear_stats(Component** sc, int ns, Kind kind) {
+    for (int i = 0; i < ns; ++i) {
+      if (kind == kSequential || kind == kDcFirst)
+        std::memset(dc_stats_[sc[i]->dc_table], 0, 64);
+      if (kind == kSequential || kind == kAcFirst || kind == kAcRefine)
+        std::memset(ac_stats_[sc[i]->ac_table], 0, 256);
+    }
   }
 
   int dc_diff(const Component& k) {
@@ -768,7 +1072,7 @@ class Decoder {
 
   void block(int kind, Component& k, int16_t* b, int ss, int se, int al) {
     switch (kind) {
-      case 0: {   // sequential (jdhuff.c decode_mcu)
+      case kSequential: {   // jdhuff.c decode_mcu
         add_dc(k, dc_diff(k));
         b[0] = static_cast<int16_t>(k.dc_pred);
         const HuffTable& t = ac_[k.ac_table];
@@ -784,14 +1088,14 @@ class Decoder {
         }
         return;
       }
-      case 1:     // DC first (jdphuff.c decode_mcu_DC_first)
+      case kDcFirst:        // jdphuff.c decode_mcu_DC_first
         add_dc(k, dc_diff(k));
         b[0] = static_cast<int16_t>(static_cast<uint32_t>(k.dc_pred) << al);
         return;
-      case 2:     // DC refinement
+      case kDcRefine:
         if (br_.get(1)) b[0] = static_cast<int16_t>(b[0] | (1 << al));
         return;
-      case 3: {   // AC first
+      case kAcFirst: {
         if (eobrun_ > 0) {
           --eobrun_;
           return;
@@ -812,7 +1116,7 @@ class Decoder {
         }
         return;
       }
-      default: {  // AC refinement (decode_mcu_AC_refine)
+      default: {            // decode_mcu_AC_refine
         const int p1 = 1 << al, m1 = -1 * (1 << al);
         const HuffTable& t = ac_[k.ac_table];
         int i = ss;
@@ -854,9 +1158,201 @@ class Decoder {
     }
   }
 
+  // Figures F.21-F.24: a nonzero value's sign, magnitude category and bits
+  // after the decision that it is nonzero. DC and AC differ in where the
+  // sign is coded and in the bins of the category (returns false on a
+  // magnitude overflow, where libjpeg sets ct = -1).
+  bool arith_dc_value(uint8_t* stats, int ci, int tbl, int* value) {
+    uint8_t* st = stats + dc_context_[ci];
+    if (ar_.decode(st) == 0) {
+      dc_context_[ci] = 0;
+      *value = 0;
+      return true;
+    }
+    const int sign = ar_.decode(st + 1);
+    st += 2 + sign;
+    int m = ar_.decode(st);
+    if (m != 0) {
+      st = stats + 20;
+      while (ar_.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < ((1 << dac_l_[tbl]) >> 1))
+      dc_context_[ci] = 0;
+    else if (m > ((1 << dac_u_[tbl]) >> 1))
+      dc_context_[ci] = 12 + sign * 4;
+    else
+      dc_context_[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar_.decode(st)) v |= m;
+    v += 1;
+    *value = sign ? -v : v;
+    return true;
+  }
+
+  // decode_mcu / decode_mcu_AC_first's coefficients Ss..Se of one block
+  // (false on a spectral or magnitude overflow)
+  bool arith_ac(int16_t* b, int tbl, int ss, int se, int al) {
+    uint8_t* stats = ac_stats_[tbl];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar_.decode(st)) break;   // EOB
+      while (ar_.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      const int sign = ar_.decode(&fixed_bin_);
+      st += 2;
+      int m = ar_.decode(st);
+      if (m != 0 && ar_.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= dac_k_[tbl] ? 189 : 217);
+        while (ar_.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar_.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      b[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+    }
+    return true;
+  }
+
+  // jdarith.c's MCU decoders. A decoding error (ct = -1) leaves the rest of
+  // the MCU and every later MCU up to the next restart as they are, except
+  // in a DC refinement scan, which never sets it.
+  void arith_mcu(int kind, int16_t** blk, const int* owner, int nb,
+                 Component** sc, int ss, int se, int al) {
+    if (kind == kDcRefine) {
+      for (int b = 0; b < nb; ++b)
+        if (ar_.decode(&fixed_bin_))
+          blk[b][0] = static_cast<int16_t>(blk[b][0] | (1 << al));
+      return;
+    }
+    if (ar_.ct == -1) return;
+    if (kind == kAcRefine) {
+      if (!arith_ac_refine(blk[0], sc[0]->ac_table, ss, se, al)) ar_.ct = -1;
+      return;
+    }
+    if (kind == kAcFirst) {
+      if (!arith_ac(blk[0], sc[0]->ac_table, ss, se, al)) ar_.ct = -1;
+      return;
+    }
+    for (int b = 0; b < nb; ++b) {
+      const int ci = owner[b];
+      Component& k = *sc[ci];
+      int diff;
+      if (!arith_dc_value(dc_stats_[k.dc_table], ci, k.dc_table, &diff)) {
+        ar_.ct = -1;
+        return;
+      }
+      k.dc_pred = (k.dc_pred + diff) & 0xFFFF;
+      if (kind == kDcFirst) {
+        blk[b][0] = static_cast<int16_t>(
+            static_cast<uint32_t>(k.dc_pred) << al);
+        continue;
+      }
+      blk[b][0] = static_cast<int16_t>(k.dc_pred);
+      if (!arith_ac(blk[b], k.ac_table, 1, 63, 0)) {
+        ar_.ct = -1;
+        return;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: one more bit of the coefficients Ss..Se
+  bool arith_ac_refine(int16_t* b, int tbl, int ss, int se, int al) {
+    uint8_t* stats = ac_stats_[tbl];
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (b[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar_.decode(st)) break;   // EOB
+      for (;;) {
+        int16_t& c = b[kNatural[k]];
+        if (c) {
+          if (ar_.decode(st + 2))
+            c = static_cast<int16_t>(c < 0 ? c + m1 : c + p1);
+          break;
+        }
+        if (ar_.decode(st + 1)) {
+          c = static_cast<int16_t>(ar_.decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
+  }
+
+  // jdlhuff.c: one sample's difference
+  int32_t lossless_diff(const Component& k) {
+    const int s = br_.decode(dc_[k.dc_table]);
+    if (s > 16) fail(kCorrupt, "JPEG: bad lossless difference category");
+    if (s == 16) return 32768;
+    return s ? extend(br_.get(s), s) : 0;
+  }
+
+  // jdpred.c and jdlossls.c: the samples from their differences under the
+  // scan's predictor (psv 1-7), the first row of the scan and of each
+  // restart interval predicted from the left (its first sample from
+  // 2^(P - Pt - 1)), every later row's first sample from above; then the
+  // point transform Pt. first[g] marks the row groups (of v rows, one
+  // iMCU row) during whose decoding a restart came: the group's first row
+  // is predicted as a first row.
+  void undifference(Component& k, int psv, int al,
+                    const std::vector<char>& first) {
+    const int W = k.dw, stride = k.bw * 8, ds = mcusx_ * k.h;
+    const int init = 1 << (8 - al - 1);
+    std::vector<int> prev(W), cur(W);
+    for (int y = 0; y < k.dh; ++y) {
+      const int32_t* d = &k.diff[int64_t(y) * ds];
+      if (y % k.v == 0 && first[y / k.v]) {
+        int ra = (d[0] + init) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < W; ++x) cur[x] = ra = (d[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0], rc;
+        int ra = (d[0] + rb) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < W; ++x) {
+          rc = rb;
+          rb = prev[x];
+          int pred;
+          switch (psv) {
+            case 1: pred = ra; break;
+            case 2: pred = rb; break;
+            case 3: pred = rc; break;
+            case 4: pred = ra + rb - rc; break;
+            case 5: pred = ra + ((rb - rc) >> 1); break;
+            case 6: pred = rb + ((ra - rc) >> 1); break;
+            default: pred = (ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (d[x] + pred) & 0xFFFF;
+        }
+      }
+      uint8_t* o = &k.plane[int64_t(y) * stride];
+      for (int x = 0; x < W; ++x) o[x] = static_cast<uint8_t>(cur[x] << al);
+      prev.swap(cur);
+    }
+    std::vector<int32_t>().swap(k.diff);
+  }
+
   // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
   // file whose scans leave any of the first nine AC coefficients unrefined
-  bool would_smooth() const {
+  bool smoothing_ok() const {
     static constexpr int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
     bool useful = false;
     for (int c = 0; c < ncomp_; ++c) {
@@ -882,15 +1378,176 @@ class Decoder {
                    &k.plane[int64_t(by) * 8 * stride + bx * 8], stride);
   }
 
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): each
+  // block's coefficients 1-9 that are still zero and not known to be exact
+  // are estimated from the DC values of its 5 x 5 neighbourhood, and where
+  // no AC coefficient of the component has been coded at all the DC value
+  // is smoothed too; then the IDCT. The neighbourhood's rows follow
+  // libjpeg's iMCU-row arithmetic, whose last iMCU row counts its rows
+  // with that row's own height.
+  void smooth_idct(Component& k) {
+    const int stride = k.bw * 8;
+    k.plane.assign(static_cast<size_t>(stride) * k.bh * 8, 0);
+    const int* bits = k.coef_bits;
+    bool change_dc = true;
+    for (int i = 1; i < 10; ++i)
+      if (bits[i] != -1) change_dc = false;
+    const int64_t Q00 = k.quant[0], Q01 = k.quant[1], Q10 = k.quant[8],
+                  Q20 = k.quant[16], Q11 = k.quant[9], Q02 = k.quant[2],
+                  Q03 = k.quant[3], Q12 = k.quant[10], Q21 = k.quant[17],
+                  Q30 = k.quant[24];
+    const int wib = (k.dw + 7) / 8, hib = (k.dh + 7) / 8;
+    const int total = mcusy_, v = k.v;
+    const int last_col = wib - 1;
+    auto estimate = [](int64_t num, int64_t q, int al) {
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((q << 7) + num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = static_cast<int>(((q << 7) - num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return static_cast<int16_t>(pred);
+    };
+    int16_t ws[64];
+    for (int r = 0; r < total; ++r) {
+      int block_rows = v;
+      if (r == total - 1) {
+        block_rows = hib % v;
+        if (block_rows == 0) block_rows = v;
+      }
+      const int image_rows = block_rows * total;
+      for (int br = 0; br < block_rows; ++br) {
+        const int ibr = r * block_rows + br, row = r * v + br;
+        auto at = [&](int y) { return &k.coef[int64_t(y) * k.bw * 64]; };
+        const int16_t* cur = at(row);
+        const int16_t* prev = ibr > 0 ? at(row - 1) : cur;
+        const int16_t* pprev = ibr > 1 ? at(row - 2) : prev;
+        const int16_t* next = ibr < image_rows - 1 ? at(row + 1) : cur;
+        const int16_t* nnext = ibr < image_rows - 2 ? at(row + 2) : next;
+        int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10,
+            DC11, DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20,
+            DC21, DC22, DC23, DC24, DC25;
+        DC01 = DC02 = DC03 = DC04 = DC05 = pprev[0];
+        DC06 = DC07 = DC08 = DC09 = DC10 = prev[0];
+        DC11 = DC12 = DC13 = DC14 = DC15 = cur[0];
+        DC16 = DC17 = DC18 = DC19 = DC20 = next[0];
+        DC21 = DC22 = DC23 = DC24 = DC25 = nnext[0];
+        for (int bn = 0; bn <= last_col; ++bn) {
+          const int64_t o = int64_t(bn) * 64;
+          std::memcpy(ws, cur + o, sizeof ws);
+          if (bn == 0 && bn < last_col) {
+            DC04 = DC05 = pprev[o + 64];
+            DC09 = DC10 = prev[o + 64];
+            DC14 = DC15 = cur[o + 64];
+            DC19 = DC20 = next[o + 64];
+            DC24 = DC25 = nnext[o + 64];
+          }
+          if (bn + 1 < last_col) {
+            DC05 = pprev[o + 128];
+            DC10 = prev[o + 128];
+            DC15 = cur[o + 128];
+            DC20 = next[o + 128];
+            DC25 = nnext[o + 128];
+          }
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                 13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                 DC21 - DC22 + DC24 + DC25) :
+                (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+            ws[1] = estimate(num, Q01, al);
+          }
+          if ((al = bits[2]) != 0 && ws[8] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+                (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+            ws[8] = estimate(num, Q10, al);
+          }
+          if ((al = bits[3]) != 0 && ws[16] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                 14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                 DC23) :
+                (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+            ws[16] = estimate(num, Q20, al);
+          }
+          if ((al = bits[4]) != 0 && ws[9] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                 DC21 - DC25) :
+                (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                 DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+            ws[9] = estimate(num, Q11, al);
+          }
+          if ((al = bits[5]) != 0 && ws[2] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                 14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                 2 * DC19) :
+                (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+            ws[2] = estimate(num, Q02, al);
+          }
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)
+              ws[3] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 +
+                                      DC17 - DC19), Q03, al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)
+              ws[10] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 +
+                                       3 * DC18 - DC19), Q12, al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)
+              ws[17] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 +
+                                       DC17 - DC19), Q21, al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)
+              ws[24] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 -
+                                       2 * DC18 - DC19), Q30, al);
+            const int64_t num = Q00 *
+                (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                 6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 -
+                 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                 2 * DC25);
+            ws[0] = estimate(num, Q00, 0);
+          }
+          idct_islow(ws, k.quant,
+                     &k.plane[int64_t(row) * 8 * stride + bn * 8], stride);
+          DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+          DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+          DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+          DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+          DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+        }
+      }
+    }
+  }
+
   // jdsample.c: the component's samples at full resolution, width_ x
-  // height_, row-major. Fancy upsampling is a triangle filter over the
-  // dw x dh real samples with the edges replicated; h2v1 and h2v2 fall
-  // back to replication when dw <= 2.
+  // height_, row-major. Fancy upsampling (a DCT file's h2v1, h2v2 and h1v2
+  // ratios, the first two where dw > 2) is a triangle filter over the dw x
+  // dh real samples with the edges replicated; every other whole ratio,
+  // and every ratio of a lossless file, replicates (int_upsample).
   std::vector<uint8_t> upsample(const Component& k) const {
     std::vector<uint8_t> out(static_cast<size_t>(width_) * height_);
     const int rh = hmax_ / k.h, rv = vmax_ / k.v, stride = k.bw * 8;
     const int dw = k.dw;
-    const bool fancy_h = rh == 2 && dw > 2;
+    const bool fancy = !lossless_ && ((rh == 2 && rv <= 2 && dw > 2) ||
+                                      (rh == 1 && rv == 2));
+    if (!fancy) {
+      for (int y = 0; y < height_; ++y) {
+        const uint8_t* near = k.plane.data() + int64_t(y / rv) * stride;
+        uint8_t* o = &out[int64_t(y) * width_];
+        for (int x = 0; x < width_; ++x) o[x] = near[x / rh];
+      }
+      return out;
+    }
     // a row's column sums (3 * nearer + farther row where rv is 2), with
     // the edge columns replicated at 0 and dw + 1; a pair of outputs per
     // column where rh is 2
@@ -902,10 +1559,6 @@ class Decoder {
       const int fy = std::clamp((y & 1) ? iy + 1 : iy - 1, 0, k.dh - 1);
       const uint8_t* far = k.plane.data() + int64_t(fy) * stride;
       uint8_t* o = &out[int64_t(y) * width_];
-      if (rh == 2 && !fancy_h) {           // h2v1 / h2v2 replication
-        for (int x = 0; x < width_; ++x) o[x] = near[x >> 1];
-        continue;
-      }
       if (rv == 2) {
         for (int x = 0; x < dw; ++x) col[x + 1] = 3 * near[x] + far[x];
       } else {
@@ -934,9 +1587,9 @@ class Decoder {
   }
 
   void write_pixels(uint8_t* out) const {
-    std::vector<uint8_t> full[3];
-    const uint8_t* src[3];
-    int64_t stride[3];
+    std::vector<uint8_t> full[4];
+    const uint8_t* src[4];
+    int64_t stride[4];
     for (int c = 0; c < ncomp_; ++c) {
       const Component& k = comp_[c];
       if (k.h == hmax_ && k.v == vmax_) {
@@ -954,11 +1607,20 @@ class Decoder {
                     width_);
       return;
     }
-    // jdapimin.c default_decompress_parms for three components
+    // jdapimin.c default_decompress_parms: three components are YCbCr
+    // unless an Adobe transform 0, the IDs R, G, B or (without JFIF) a
+    // lossless frame say RGB; four are CMYK unless an Adobe marker with a
+    // nonzero transform says YCCK
     bool ycc = true;
-    if (!jfif_ && adobe_) ycc = adobe_transform_ != 0;
-    else if (!jfif_ && comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66)
-      ycc = false;
+    if (ncomp_ == 4) ycc = adobe_ && adobe_transform_ != 0;
+    else if (!jfif_ && adobe_) ycc = adobe_transform_ != 0;
+    else if (!jfif_ && (lossless_ || (comp_[0].id == 82 &&
+                                      comp_[1].id == 71 && comp_[2].id == 66)))
+      ycc = false;   // libjpeg-turbo 3 takes a lossless file for RGB
+    if (ycc && lossless_)
+      fail(kUnsupported, "JPEG: a lossless file in %s: libjpeg-turbo "
+                         "converts no colour in lossless mode",
+           ncomp_ == 4 ? "YCCK" : "YCbCr");
     // jdcolor.c build_ycc_rgb_table
     auto fix = [](double x) {
       return static_cast<int64_t>(x * (1 << 16) + 0.5);
@@ -975,11 +1637,33 @@ class Decoder {
     auto clamp8 = [](int v) {
       return static_cast<uint8_t>(std::clamp(v, 0, 255));
     };
+    const int nc = ncomp_;
     for (int y = 0; y < height_; ++y) {
       const uint8_t* a = src[0] + y * stride[0];
       const uint8_t* b = src[1] + y * stride[1];
       const uint8_t* c = src[2] + y * stride[2];
-      uint8_t* o = out + int64_t(y) * width_ * 3;
+      uint8_t* o = out + int64_t(y) * width_ * nc;
+      if (nc == 4) {
+        // CMYK passes through, YCCK is ycck_cmyk_convert; then Pillow's
+        // "CMYK;I" unpacking (Adobe's inverted CMYK) inverts each sample
+        const uint8_t* kk = src[3] + y * stride[3];
+        for (int x = 0; x < width_; ++x, o += 4) {
+          if (ycc) {
+            const int yy = a[x], cb = b[x], cr = c[x];
+            o[0] = clamp8(255 - (yy + cr_r[cr]));
+            o[1] = clamp8(255 - (yy + static_cast<int>(
+                                          (cb_g[cb] + cr_g[cr]) >> 16)));
+            o[2] = clamp8(255 - (yy + cb_b[cb]));
+          } else {
+            o[0] = a[x];
+            o[1] = b[x];
+            o[2] = c[x];
+          }
+          o[3] = kk[x];
+          for (int i = 0; i < 4; ++i) o[i] = static_cast<uint8_t>(255 - o[i]);
+        }
+        continue;
+      }
       if (!ycc) {
         for (int x = 0; x < width_; ++x, o += 3) {
           o[0] = a[x];
@@ -1459,8 +2143,58 @@ int64_t nm_bmp_unrle(const uint8_t* src, int64_t size, int64_t file_pos,
   return len;
 }
 
-// The frame of a JPEG file: info = {width, height, channels (1 or 3),
-// process (0 baseline, 1 extended sequential, 2 progressive)}. Returns 0,
+// A QOI image's ops (after its 14-byte header) into n pixels of ch bytes
+// (3 or 4), as Pillow's QoiDecoder reads them: the previous pixel starts
+// as (0, 0, 0, 255); the index holds the 64 pixels last decoded by an op
+// other than a run (an empty slot is (0, 0, 0, 0)); RGB keeps the previous
+// alpha; a run repeats the previous pixel and stops at the n-th. Returns 0,
+// or -1 when the data ends first.
+int64_t nm_qoi_decode(const uint8_t* src, int64_t size, int64_t n, int ch,
+                      uint8_t* out) {
+  uint8_t index[64][4] = {};
+  uint8_t px[4] = {0, 0, 0, 255};
+  int64_t p = 0, i = 0;
+  auto need = [&](int64_t k) { return p + k <= size; };
+  while (i < n) {
+    if (!need(1)) return -1;
+    const int b = src[p++];
+    if (b == 0xFE) {
+      if (!need(3)) return -1;
+      std::memcpy(px, src + p, 3);
+      p += 3;
+    } else if (b == 0xFF) {
+      if (!need(4)) return -1;
+      std::memcpy(px, src + p, 4);
+      p += 4;
+    } else if ((b >> 6) == 0) {
+      std::memcpy(px, index[b & 63], 4);
+    } else if ((b >> 6) == 1) {
+      px[0] = static_cast<uint8_t>(px[0] + ((b >> 4) & 3) - 2);
+      px[1] = static_cast<uint8_t>(px[1] + ((b >> 2) & 3) - 2);
+      px[2] = static_cast<uint8_t>(px[2] + (b & 3) - 2);
+    } else if ((b >> 6) == 2) {
+      if (!need(1)) return -1;
+      const int b2 = src[p++];
+      const int dg = (b & 63) - 32;
+      px[0] = static_cast<uint8_t>(px[0] + dg + ((b2 >> 4) - 8));
+      px[1] = static_cast<uint8_t>(px[1] + dg);
+      px[2] = static_cast<uint8_t>(px[2] + dg + ((b2 & 15) - 8));
+    } else {
+      const int64_t run = std::min<int64_t>((b & 63) + 1, n - i);
+      for (int64_t k = 0; k < run; ++k, ++i) std::memcpy(out + i * ch, px, ch);
+      continue;
+    }
+    std::memcpy(index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64],
+                px, 4);
+    std::memcpy(out + i * ch, px, ch);
+    ++i;
+  }
+  return 0;
+}
+
+// The frame of a JPEG file: info = {width, height, channels (1, 3 or 4),
+// process (the SOFn marker's n: 0-3 Huffman baseline, extended
+// sequential, progressive, lossless; 9, 10 arithmetic)}. Returns 0,
 // or 1 (corrupt) / 2 (unsupported) with a message in msg (msg_cap bytes).
 int nm_jpeg_info(const uint8_t* data, int64_t size, int32_t* info, char* msg,
                  int64_t msg_cap) {
@@ -1488,6 +2222,6 @@ int nm_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out,
   });
 }
 
-int nm_version() { return 4; }
+int nm_version() { return 5; }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """ctypes binding of the port's host libraries: ``csrc/nm_host.cpp`` (the
 data layer's loops, the GIF and PNG coders of ``viz/image_files.py``, its
-JPEG decoder, and the LZW, PackBits and run-length expansions of its GIF,
-TIFF, BMP and TGA readers) and ``csrc/nm_webp.cpp`` (its WebP decoder).
+JPEG and QOI decoders, and the LZW, PackBits and run-length expansions of
+its GIF, TIFF, BMP and TGA readers), ``csrc/nm_webp.cpp`` (its WebP
+decoder) and ``csrc/nm_dds.cpp`` (the BC1-BC7 blocks of its DDS reader).
 
 Counterpart of ``neural_marionette_tpu/data/native.py``. The library is
 built by ``kernels.py`` with ``g++`` into ``_build/`` at first use. Where
@@ -21,6 +22,7 @@ from .. import kernels
 
 _lib: Optional[ctypes.CDLL] = None
 _webp: Optional[ctypes.CDLL] = None
+_dds: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()   # the loader's threads may ask for it at once
 
 
@@ -66,6 +68,8 @@ def library() -> ctypes.CDLL:
             lib.nm_jpeg_decode.argtypes = [u8p, i64, u8p, i64,
                                            ctypes.c_char_p, i64]
             lib.nm_jpeg_decode.restype = ctypes.c_int
+            lib.nm_qoi_decode.argtypes = [u8p, i64, i64, ctypes.c_int, u8p]
+            lib.nm_qoi_decode.restype = i64
             lib.nm_version.argtypes = []
             lib.nm_version.restype = ctypes.c_int
             _lib = lib
@@ -89,6 +93,22 @@ def webp_library() -> ctypes.CDLL:
             lib.nm_webp_decode.restype = ctypes.c_int
             _webp = lib
     return _webp
+
+
+def dds_library() -> ctypes.CDLL:
+    """The loaded BCn block decoder (``csrc/nm_dds.cpp``); built on first
+    use, raises if it cannot be built."""
+    global _dds
+    with _lock:
+        if _dds is None:
+            lib = kernels.library("nm_dds")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            i64 = ctypes.c_int64
+            lib.nm_bcn_decode.argtypes = [u8p, i64, ctypes.c_int,
+                                          ctypes.c_int, i64, i64, u8p]
+            lib.nm_bcn_decode.restype = ctypes.c_int
+            _dds = lib
+    return _dds
 
 
 def _frames(points: np.ndarray) -> np.ndarray:
@@ -257,12 +277,15 @@ def bmp_unrle(data, file_pos: int, width: int, height: int,
     return out.reshape(height, width)
 
 
-JPEG_PROCESSES = ("baseline", "extended sequential", "progressive")
+# the frame marker's number (SOFn) -> the coding process it names
+JPEG_PROCESSES = {0: "baseline", 1: "extended sequential", 2: "progressive",
+                  3: "lossless", 9: "arithmetic sequential",
+                  10: "arithmetic progressive"}
 _NO_ROOM = 3   # the decoders' code for memory that runs out
 
 
 def jpeg_info(data: bytes) -> dict:
-    """The frame of a JPEG file: width, height, channels (1 or 3) and
+    """The frame of a JPEG file: width, height, channels (1, 3 or 4) and
     process (``JPEG_PROCESSES``). Raises ``ValueError`` with the decoder's
     message on a corrupt or unsupported file."""
     src = np.frombuffer(data, np.uint8)
@@ -276,8 +299,10 @@ def jpeg_info(data: bytes) -> dict:
 
 def jpeg_decode(data: bytes) -> np.ndarray:
     """A JPEG file's pixels as (H, W, channels) uint8, equal to what
-    libjpeg-turbo gives Pillow by default. Raises ``ValueError`` with the
-    decoder's message on a corrupt or unsupported file."""
+    libjpeg-turbo gives Pillow by default, and so to imageio's array: grey,
+    RGB, or the CMYK samples inverted as Pillow's "CMYK;I" reads them.
+    Raises ``ValueError`` with the decoder's message on a corrupt or
+    unsupported file."""
     info = jpeg_info(data)
     src = np.frombuffer(data, np.uint8)
     out = np.empty((info["height"], info["width"], info["channels"]),
@@ -322,4 +347,40 @@ def webp_decode(data: bytes) -> np.ndarray:
         raise MemoryError(msg.value.decode(errors="replace"))
     if code:
         raise ValueError(msg.value.decode(errors="replace"))
+    return out
+
+
+def qoi_decode(data, n_pixels: int, channels: int) -> np.ndarray:
+    """A QOI image's ops (the bytes after its header) into (n_pixels,
+    channels) uint8, as Pillow's QoiDecoder reads them (the plain version
+    the tests hold it against is Pillow itself). Raises ``ValueError`` when
+    the data ends first."""
+    src = _bytes(data)
+    out = np.empty((n_pixels, channels), np.uint8)
+    if library().nm_qoi_decode(src, src.size, n_pixels, channels, out):
+        raise ValueError(f"QOI: the data ends before pixel {n_pixels}")
+    return out
+
+
+# BCn formats of nm_bcn_decode: name -> (number, bytes a block, channels)
+BCN_FORMATS = {"BC1": (1, 8, 4), "BC2": (2, 16, 4), "BC3": (3, 16, 4),
+               "BC4": (4, 8, 1), "BC5": (5, 16, 3), "BC6H": (6, 16, 3),
+               "BC7": (7, 16, 4)}
+
+
+def bcn_decode(data, fmt: str, signed: bool, width: int,
+               height: int) -> np.ndarray:
+    """The (height, width, channels) uint8 pixels of BCn blocks (``fmt`` of
+    ``BCN_FORMATS``; ``signed`` BC5 or BC6H), as Pillow's BcnDecode.c
+    decodes them. Raises ``ValueError`` when the data holds too few
+    blocks."""
+    number, block, channels = BCN_FORMATS[fmt]
+    src = _bytes(data)
+    out = np.empty((height, width, channels), np.uint8)
+    code = dds_library().nm_bcn_decode(src, src.size, number, int(signed),
+                                       width, height, out)
+    if code:
+        need = -(-width // 4) * -(-height // 4) * block
+        raise ValueError(f"{fmt}: {src.size} bytes of block data, {need} "
+                         "needed")
     return out

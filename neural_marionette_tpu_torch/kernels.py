@@ -3,11 +3,12 @@ data library.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on first use into its own
 shared library with a plain C interface, loaded through ``ctypes``; the
-host libraries ``csrc/nm_host.cpp`` and ``csrc/nm_webp.cpp``
-(``data/native.py``) are compiled the same way by ``g++``. The libraries land in ``_build/`` beside this file
-(git-ignored), under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale one is never loaded. All
-sources build in parallel, one compiler process each.
+host libraries ``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp`` and
+``csrc/nm_dds.cpp`` (``data/native.py``) are compiled the same way by
+``g++``. The libraries land in ``_build/`` beside this file (git-ignored),
+under a name that carries a hash of the source and the flags, so an edited
+source is rebuilt and a stale one is never loaded. All sources build in
+parallel, one compiler process each.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
@@ -28,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("voxelize", "chamfer", "conv3d", "groupnorm")
-HOST_SOURCES = ("nm_host", "nm_webp")   # csrc/<name>.cpp, built by g++
+HOST_SOURCES = ("nm_host", "nm_webp", "nm_dds")   # csrc/<name>.cpp, g++
 
 # No --use_fast_math: the voxelizer depends on true IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,6 +65,7 @@ _SIGNATURES = {
     # the host libraries' signatures live in data/native.py
     "nm_host": {},
     "nm_webp": {},
+    "nm_dds": {},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

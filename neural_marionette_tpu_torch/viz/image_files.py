@@ -9,18 +9,20 @@ Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
   decoded pixels equal ``to_uint8(img)``;
 * :func:`read_png` — any PNG, as Pillow (and imageio) reads it;
 * :func:`read_image` / :func:`decode_image` — PNG, JPEG, BMP, TGA, GIF,
-  TIFF (``viz/tiff.py``) or WebP by the file's magic number (the OBJ
+  TIFF (``viz/tiff.py``), WebP, DDS, QOI or PNM
+  (``viz/texture_formats.py``) by the file's magic number (the OBJ
   textures of ``apps/retarget``), as imageio reads them;
 * :func:`write_gif` — GIF89a with the loop extension, an adaptive palette
   of at most 256 colours per frame (exact when the frame has no more; else
   a count-weighted median cut, each colour mapped to its nearest entry)
   and the frame delay the caller asks for, in seconds.
 
-The LZW coder of the GIF frames, the PNG row filters, the JPEG decoder,
-the LZW, PackBits and run-length expansions of GIF, TIFF, BMP and TGA, and
-the WebP decoder run in the port's host libraries (``csrc/nm_host.cpp``
-and ``csrc/nm_webp.cpp`` through ``data/native.py``), which raise when
-they cannot be built.
+The LZW coder of the GIF frames, the PNG row filters, the JPEG and QOI
+decoders, the LZW, PackBits and run-length expansions of GIF, TIFF, BMP
+and TGA, the WebP decoder and the BCn blocks of DDS run in the port's host
+libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp`` and
+``csrc/nm_dds.cpp`` through ``data/native.py``), which raise when they
+cannot be built.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch
 from scipy.spatial import cKDTree
 
 from ..data import native
-from .tiff import decode_tiff
+from .texture_formats import decode_dds, decode_pnm, decode_qoi
+from .tiff import cmyk_to_rgb, decode_tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -533,19 +536,27 @@ def _decode_gif(data: bytes, path: str) -> np.ndarray:
 # ------------------------------------------------------------- any format
 _MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
           (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
-          (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
-READ_FORMATS = ("PNG", "JPEG", "BMP", "TGA", "GIF", "TIFF", "WebP")
+          (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"),
+          (b"DDS ", "DDS"), (b"qoif", "QOI"), (b"8BPS", "PSD"))
+READ_FORMATS = ("PNG", "JPEG", "BMP", "TGA", "GIF", "TIFF", "WebP", "DDS",
+                "QOI", "PNM")
 
 
 def image_format(data: bytes, path: str = "") -> str:
     """The format of an image file's bytes, as Pillow would take it: by
-    its magic number, else TGA where the header passes Pillow's TGA checks
-    or the extension is ``.tga``; "unknown" otherwise."""
+    its magic number (PNM by ``P1``-``P6``, ``Pf`` or ``PF`` and a
+    whitespace; PSD is named to be refused), else TGA where the header
+    passes Pillow's TGA checks or the extension is ``.tga``; "unknown"
+    otherwise."""
     for magic, name in _MAGIC:
         if data.startswith(magic):
             return name
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
+    if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5",
+                                         b"6", b"f", b"F") \
+            and data[2:3] in (b" ", b"\t", b"\n", b"\x0b", b"\x0c", b"\r"):
+        return "PNM"
     if _tga_header(data) is not None or path.lower().endswith(".tga"):
         return "TGA"
     return "unknown"
@@ -553,29 +564,44 @@ def image_format(data: bytes, path: str = "") -> str:
 
 def decode_image(data: bytes, path: str = "") -> np.ndarray:
     """An image file's bytes as (H, W, C) samples, by its format
-    (:func:`image_format`; ``path`` names the file in errors and decides a
-    TGA without a valid header), each as imageio reads it for the JAX
-    package's ``_find_texture``: PNG (:func:`read_png`), JPEG (baseline,
-    extended sequential or progressive, Huffman-coded, 8-bit, 1 or 3
-    components; decoded by the host library as libjpeg-turbo does), BMP,
-    TGA and GIF (the first frame; uint8), TIFF (the first page,
-    ``viz/tiff.decode_tiff``: uint8, uint16 or float32) and WebP (lossless
-    and lossy, the first frame of an animation; RGB, or RGBA where the file
-    has alpha; decoded by the host library as libwebp does). An unknown
+    (:func:`image_format`; ``path`` names the file in errors, decides a
+    TGA without a valid header and, as imageio's plugin order does, how a
+    ``.pbm`` or ``.pfm`` file reads), each as imageio reads it for the JAX
+    package's ``_find_texture``: PNG (:func:`read_png`); JPEG (baseline,
+    extended sequential, progressive and lossless; Huffman or arithmetic
+    coding; 8-bit, 1, 3 or 4 components, sampling factors 1-4; decoded by
+    the host library as libjpeg-turbo 3 does, block smoothing included; a
+    CMYK or YCCK file's inverted CMYK made RGB as Pillow's
+    ``convert("RGB")`` does); BMP, TGA and GIF (the first frame; uint8);
+    TIFF (the first page, ``viz/tiff.decode_tiff``: uint8, uint16, int8,
+    int16 or float32); WebP (lossless and lossy, the first frame of an
+    animation; RGB, or RGBA where the file has alpha; decoded by the host
+    library as libwebp does); DDS, QOI and PNM
+    (``viz/texture_formats.py``: uint8, a PGM past 8 bits int32, a float
+    map float32). A PSD file, which imageio does not read, an unknown
     file, or one that cannot be decoded, raises ``ValueError`` naming the
     format."""
     fmt = image_format(data, path)
+    if fmt == "PSD":
+        raise ValueError(f"{path}: a PSD image; imageio reads no PSD file "
+                         "(its Pillow plugin seeks frame 0, and Pillow's "
+                         "PSD reader numbers its frames from 1), so the "
+                         "port reads none either")
     if fmt not in READ_FORMATS:
         raise ValueError(f"{path}: a {fmt} image; the port reads "
                          f"{', '.join(READ_FORMATS)} images")
     if fmt in ("JPEG", "WebP"):
         try:
-            return (native.jpeg_decode if fmt == "JPEG" else
-                    native.webp_decode)(data)
+            img = (native.jpeg_decode if fmt == "JPEG" else
+                   native.webp_decode)(data)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from None
+        # Pillow's CMYK (imageio's samples) made RGB, the tiff_cmyk rule
+        return cmyk_to_rgb(img) if img.shape[-1] == 4 and fmt == "JPEG" \
+            else img
     return {"PNG": _decode_png, "BMP": _decode_bmp, "TGA": _decode_tga,
-            "GIF": _decode_gif, "TIFF": decode_tiff}[fmt](data, path)
+            "GIF": _decode_gif, "TIFF": decode_tiff, "DDS": decode_dds,
+            "QOI": decode_qoi, "PNM": decode_pnm}[fmt](data, path)
 
 
 def read_image(path: str) -> np.ndarray:

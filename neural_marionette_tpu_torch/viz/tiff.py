@@ -4,26 +4,29 @@ then made a texture under the port's stated rules.
 
 What is read: classic TIFF in both byte orders and BigTIFF; strips and
 tiles; ``PlanarConfiguration`` 1 and 2; 1, 2, 4, 8 and 16 bits a sample
-(unsigned) and 16-, 32- and 64-bit float; photometric min-is-white,
-min-is-black, RGB, palette and CMYK (separated, ink set CMYK), with extra
-samples; compression none, LZW, Deflate (8 and 32946), PackBits and LZMA;
-predictor 2 (horizontal differencing per sample, at 8 and 16 bits) and
-predictor 3 (floating point, in strips); fill order 2.
+(unsigned), 8 and 16 bits signed, and 16-, 32- and 64-bit float;
+photometric min-is-white, min-is-black, RGB, palette, CMYK (separated, ink
+set CMYK) and YCbCr without subsampling, with extra samples; compression
+none, LZW, Deflate (8 and 32946), PackBits and LZMA; predictor 2
+(horizontal differencing per sample, at 8 and 16 bits) and predictor 3
+(floating point, in strips); fill order 2.
 
 What is refused, with a ``ValueError`` that names it: what tifffile
 refuses (JPEG, CCITT and the other compressions it cannot decompress,
 old-style LZW, chroma subsampling, mixed sample formats), and what the
-port leaves out (signed integer samples, bit depths other than those
-above, YCbCr, CIELab and the other photometric interpretations, image
-depth above 1). See ``ROADMAP.md``.
+port leaves out (bit depths other than those above, CIELab and the other
+photometric interpretations, image depth above 1). See ``ROADMAP.md``.
 
 The samples come out as tifffile gives them, and :func:`decode_tiff` then
 returns the first page as (H, W, C) (planar data transposed), with:
 palette indices mapped through the colour map (uint16, as stored);
 min-is-white samples inverted; samples of 1, 2 or 4 bits scaled to 8
-bits; CMYK made RGB as Pillow's ``Image.convert("RGB")`` does; float
-samples as float32. The LZW and PackBits expansions run in the port's host
-library; Deflate in ``zlib`` and LZMA in ``lzma``.
+bits; CMYK made RGB as Pillow's ``Image.convert("RGB")`` does; YCbCr made
+RGB as libtiff's ``TIFFYCbCrToRGB`` does (what Pillow gives), under the
+file's ``YCbCrCoefficients`` and ``ReferenceBlackWhite``; signed samples
+as int8 or int16, as tifffile gives them; float samples as float32.
+The LZW and PackBits expansions run in the port's host library; Deflate
+in ``zlib`` and LZMA in ``lzma``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ _FILLORDER, _STRIP_OFFSETS, _SAMPLES, _ROWS_PER_STRIP = 266, 273, 277, 278
 _STRIP_COUNTS, _PLANAR, _PREDICTOR, _COLORMAP = 279, 284, 317, 320
 _TILE_WIDTH, _TILE_LENGTH, _TILE_OFFSETS, _TILE_COUNTS = 322, 323, 324, 325
 _INKSET, _EXTRA, _SAMPLE_FORMAT, _YCBCR_SUBSAMPLING = 332, 338, 339, 530
+_YCBCR_COEFFICIENTS, _REFERENCE_BLACK_WHITE = 529, 532
 _IMAGE_DEPTH = 32997
 
 # field type -> (struct code, size)
@@ -61,7 +65,7 @@ _COMPRESSION_NAMES = {
     34677: "SGI LogLuv 24", 34712: "JPEG 2000", 34887: "LERC",
     34926: "Zstandard", 34927: "WebP", 50000: "Zstandard", 50001: "WebP",
     52546: "JPEG XL"}
-_PHOTOMETRIC_NAMES = {4: "transparency mask", 6: "YCbCr", 8: "CIELab",
+_PHOTOMETRIC_NAMES = {4: "transparency mask", 8: "CIELab",
                       9: "ICCLab", 10: "ITULab", 32803: "CFA",
                       32844: "LogL", 32845: "LogLuv", 34892: "linear raw"}
 _REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
@@ -170,7 +174,7 @@ def _unpack_bits(raw: np.ndarray, rows: int, run: int, bits: int):
     return (u * weights).sum(-1, dtype=np.uint8)
 
 
-def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     """(..., 4) uint8 CMYK -> (..., 3) uint8 RGB, as Pillow's ``cmyk2rgb``:
     each channel (255 - k) - muldiv255(c, 255 - k)."""
     c = cmyk.astype(np.int32)
@@ -179,10 +183,57 @@ def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
+def _rationals(tags: dict, code: int, default) -> list:
+    """A tag of rationals as float32 values (num / den), or ``default``."""
+    v = tags.get(code)
+    if v is None or len(v) < 2 * len(default):
+        return [np.float32(x) for x in default]
+    return [np.float32(v[2 * i] / v[2 * i + 1] if v[2 * i + 1] else 0.0)
+            for i in range(len(default))]
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
+    """(..., 3) uint8 YCbCr -> RGB, as libtiff's ``TIFFYCbCrToRGBInit`` and
+    ``TIFFYCbCrtoRGB`` compute it (tif_color.c: float32 coefficients,
+    16-bit fixed-point tables, the reference black and white of each
+    channel), which is what Pillow's ``convert("RGB")`` gives. The defaults
+    are libtiff's: coefficients 0.299, 0.587, 0.114; reference (0, 255,
+    128, 255, 128, 255)."""
+    f = np.float32
+    lr, lg, lb = _rationals(tags, _YCBCR_COEFFICIENTS, (0.299, 0.587, 0.114))
+    ref = _rationals(tags, _REFERENCE_BLACK_WHITE,
+                     (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))
+
+    def fix(x):     # FIX(CLAMP(x, 0, 2)): float32 * 65536, + 0.5 in double
+        x = min(max(x, f(0)), f(2))
+        return int(float(f(x * f(65536))) + 0.5)
+
+    f1, f3 = f(2) - f(2) * lr, f(2) - f(2) * lb
+    d1, d2 = fix(f1), -fix(lr * f1 / lg)
+    d3, d4 = fix(f3), -fix(lb * f3 / lg)
+
+    def code2v(c, rb, rw, cr):    # Code2V, then CLAMPw and the int cast
+        den = f(rw - rb)
+        v = (c - int(rb)).astype(f) * f(cr) / (den if den != 0 else f(1))
+        return np.trunc(np.clip(v, f(-4096), f(4096))).astype(np.int64)
+
+    x = np.arange(-128, 128)
+    cr = code2v(x, ref[4] - f(128), ref[5] - f(128), 127)
+    cb = code2v(x, ref[2] - f(128), ref[3] - f(128), 127)
+    y = code2v(x + 128, ref[0], ref[1], 255)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    Y, Cb, Cr = (ycc[..., i].astype(np.intp) for i in range(3))
+    rgb = np.stack([y[Y] + cr_r[Cr], y[Y] + ((cb_g[Cb] + cr_g[Cr]) >> 16),
+                    y[Y] + cb_b[Cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def decode_tiff(data: bytes, path: str = "") -> np.ndarray:
     """The first page of a TIFF file as (H, W, C) samples (see the module
-    docstring): uint8, uint16 (16-bit samples, or a palette's colour map)
-    or float32; C = 1 grey, 2 grey + alpha, 3 RGB, 4 RGBA."""
+    docstring): uint8, uint16 (16-bit samples, or a palette's colour map),
+    int8 or int16 (signed samples) or float32; C = 1 grey, 2 grey + alpha,
+    3 RGB, 4 RGBA."""
     r = _Reader(data, path)
     tags = r.tags
     W, H = _one(tags, _WIDTH, 0), _one(tags, _LENGTH, 0)
@@ -207,32 +258,36 @@ def decode_tiff(data: bytes, path: str = "") -> np.ndarray:
     if sub is not None and tuple(sub) != (1, 1):
         _fail(path, f"YCbCr subsampling {tuple(sub)} is not read")
     if photometric in _PHOTOMETRIC_NAMES or photometric not in (0, 1, 2, 3,
-                                                                 5):
+                                                                 5, 6):
         name = _PHOTOMETRIC_NAMES.get(photometric, "unknown")
         _fail(path, f"photometric interpretation {photometric} ({name}) is "
                     "not read")
     if _one(tags, _IMAGE_DEPTH, 1) != 1:
         _fail(path, "an image depth above 1 is not read")
-    if fmt == 2:
-        _fail(path, f"signed {bits}-bit samples are not read")
     if not (fmt == 1 and bits in (1, 2, 4, 8, 16)
+            or fmt == 2 and bits in (8, 16)
             or fmt == 3 and bits in (16, 32, 64)):
         _fail(path, f"sample format {fmt} at {bits} bits is not read")
     if photometric == 5 and not (_one(tags, _INKSET, 1) == 1 and spp >= 4
                                  and bits == 8):
         _fail(path, "only 8-bit CMYK separations are read")
+    if photometric == 6 and not (fmt == 1 and bits == 8 and spp >= 3):
+        _fail(path, "only 8-bit unsigned YCbCr is read")
+    if fmt == 2 and photometric not in (1, 2):
+        _fail(path, f"signed samples with photometric {photometric} are "
+                    "not read")
     if photometric == 2 and spp < 3 or photometric == 3 and spp != 1:
         _fail(path, f"photometric {photometric} with {spp} samples a pixel")
     if planar not in (1, 2) or spp < 1:
         _fail(path, f"planar configuration {planar}, {spp} samples")
-    if predictor not in (1, 2, 3) or predictor == 2 and fmt != 1 \
+    if predictor not in (1, 2, 3) or predictor == 2 and fmt == 3 \
             or predictor == 3 and fmt != 3 or predictor > 1 and bits < 8:
         _fail(path, f"predictor {predictor} on {bits}-bit samples of "
                     f"format {fmt} is not read")
     tiled = _TILE_WIDTH in tags
     if predictor == 3 and tiled:
         _fail(path, "predictor 3 in tiles is not read (tifffile raises)")
-    dtype = np.dtype({1: "u", 3: "f"}[fmt] + str(max(1, bits // 8)))
+    dtype = np.dtype({1: "u", 2: "i", 3: "f"}[fmt] + str(max(1, bits // 8)))
     if bits < 8:
         dtype = np.dtype(np.uint8)
     item = max(1, bits // 8)
@@ -310,7 +365,9 @@ def _texture_samples(img, tags, photometric, bits, spp, path):
         lut = np.asarray(cmap[:3 << bits], np.uint16).reshape(3, -1).T
         return lut[img[..., 0]]
     if photometric == 5:
-        return _cmyk_to_rgb(img[..., :4])
+        return cmyk_to_rgb(img[..., :4])
+    if photometric == 6:
+        return _ycbcr_to_rgb(img[..., :3], tags)
     keep = 3 if photometric == 2 else 1
     img = img[..., :keep + (spp > keep)]
     if img.dtype.kind == "f":

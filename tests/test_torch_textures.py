@@ -1,8 +1,9 @@
 """OBJ textures in every format the JAX retarget path reads: the port's
 ``apps/retarget.load_obj_mesh`` (``_find_texture`` over
-``viz/image_files.read_image``: PNG, BMP, TGA, GIF and TIFF in NumPy with
-the host library's LZW, PackBits and run-length expansions, JPEG and WebP
-in the host library's decoders) against the JAX package's (imageio) on the
+``viz/image_files.read_image``: PNG, BMP, TGA, GIF, TIFF, PNM and the
+headers of DDS and QOI in NumPy with the host library's LZW, PackBits and
+run-length expansions, JPEG, WebP, QOI and the BCn blocks of DDS in the
+host libraries' decoders) against the JAX package's (imageio) on the
 fixtures of ``tests/torch_textures/``, which ``make_textures.py`` writes
 with Pillow and its own writers and describes in ``MANIFEST.json``.
 
@@ -11,9 +12,10 @@ equal to the bit, on every key of the mesh. Where it is not (grey: imageio
 gives (H, W) and the JAX ``[..., :3]`` keeps 3 columns; grey + alpha: 2
 channels; 16-bit samples divided by 255; 1-bit grey as bool; and for TIFF:
 palette indices, planar (C, H, W), several pages, CMYK samples, float
-samples divided by 255, min-is-white levels) the port's is imageio's
-pixels under the rule of ``texture_rgb``'s docstring (``ROADMAP.md``
-Queue 3), and the JAX texture differs from it.
+samples divided by 255, min-is-white levels, signed and YCbCr samples;
+for JPEG: CMYK; for PNM: int32 past 8 bits, float maps, bitmaps) the
+port's is imageio's pixels under the rule of ``texture_rgb``'s docstring
+(``ROADMAP.md`` Queue 3), and the JAX texture differs from it.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def test_texture_reads_like_jax(tmp_path, entry):
         pixels = F.read_image(str(TEX / entry["file"]))
         assert hashlib.sha256(pixels.tobytes()).hexdigest() == \
             entry["sha256"]
-        assert np.array_equal(tex, pixels.astype(np.float32) / 255.0)
+        assert np.array_equal(tex, PRT.texture_rgb(pixels))
     else:
         assert np.array_equal(tex, _expected(entry))
     j = JRT.load_obj_mesh(str(obj))
@@ -113,27 +115,32 @@ def test_manifest_is_what_imageio_reads(entry):
     assert str(arr.dtype) == entry["imageio_dtype"]
     assert hashlib.sha256(arr.tobytes()).hexdigest() == \
         entry["imageio_sha256"]
-    if "sha256" in entry:
-        assert hashlib.sha256(arr.tobytes()).hexdigest() == entry["sha256"]
-        return
     rgb, divisor, well = MAKE.expected(arr, entry["facts"].get("rule"),
                                        TEX / entry["file"])
     assert (divisor, well) == (entry["divisor"], entry["jax_well_formed"])
+    if "sha256" in entry:     # a large file: the port's samples, whole
+        samples = rgb if entry["facts"].get("rule") else arr
+        assert hashlib.sha256(samples.tobytes()).hexdigest() == \
+            entry["sha256"]
+        return
     assert np.array_equal(rgb, EXPECTED[entry["key"]])
 
 
 @pytest.mark.parametrize("entry", REFUSED, ids=_ids(REFUSED))
 def test_refused_texture_raises_naming_it(tmp_path, entry):
-    """What neither imageio nor the port reads (a truncated GIF or WebP, a
-    bad LZW code, a BMP bitfields layout or compression Pillow refuses,
-    TIFF's JPEG and CCITT compressions, old-style LZW, YCbCr subsampling)
-    and the JPEG processes the port's decoder does not read (CMYK,
-    arithmetic coding, lossless, hierarchical, 12-bit, sampling factors
-    above 2) raise ``ValueError`` naming what they are: a texture that is
-    present but unreadable is never dropped."""
+    """What neither imageio nor the port reads (a truncated GIF, WebP,
+    DDS or QOI, a bad LZW code, a BMP bitfields layout or compression
+    Pillow refuses, TIFF's JPEG and CCITT compressions, old-style LZW,
+    YCbCr subsampling; JPEG: hierarchical, 12-bit, a fractional sampling
+    ratio, lossless YCbCr, lossless without tables or arithmetic-coded,
+    an arithmetic scan past Pillow's first 64 KiB; a DDS format Pillow
+    refuses; every PSD) raises ``ValueError`` naming what it is: a texture
+    that is present but unreadable is never dropped."""
     obj = _write_obj(tmp_path, TEX / entry["file"])
     with pytest.raises(ValueError, match=entry["raises"]):
         PRT.load_obj_mesh(str(obj))
+    with pytest.raises(Exception):      # imageio refuses it too
+        imageio.imread(TEX / entry["file"])
 
 
 def _patched(name, fn):
@@ -151,20 +158,12 @@ def _set(offset, value):
 def _first_scans(k):
     """Keep a progressive JPEG's first ``k`` scans, then EOI."""
     def fn(data):
-        sos = [i for i in range(len(data) - 1)
-               if data[i] == 0xFF and data[i + 1] == 0xDA]
-        data[sos[k]:] = b"\xff\xd9"
+        data[:] = MAKE.first_scans(bytes(data), k)
     return fn
 
 
 def _without_dht(data):
-    out, pos = bytearray(data[:2]), 2
-    while data[pos + 1] != 0xDA:
-        n = 2 + (data[pos + 2] << 8 | data[pos + 3])
-        if data[pos + 1] != 0xC4:
-            out += data[pos:pos + n]
-        pos += n
-    data[:] = out + data[pos:]
+    data[:] = MAKE.without_dht(bytes(data))
 
 
 def _tiff(**kw):
@@ -176,20 +175,22 @@ def _tiff(**kw):
 
 _SIGNED = np.arange(-60, 60, dtype=np.int8).reshape(8, 15, 1)
 
+
+def _pillow(fmt, **kw):
+    """A Pillow file of the fixture's pixels, in place of the fixture."""
+    def fn(data):
+        from PIL import Image
+        f = io.BytesIO()
+        Image.open(io.BytesIO(bytes(data))).convert("RGB").save(f, fmt, **kw)
+        data[:] = f.getvalue()
+    return fn
+
+
 # variants that imageio reads and the port refuses, each listed in
 # ROADMAP.md: (fixture, patch, file name, the ValueError's words)
 UNREAD = {
-    "tiff_signed_samples": ("other.tif", _tiff(
-        samples=_SIGNED, photometric=1, sample_format=2), "x.tif",
-        "signed 8-bit samples"),
-    "tiff_ycbcr_unsubsampled": ("other.tif", _tiff(
-        samples=np.zeros((8, 8, 3), np.uint8), photometric=6,
-        extra_tags=((530, 3, [1, 1]),)), "x.tif", "YCbCr"),
-    "jpeg_without_huffman_tables": ("jpeg_baseline_420.jpg", _without_dht,
-                                    "x.jpg", "Huffman table DC 0 not"),
-    "jpeg_progressive_unrefined": ("jpeg_progressive_420.jpg",
-                                   _first_scans(2), "x.jpg",
-                                   "block smoothing"),
+    "avif": ("png_rgb8.png", _pillow("AVIF"), "x.avif", "unknown"),
+    "jpeg2000": ("png_rgb8.png", _pillow("JPEG2000"), "x.jp2", "unknown"),
 }
 
 
@@ -205,11 +206,29 @@ def test_unread_variant_raises(tmp_path, case):
         F.read_image(str(path))
 
 
-# variants the port refused until it read them: (fixture, patch, name)
+def _ycbcr_rgb(path):
+    """The YCbCr rule: Pillow's open and convert, libtiff's conversion."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+# variants the port refused until it read them: (fixture, patch, name,
+# what the port's samples must equal; None: imageio's array)
 PATCHED = {
-    "bmp_rle8": ("bmp_palette8.bmp", _set(30, 1), "x.bmp"),
-    "bmp_16bit": ("bmp_24.bmp", _set(28, 16), "x.bmp"),
-    "tga_16bit": ("tga_rgb.tga", _set(16, 16), "x.tga"),
+    "bmp_rle8": ("bmp_palette8.bmp", _set(30, 1), "x.bmp", None),
+    "bmp_16bit": ("bmp_24.bmp", _set(28, 16), "x.bmp", None),
+    "tga_16bit": ("tga_rgb.tga", _set(16, 16), "x.tga", None),
+    "tiff_signed_samples": ("other.tif", _tiff(
+        samples=_SIGNED, photometric=1, sample_format=2), "x.tif", None),
+    "tiff_ycbcr_unsubsampled": ("other.tif", _tiff(
+        samples=np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3),
+        photometric=6, compression=5, extra_tags=((530, 3, [1, 1]),)),
+        "x.tif", _ycbcr_rgb),
+    "jpeg_without_huffman_tables": ("jpeg_baseline_420.jpg", _without_dht,
+                                    "x.jpg", None),
+    "jpeg_progressive_unrefined": ("jpeg_progressive_420.jpg",
+                                   _first_scans(2), "x.jpg", None),
 }
 
 
@@ -217,12 +236,19 @@ PATCHED = {
 def test_patched_variant_reads_like_imageio(tmp_path, case):
     """A fixture's header patched into another variant (an uncompressed
     palette image read as BI_RLE8, 24-bit pixels read at 16 bits, a TGA
-    read as A1R5G5B5): the port's samples are imageio's, to the bit."""
-    name, patch, out = PATCHED[case]
+    read as A1R5G5B5, signed and YCbCr TIFF samples, a JPEG without its
+    DHT segment, a progressive JPEG cut after two scans, which libjpeg
+    smooths): the port's samples are imageio's, to the bit (a YCbCr TIFF's
+    made RGB as Pillow makes them)."""
+    name, patch, out, rule = PATCHED[case]
     path = tmp_path / out
     path.write_bytes(_patched(name, patch))
     want = np.asarray(imageio.imread(path))
     got = F.read_image(str(path))
+    if rule is not None:
+        want = rule(path)
+    if got.shape != want.shape:
+        got = got.reshape(want.shape)
     assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
@@ -233,7 +259,9 @@ def test_read_image_dispatch_and_samples():
                                      e["file"]) for e in MANIFEST}
     for name, want in fmt.items():
         ext = {"jpg": "JPEG", "png": "PNG", "bmp": "BMP", "tga": "TGA",
-               "dat": "TGA", "gif": "GIF", "tif": "TIFF", "webp": "WebP"}
+               "dat": "TGA", "gif": "GIF", "tif": "TIFF", "webp": "WebP",
+               "dds": "DDS", "qoi": "QOI", "psd": "PSD", "pbm": "PNM",
+               "pgm": "PNM", "ppm": "PNM", "pnm": "PNM", "pfm": "PNM"}
         assert want == ext[name.rsplit(".", 1)[1]], name
     assert F.image_format(b"\x00" * 40, "x.tga") == "TGA"
     assert F.image_format(b"\x07" * 40, "x.bin") == "unknown"
@@ -280,7 +308,8 @@ _FUZZ = [e["file"] for e in READ if "sha256" not in e]
        cut=st.one_of(st.none(), st.integers(0, 1 << 20)))
 def test_corrupt_jpeg_and_png_raise_or_read(name, flips, cut):
     """Bytes set and the file cut at random, in every fixture the port
-    reads (PNG, JPEG, BMP, TGA, GIF, TIFF, WebP): ``decode_image`` raises
+    reads (PNG, JPEG, BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM):
+    ``decode_image`` raises
     ``ValueError`` or returns well-formed samples, and never takes the
     process down (the host library bounds-checks every read)."""
     data = bytearray((TEX / name).read_bytes())
@@ -293,7 +322,8 @@ def test_corrupt_jpeg_and_png_raise_or_read(name, flips, cut):
     except ValueError:
         return
     assert img.ndim == 3 and img.shape[-1] in (1, 2, 3, 4) and img.size
-    assert img.dtype in (np.uint8, np.uint16, np.float32)
+    assert img.dtype in (np.uint8, np.uint16, np.int8, np.int16, np.int32,
+                         np.float32)
     tex = PRT.texture_rgb(img)
     assert tex.shape == img.shape[:2] + (3,)
     assert np.isfinite(tex).all() and 0 <= tex.min() and tex.max() <= 1

@@ -1,10 +1,13 @@
 """Mutated and truncated texture fixtures through the port's readers, with
-both host libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``) built
-under AddressSanitizer and UndefinedBehaviorSanitizer.
+the three host libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
+``csrc/nm_dds.cpp``) built under AddressSanitizer and
+UndefinedBehaviorSanitizer: every decoder of them, the JPEG processes
+(Huffman, arithmetic, lossless, block smoothing), WebP, BCn and QOI, and
+the expansions of GIF, TIFF, BMP and TGA.
 
     python tests/torch_textures/asan_mutants.py [--per 1000] [--seed 2024]
 
-Builds the two libraries with ``g++ -fsanitize=address,undefined
+Builds the libraries with ``g++ -fsanitize=address,undefined
 -fno-sanitize-recover=undefined`` into a temporary directory, then runs
 itself again with the sanitizer runtimes preloaded. Each small fixture that
 the port reads (``MANIFEST.json``) gives ``--per`` mutants, in turn: 1-4
@@ -31,6 +34,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent.parent
+LIBS = ("nm_host", "nm_webp", "nm_dds")
 FLAGS = ("-O1", "-g", "-std=c++17", "-shared", "-fPIC", "-pthread",
          "-fsanitize=address,undefined", "-fno-sanitize-recover=undefined",
          "-fno-omit-frame-pointer")
@@ -40,7 +44,7 @@ def build(out: Path) -> None:
     procs = [subprocess.Popen(["g++", *FLAGS, "-o", str(out / f"{n}.so"),
                                str(ROOT / "neural_marionette_tpu_torch"
                                    / "csrc" / f"{n}.cpp")])
-             for n in ("nm_host", "nm_webp")]
+             for n in LIBS]
     if any(p.wait() for p in procs):
         raise SystemExit("the sanitizer build failed")
 
@@ -48,7 +52,7 @@ def build(out: Path) -> None:
 def run(lib_dir: Path, per: int, seed: int) -> dict:
     sys.path.insert(0, str(ROOT))
     from neural_marionette_tpu_torch import kernels
-    for name in ("nm_host", "nm_webp"):
+    for name in LIBS:
         kernels._LIBS[name] = ctypes.CDLL(str(lib_dir / f"{name}.so"))
     from neural_marionette_tpu_torch.apps.retarget import texture_rgb
     from neural_marionette_tpu_torch.viz import image_files as F
