@@ -121,20 +121,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
     files cut short (block smoothing); BMP with run-length and bitfields;
     TGA at 16 bits; GIF; TIFF of every layout and compression imageio
     reads, signed and YCbCr samples; WebP lossless, lossy, with alpha and
-    animated; DDS uncompressed and BC1-BC7; QOI; PNM and PFM) read by
-    ``viz.image_files.read_image`` (JPEG, WebP, QOI and BCn, and the LZW,
-    PackBits and run-length expansions, in the host libraries built on
-    this machine) and ``apps.retarget.texture_rgb``, equal to the bit to
+    animated; DDS uncompressed and BC1-BC7; QOI; PNM and PFM; JPEG 2000
+    as JP2 and raw codestreams: every mode, 5/3 and 9/7, RCT and ICT,
+    layers, tiles, precincts, the five progression orders and POC, every
+    code-block style, RGN, SOP/EPH, sYCC, sub-sampled components,
+    palettes, patched precision) read by
+    ``viz.image_files.read_image`` (JPEG, WebP, QOI, BCn and JPEG 2000,
+    and the LZW, PackBits and run-length expansions, in the host libraries
+    built on this machine) and ``apps.retarget.texture_rgb``, equal to the
+    bit to
     ``MANIFEST.json`` (imageio's pixels on the machine that wrote them);
     the refused files (hierarchical, 12-bit, fractionally sampled,
     lossless YCbCr or without tables or arithmetic-coded JPEG, an
     arithmetic scan past 64 KiB; TIFF JPEG, CCITT, old-style LZW, YCbCr
     subsampling; truncated GIF, WebP, DDS and QOI, a bad LZW code, BMP
     layouts and a DDS format Pillow refuses; PSD, which imageio does not
-    read) raising ``ValueError`` naming what they are; the host ms of
-    decoding each 1024 x 1024 file (baseline and progressive 4:2:0 JPEG,
-    arithmetic sequential and progressive 4:2:0 JPEG, CMYK JPEG, GIF,
-    TIFF LZW, WebP lossless and lossy, BC1 and BC7 DDS, QOI);
+    read; JPEG 2000 cut short, without EOC, of a colour space Pillow does
+    not unpack or a palette past 256 colours) raising ``ValueError``
+    naming what they are; the host ms of decoding each 1024 x 1024 file
+    (baseline and progressive 4:2:0 JPEG, arithmetic sequential and
+    progressive 4:2:0 JPEG, CMYK JPEG, GIF, TIFF LZW, WebP lossless and
+    lossy, BC1 and BC7 DDS, QOI, JPEG 2000 5/3 and 9/7 with ICT);
     then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
@@ -3923,7 +3930,8 @@ TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
                  "webp_1024_lossless.webp", "webp_1024_lossy.webp",
                  "jpeg_1024_arith_sequential_420.jpg",
                  "jpeg_1024_arith_progressive_420.jpg", "jpeg_1024_cmyk.jpg",
-                 "dds_1024_bc1.dds", "dds_1024_bc7.dds", "qoi_1024.qoi")
+                 "dds_1024_bc1.dds", "dds_1024_bc7.dds", "qoi_1024.qoi",
+                 "jp2_1024_53.jp2", "jp2_1024_97_mct.jp2")
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
 RENDER_WEBP = "webp_1024_lossless.webp"    # the WebP-textured retarget set
@@ -3938,9 +3946,10 @@ def _texture_expected(entry, arrays):
 
 def phase_textures(card, reps=11):
     """Every texture fixture of ``tests/torch_textures/`` through the
-    port's ``read_image`` and ``texture_rgb`` (the JPEG, WebP, QOI and BCn
-    decoders and the LZW, PackBits and run-length expansions of the host
-    libraries built on this machine), held against ``MANIFEST.json``:
+    port's ``read_image`` and ``texture_rgb`` (the JPEG, WebP, QOI, BCn and
+    JPEG 2000 decoders and the LZW, PackBits and run-length expansions of
+    the host libraries built on this machine), held against
+    ``MANIFEST.json``:
     equal to the bit to ``expected.npz``, or the SHA-256 of the 1024 x
     1024 files' samples; a refused file must raise ``ValueError`` naming
     what it is.

@@ -94,9 +94,9 @@ def _find_texture(mtl_path: str):
     [0, 1]; None when the file is absent or declares no texture, and, with
     a warning, when the declared image is missing (the JAX function's
     None). The image is read by ``viz.image_files.read_image`` (PNG, JPEG,
-    BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM); a file that is present but
-    cannot be read (a PSD, which imageio does not read either) raises
-    ``ValueError``."""
+    BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM, JPEG 2000); a file that is
+    present but cannot be read (a PSD, which imageio does not read either,
+    or an AVIF) raises ``ValueError``."""
     if not os.path.exists(mtl_path):
         return None
     tex_file = None
@@ -135,9 +135,9 @@ def texture_rgb(img: np.ndarray) -> np.ndarray:
     does and YCbCr as libtiff's ``TIFFYCbCrToRGB`` does, min-is-white
     inverted, 1-, 2- and 4-bit samples scaled to 8 bits (the JAX function
     gets tifffile's raw indices, (C, H, W), all pages, the CMYK and YCbCr
-    samples, the stored levels); to a CMYK or YCCK JPEG, Pillow's CMYK
-    made RGB as for TIFF (the JAX texture is C, M, Y); a bitmap's bool as 0
-    and 255."""
+    samples, the stored levels); to a CMYK or YCCK JPEG and a CMYK JPEG
+    2000, Pillow's CMYK made RGB as for TIFF (the JAX texture is C, M, Y); a
+    bitmap's bool as 0 and 255."""
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3,
                                                            axis=-1)
     if img.dtype.kind == "f":

@@ -2,7 +2,8 @@
 data layer's loops, the GIF and PNG coders of ``viz/image_files.py``, its
 JPEG and QOI decoders, and the LZW, PackBits and run-length expansions of
 its GIF, TIFF, BMP and TGA readers), ``csrc/nm_webp.cpp`` (its WebP
-decoder) and ``csrc/nm_dds.cpp`` (the BC1-BC7 blocks of its DDS reader).
+decoder), ``csrc/nm_dds.cpp`` (the BC1-BC7 blocks of its DDS reader) and
+``csrc/nm_jp2.cpp`` (its JPEG 2000 decoder).
 
 Counterpart of ``neural_marionette_tpu/data/native.py``. The library is
 built by ``kernels.py`` with ``g++`` into ``_build/`` at first use. Where
@@ -23,6 +24,7 @@ from .. import kernels
 _lib: Optional[ctypes.CDLL] = None
 _webp: Optional[ctypes.CDLL] = None
 _dds: Optional[ctypes.CDLL] = None
+_jp2: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()   # the loader's threads may ask for it at once
 
 
@@ -109,6 +111,25 @@ def dds_library() -> ctypes.CDLL:
             lib.nm_bcn_decode.restype = ctypes.c_int
             _dds = lib
     return _dds
+
+
+def jp2_library() -> ctypes.CDLL:
+    """The loaded JPEG 2000 decoder (``csrc/nm_jp2.cpp``); built on first
+    use, raises if it cannot be built."""
+    global _jp2
+    with _lock:
+        if _jp2 is None:
+            lib = kernels.library("nm_jp2")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            i32, i64 = ctypes.c_int32, ctypes.c_int64
+            lib.nm_jp2_info.argtypes = [u8p, i64, i32p, ctypes.c_char_p, i64]
+            lib.nm_jp2_info.restype = ctypes.c_int
+            lib.nm_jp2_decode.argtypes = [u8p, i64, i32, i32, i32, i32, u8p,
+                                          i64, ctypes.c_char_p, i64]
+            lib.nm_jp2_decode.restype = ctypes.c_int
+            _jp2 = lib
+    return _jp2
 
 
 def _frames(points: np.ndarray) -> np.ndarray:
@@ -343,6 +364,51 @@ def webp_decode(data: bytes) -> np.ndarray:
     msg = ctypes.create_string_buffer(256)
     code = webp_library().nm_webp_decode(src, src.size, out, out.size, msg,
                                          len(msg))
+    if code == _NO_ROOM:
+        raise MemoryError(msg.value.decode(errors="replace"))
+    if code:
+        raise ValueError(msg.value.decode(errors="replace"))
+    return out
+
+
+def jp2_info(data) -> dict:
+    """The main header of a JPEG 2000 codestream: the image area on the
+    reference grid (x0, y0, x1, y1) and per component its bits, signedness
+    and sub-sampling (``components``: a list of (bits, signed, dx, dy)).
+    Raises ``ValueError`` with the decoder's message."""
+    src = _bytes(data)
+    info = np.zeros(21, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    if jp2_library().nm_jp2_info(src, src.size, info, msg, len(msg)):
+        raise ValueError(msg.value.decode(errors="replace"))
+    comps = [tuple(int(v) for v in info[5 + 4 * c:9 + 4 * c])
+             for c in range(int(info[4]))]
+    return dict(x1=int(info[0]), y1=int(info[1]), x0=int(info[2]),
+                y0=int(info[3]), components=comps)
+
+
+# samples per pixel of each of nm_jp2_decode's modes: L, P, PA, I;16, LA,
+# RGB, RGBA, CMYK
+_JP2_BANDS = (1, 1, 2, 1, 2, 3, 4, 4)
+
+
+def jp2_decode(data, mode: int, space: int, width: int,
+               height: int) -> np.ndarray:
+    """A JPEG 2000 codestream decoded as OpenJPEG decodes it and unpacked
+    as Pillow's ``Jpeg2KDecode.c`` unpacks it into an image of ``mode``
+    (an index of ``viz.jpeg2000.MODES``) and ``width`` x ``height``, the
+    codestream's colour space being ``space`` (0 unspecified, 1 sRGB, 2
+    grey, 3 sYCC, 4 e-sYCC, 5 CMYK): (height, width, bands) uint8, uint16
+    for I;16; P and PA as palette indices. Raises ``ValueError`` with the
+    decoder's message on a corrupt or unsupported codestream."""
+    src = _bytes(data)
+    bands = _JP2_BANDS[mode]
+    out = np.empty((height, width, bands),
+                   np.uint16 if mode == 3 else np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    code = jp2_library().nm_jp2_decode(src, src.size, mode, space, width,
+                                       height, out.view(np.uint8).reshape(-1),
+                                       out.nbytes, msg, len(msg))
     if code == _NO_ROOM:
         raise MemoryError(msg.value.decode(errors="replace"))
     if code:

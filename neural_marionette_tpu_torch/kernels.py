@@ -3,9 +3,9 @@ data library.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on first use into its own
 shared library with a plain C interface, loaded through ``ctypes``; the
-host libraries ``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp`` and
-``csrc/nm_dds.cpp`` (``data/native.py``) are compiled the same way by
-``g++``. The libraries land in ``_build/`` beside this file (git-ignored),
+host libraries ``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
+``csrc/nm_dds.cpp`` and ``csrc/nm_jp2.cpp`` (``data/native.py``) are
+compiled the same way by ``g++``. The libraries land in ``_build/`` beside this file (git-ignored),
 under a name that carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale one is never loaded. All sources build in
 parallel, one compiler process each.
@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("voxelize", "chamfer", "conv3d", "groupnorm")
-HOST_SOURCES = ("nm_host", "nm_webp", "nm_dds")   # csrc/<name>.cpp, g++
+HOST_SOURCES = ("nm_host", "nm_webp", "nm_dds", "nm_jp2")  # .cpp, g++
 
 # No --use_fast_math: the voxelizer depends on true IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -66,6 +66,7 @@ _SIGNATURES = {
     "nm_host": {},
     "nm_webp": {},
     "nm_dds": {},
+    "nm_jp2": {},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -9,9 +9,10 @@ Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
   decoded pixels equal ``to_uint8(img)``;
 * :func:`read_png` — any PNG, as Pillow (and imageio) reads it;
 * :func:`read_image` / :func:`decode_image` — PNG, JPEG, BMP, TGA, GIF,
-  TIFF (``viz/tiff.py``), WebP, DDS, QOI or PNM
-  (``viz/texture_formats.py``) by the file's magic number (the OBJ
-  textures of ``apps/retarget``), as imageio reads them;
+  TIFF (``viz/tiff.py``), WebP, DDS, QOI, PNM
+  (``viz/texture_formats.py``) or JPEG 2000 (``viz/jpeg2000.py``) by the
+  file's magic number (the OBJ textures of ``apps/retarget``), as imageio
+  reads them;
 * :func:`write_gif` — GIF89a with the loop extension, an adaptive palette
   of at most 256 colours per frame (exact when the frame has no more; else
   a count-weighted median cut, each colour mapped to its nearest entry)
@@ -19,10 +20,10 @@ Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
 
 The LZW coder of the GIF frames, the PNG row filters, the JPEG and QOI
 decoders, the LZW, PackBits and run-length expansions of GIF, TIFF, BMP
-and TGA, the WebP decoder and the BCn blocks of DDS run in the port's host
-libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp`` and
-``csrc/nm_dds.cpp`` through ``data/native.py``), which raise when they
-cannot be built.
+and TGA, the WebP decoder, the BCn blocks of DDS and the JPEG 2000
+decoder run in the port's host libraries (``csrc/nm_host.cpp``,
+``csrc/nm_webp.cpp``, ``csrc/nm_dds.cpp`` and ``csrc/nm_jp2.cpp`` through
+``data/native.py``), which raise when they cannot be built.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 from scipy.spatial import cKDTree
 
 from ..data import native
+from .jpeg2000 import CODESTREAM, SIGNATURE, decode_jpeg2000
 from .texture_formats import decode_dds, decode_pnm, decode_qoi
 from .tiff import cmyk_to_rgb, decode_tiff
 
@@ -537,20 +539,31 @@ def _decode_gif(data: bytes, path: str) -> np.ndarray:
 _MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
           (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
           (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"),
-          (b"DDS ", "DDS"), (b"qoif", "QOI"), (b"8BPS", "PSD"))
+          (b"DDS ", "DDS"), (b"qoif", "QOI"), (b"8BPS", "PSD"),
+          (SIGNATURE, "JPEG2000"), (CODESTREAM, "JPEG2000"))
 READ_FORMATS = ("PNG", "JPEG", "BMP", "TGA", "GIF", "TIFF", "WebP", "DDS",
-                "QOI", "PNM")
+                "QOI", "PNM", "JPEG2000")
+# the ISO base media brands of Pillow's AVIF plugin
+_AVIF_BRANDS = (b"avif", b"avis")
 
 
 def image_format(data: bytes, path: str = "") -> str:
     """The format of an image file's bytes, as Pillow would take it: by
     its magic number (PNM by ``P1``-``P6``, ``Pf`` or ``PF`` and a
-    whitespace; PSD is named to be refused), else TGA where the header
-    passes Pillow's TGA checks or the extension is ``.tga``; "unknown"
+    whitespace; JPEG 2000 by the JP2 signature box or a codestream's SOC
+    and SIZ; PSD, and AVIF by an ``ftyp`` box of brand ``avif`` or
+    ``avis``, are named to be refused), else TGA where the header passes
+    Pillow's TGA checks or the extension is ``.tga``; "unknown"
     otherwise."""
     for magic, name in _MAGIC:
         if data.startswith(magic):
             return name
+    if data[4:8] == b"ftyp" and (data[8:12] in _AVIF_BRANDS or (
+            data[8:12] in (b"mif1", b"msf1") and any(
+                data[k:k + 4] in _AVIF_BRANDS
+                for k in range(16, min(len(data), 8 + int.from_bytes(
+                    data[:4], "big")), 4)))):
+        return "AVIF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
     if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5",
@@ -578,10 +591,20 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
     animation; RGB, or RGBA where the file has alpha; decoded by the host
     library as libwebp does); DDS, QOI and PNM
     (``viz/texture_formats.py``: uint8, a PGM past 8 bits int32, a float
-    map float32). A PSD file, which imageio does not read, an unknown
-    file, or one that cannot be decoded, raises ``ValueError`` naming the
-    format."""
+    map float32); JPEG 2000 (a JP2 file or a raw codestream, any
+    progression with POC, layers, precincts and tiles, every code-block
+    style of Part 1, RGN, SOP/EPH, the 5/3 and 9/7 wavelets, RCT and ICT,
+    ``viz/jpeg2000.py``: uint8 grey, grey + alpha, RGB, RGBA,
+    a palette's colours, CMYK made RGB; uint16 past 8 bits; decoded by the
+    host library as OpenJPEG does). A PSD file, which imageio does not
+    read, an AVIF file, an unknown file, or one that cannot be decoded,
+    raises ``ValueError`` naming the format."""
     fmt = image_format(data, path)
+    if fmt == "AVIF":
+        raise ValueError(f"{path}: an AVIF image; its AV1 decoding waits "
+                         "until the AV1 specification's tables (default "
+                         "CDFs, quantizer lookups, filter taps) are in the "
+                         "repository")
     if fmt == "PSD":
         raise ValueError(f"{path}: a PSD image; imageio reads no PSD file "
                          "(its Pillow plugin seeks frame 0, and Pillow's "
@@ -601,7 +624,8 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
             else img
     return {"PNG": _decode_png, "BMP": _decode_bmp, "TGA": _decode_tga,
             "GIF": _decode_gif, "TIFF": decode_tiff, "DDS": decode_dds,
-            "QOI": decode_qoi, "PNM": decode_pnm}[fmt](data, path)
+            "QOI": decode_qoi, "PNM": decode_pnm,
+            "JPEG2000": decode_jpeg2000}[fmt](data, path)
 
 
 def read_image(path: str) -> np.ndarray:

@@ -1,9 +1,10 @@
 """OBJ textures in every format the JAX retarget path reads: the port's
 ``apps/retarget.load_obj_mesh`` (``_find_texture`` over
 ``viz/image_files.read_image``: PNG, BMP, TGA, GIF, TIFF, PNM and the
-headers of DDS and QOI in NumPy with the host library's LZW, PackBits and
-run-length expansions, JPEG, WebP, QOI and the BCn blocks of DDS in the
-host libraries' decoders) against the JAX package's (imageio) on the
+headers of DDS, QOI and JPEG 2000 in NumPy with the host library's LZW,
+PackBits and run-length expansions, JPEG, WebP, QOI, the BCn blocks of DDS
+and JPEG 2000 codestreams in the host libraries' decoders) against the JAX
+package's (imageio) on the
 fixtures of ``tests/torch_textures/``, which ``make_textures.py`` writes
 with Pillow and its own writers and describes in ``MANIFEST.json``.
 
@@ -13,7 +14,8 @@ gives (H, W) and the JAX ``[..., :3]`` keeps 3 columns; grey + alpha: 2
 channels; 16-bit samples divided by 255; 1-bit grey as bool; and for TIFF:
 palette indices, planar (C, H, W), several pages, CMYK samples, float
 samples divided by 255, min-is-white levels, signed and YCbCr samples;
-for JPEG: CMYK; for PNM: int32 past 8 bits, float maps, bitmaps) the
+for JPEG: CMYK; for PNM: int32 past 8 bits, float maps, bitmaps; for
+JPEG 2000: grey, grey + alpha, 16-bit, CMYK, palette indices + alpha) the
 port's is imageio's pixels under the rule of ``texture_rgb``'s docstring
 (``ROADMAP.md`` Queue 3), and the JAX texture differs from it.
 """
@@ -134,7 +136,9 @@ def test_refused_texture_raises_naming_it(tmp_path, entry):
     YCbCr subsampling; JPEG: hierarchical, 12-bit, a fractional sampling
     ratio, lossless YCbCr, lossless without tables or arithmetic-coded,
     an arithmetic scan past Pillow's first 64 KiB; a DDS format Pillow
-    refuses; every PSD) raises ``ValueError`` naming what it is: a texture
+    refuses; every PSD; JPEG 2000: a truncated codestream or one without
+    EOC, a colour space Pillow has no unpacker for, a palette of more than
+    256 colours) raises ``ValueError`` naming what it is: a texture
     that is present but unreadable is never dropped."""
     obj = _write_obj(tmp_path, TEX / entry["file"])
     with pytest.raises(ValueError, match=entry["raises"]):
@@ -189,8 +193,7 @@ def _pillow(fmt, **kw):
 # variants that imageio reads and the port refuses, each listed in
 # ROADMAP.md: (fixture, patch, file name, the ValueError's words)
 UNREAD = {
-    "avif": ("png_rgb8.png", _pillow("AVIF"), "x.avif", "unknown"),
-    "jpeg2000": ("png_rgb8.png", _pillow("JPEG2000"), "x.jp2", "unknown"),
+    "avif": ("png_rgb8.png", _pillow("AVIF"), "x.avif", "AVIF"),
 }
 
 
@@ -261,7 +264,8 @@ def test_read_image_dispatch_and_samples():
         ext = {"jpg": "JPEG", "png": "PNG", "bmp": "BMP", "tga": "TGA",
                "dat": "TGA", "gif": "GIF", "tif": "TIFF", "webp": "WebP",
                "dds": "DDS", "qoi": "QOI", "psd": "PSD", "pbm": "PNM",
-               "pgm": "PNM", "ppm": "PNM", "pnm": "PNM", "pfm": "PNM"}
+               "pgm": "PNM", "ppm": "PNM", "pnm": "PNM", "pfm": "PNM",
+               "jp2": "JPEG2000", "j2k": "JPEG2000"}
         assert want == ext[name.rsplit(".", 1)[1]], name
     assert F.image_format(b"\x00" * 40, "x.tga") == "TGA"
     assert F.image_format(b"\x07" * 40, "x.bin") == "unknown"
@@ -308,7 +312,7 @@ _FUZZ = [e["file"] for e in READ if "sha256" not in e]
        cut=st.one_of(st.none(), st.integers(0, 1 << 20)))
 def test_corrupt_jpeg_and_png_raise_or_read(name, flips, cut):
     """Bytes set and the file cut at random, in every fixture the port
-    reads (PNG, JPEG, BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM):
+    reads (PNG, JPEG, BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM, JPEG 2000):
     ``decode_image`` raises
     ``ValueError`` or returns well-formed samples, and never takes the
     process down (the host library bounds-checks every read)."""

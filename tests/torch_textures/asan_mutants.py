@@ -1,11 +1,12 @@
 """Mutated and truncated texture fixtures through the port's readers, with
-the three host libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
-``csrc/nm_dds.cpp``) built under AddressSanitizer and
+the four host libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
+``csrc/nm_dds.cpp``, ``csrc/nm_jp2.cpp``) built under AddressSanitizer and
 UndefinedBehaviorSanitizer: every decoder of them, the JPEG processes
-(Huffman, arithmetic, lossless, block smoothing), WebP, BCn and QOI, and
-the expansions of GIF, TIFF, BMP and TGA.
+(Huffman, arithmetic, lossless, block smoothing), WebP, BCn, QOI and JPEG
+2000, and the expansions of GIF, TIFF, BMP and TGA.
 
     python tests/torch_textures/asan_mutants.py [--per 1000] [--seed 2024]
+        [--formats JPEG2000,...]
 
 Builds the libraries with ``g++ -fsanitize=address,undefined
 -fno-sanitize-recover=undefined`` into a temporary directory, then runs
@@ -34,7 +35,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent.parent
-LIBS = ("nm_host", "nm_webp", "nm_dds")
+LIBS = ("nm_host", "nm_webp", "nm_dds", "nm_jp2")
 FLAGS = ("-O1", "-g", "-std=c++17", "-shared", "-fPIC", "-pthread",
          "-fsanitize=address,undefined", "-fno-sanitize-recover=undefined",
          "-fno-omit-frame-pointer")
@@ -49,7 +50,7 @@ def build(out: Path) -> None:
         raise SystemExit("the sanitizer build failed")
 
 
-def run(lib_dir: Path, per: int, seed: int) -> dict:
+def run(lib_dir: Path, per: int, seed: int, formats: str = "") -> dict:
     sys.path.insert(0, str(ROOT))
     from neural_marionette_tpu_torch import kernels
     for name in LIBS:
@@ -59,6 +60,9 @@ def run(lib_dir: Path, per: int, seed: int) -> dict:
     manifest = json.loads((HERE / "MANIFEST.json").read_text())["files"]
     names = [e["file"] for e in manifest
              if "raises" not in e and "sha256" not in e]
+    if formats:
+        names = [n for n in names if F.image_format(
+            (HERE / n).read_bytes(), n) in formats.split(",")]
     rng = np.random.default_rng(seed)
     counts: dict = {}
     t0 = time.perf_counter()
@@ -96,10 +100,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--per", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=2024)
+    ap.add_argument("--formats", default="",
+                    help="only these formats (image_format's names)")
     ap.add_argument("--lib-dir", default="")
     args = ap.parse_args()
     if args.lib_dir:       # the second run, under the sanitizers
-        print(json.dumps(run(Path(args.lib_dir), args.per, args.seed)))
+        print(json.dumps(run(Path(args.lib_dir), args.per, args.seed,
+                             args.formats)))
         return 0
     with tempfile.TemporaryDirectory() as tmp:
         build(Path(tmp))
@@ -111,7 +118,8 @@ def main() -> int:
                    ASAN_OPTIONS="detect_leaks=0:allocator_may_return_null=1")
         return subprocess.run([sys.executable, __file__, "--per",
                                str(args.per), "--seed", str(args.seed),
-                               "--lib-dir", tmp], env=env).returncode
+                               "--formats", args.formats, "--lib-dir", tmp],
+                              env=env).returncode
 
 
 if __name__ == "__main__":

@@ -12,7 +12,9 @@ BigTIFF, with tiles, planar samples, predictors, fill order 2 and every
 compression imageio's tifffile reads; WebP containers with ALPH chunks and
 offset animation frames), by Pillow's own libwebp through ctypes for the
 lossy WebP options Pillow does not pass on (filter type and sharpness,
-token partitions, segments), or patched from a Pillow file (a JPEG's
+token partitions, segments), by Pillow's own OpenJPEG through ctypes for
+the JPEG 2000 options it does not pass on (code-block styles, SOP/EPH, POC,
+RGN, sub-sampling), or patched from a Pillow file (a JPEG's
 quantization table, sampling factors or frame marker). Each file is then
 read back with ``imageio.v2.imread``, as the JAX package's
 ``apps/retarget._find_texture`` reads it, and ``MANIFEST.json`` records
@@ -1576,6 +1578,201 @@ def vp8_refilter(vp8, simple, level, sharpness, ref_delta=None,
 
 
 # -------------------------------------------------------------- the cases
+# --------------------------------------------------------------- JPEG 2000
+def jp2_boxes(data):
+    """A JP2 file's top-level boxes as [type, body] pairs."""
+    out, pos = [], 0
+    while pos < len(data):
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        size = size or len(data) - pos
+        out.append([kind, data[pos + 8:pos + size]])
+        pos += size
+    return out
+
+
+def jp2_join(boxes):
+    return b"".join(struct.pack(">I", 8 + len(body)) + kind + body
+                    for kind, body in boxes)
+
+
+def jp2_header(data, fn):
+    """A JP2 file with its jp2h box's sub-boxes replaced by ``fn`` of
+    them."""
+    boxes = jp2_boxes(data)
+    for box in boxes:
+        if box[0] == b"jp2h":
+            box[1] = jp2_join(fn(jp2_boxes(box[1])))
+    return jp2_join(boxes)
+
+
+def colr(enumcs=None, icc=None):
+    if icc is not None:
+        return [b"colr", bytes([2, 0, 0]) + icc]
+    return [b"colr", bytes([1, 0, 0]) + struct.pack(">I", enumcs)]
+
+
+def pclr(entries, depth=7):
+    """A pclr box of 8-bit columns and its cmap box."""
+    npc = len(entries[0])
+    body = struct.pack(">HB", len(entries), npc) + bytes([depth] * npc) \
+        + b"".join(bytes(e) for e in entries)
+    cmap = b"".join(struct.pack(">HBB", 0, 1, k) for k in range(npc))
+    return [[b"pclr", body], [b"cmap", cmap]]
+
+
+def j2k_markers(cs):
+    """The main header's marker segments of a one-tile codestream written
+    by OpenJPEG, and its tile's packet data: ({marker: body}, data)."""
+    pos, segs = 2, {}
+    while True:
+        m, n = struct.unpack_from(">HH", cs, pos)
+        if m == 0xFF90:
+            break
+        segs.setdefault(m, cs[pos + 4:pos + 2 + n])
+        pos += 2 + n
+    psot = struct.unpack_from(">I", cs, pos + 6)[0]
+    sod = cs.index(b"\xff\x93", pos + 12) + 2
+    return segs, cs[sod:pos + psot]
+
+
+def j2k_subsampled(rgb, factors=(1, 2, 2)):
+    """A three-component codestream whose components are sub-sampled by
+    ``factors`` (XRsiz = YRsiz): each component written alone by
+    OpenJPEG at its own size, component-position-resolution-layer, and the
+    packets joined into one tile (one precinct a resolution, so the order
+    of the joined packets is CPRL's)."""
+    from PIL import Image
+    H, W = rgb.shape[:2]
+    parts = [j2k_markers(pil_bytes(Image.fromarray(np.ascontiguousarray(
+        rgb[::f, ::f, c])), "JPEG2000", no_jp2=True, num_resolutions=3,
+        progression="CPRL")) for c, f in enumerate(factors)]
+    for segs, _ in parts[1:]:
+        assert segs[0xFF52] == parts[0][0][0xFF52]
+        assert segs[0xFF5C] == parts[0][0][0xFF5C]
+    siz = struct.pack(">HIIIIIIIIH", 0, W, H, 0, 0, W, H, 0, 0, 3) + b"".join(
+        bytes([7, f, f]) for f in factors)
+    data = b"".join(d for _, d in parts)
+    seg = lambda m, body: struct.pack(">HH", m, len(body) + 2) + body
+    return (b"\xff\x4f" + seg(0xFF51, siz) + seg(0xFF52, parts[0][0][0xFF52])
+            + seg(0xFF5C, parts[0][0][0xFF5C])
+            + struct.pack(">HHHIBB", 0xFF90, 10, 0, 14 + len(data), 0, 1)
+            + b"\xff\x93" + data + b"\xff\xd9")
+
+
+def openjpeg_encode(planes, factors=None, W=None, H=None, rates=(0,),
+                    pocs=(), **params):
+    """A raw JPEG 2000 codestream from Pillow's own OpenJPEG, called through
+    ctypes with the encoder parameters Pillow does not pass on (code-block
+    styles, SOP and EPH markers, a region of interest, POC progressions,
+    sub-sampled components): ``planes`` are uint8 (h, w) arrays, component
+    i at 1 / ``factors[i]`` of the (W, H) grid; ``rates`` the layers'
+    compression ratios (0: lossless); ``pocs`` (resno0, compno0, layno1,
+    resno1, compno1, progression) tuples; ``params`` fields of
+    ``opj_cparameters_t``."""
+    import ctypes as C
+    import glob
+    import os
+    import tempfile
+    import PIL
+    libs = Path(PIL.__file__).resolve().parent.parent / "pillow.libs"
+    lib = C.CDLL(sorted(glob.glob(str(libs / "libopenjp2-*.so*")))[0])
+    u32 = C.c_uint32
+
+    class Poc(C.Structure):          # openjpeg.h's opj_poc_t
+        _fields_ = [(n, u32) for n in "resno0 compno0 layno1 resno1 compno1 "
+                    "layno0 precno0 precno1".split()] + [
+            ("prg1", C.c_int), ("prg", C.c_int), ("progorder", C.c_char * 5),
+            ("tile", u32)] + [(n, C.c_int32) for n in ("tx0", "tx1", "ty0",
+                                                       "ty1")] + [
+            (n, u32) for n in "layS resS compS prcS layE resE compE prcE txS "
+            "txE tyS tyE dx dy lay_t res_t comp_t prc_t tx0_t ty0_t".split()]
+
+    ints = lambda names: [(n, C.c_int) for n in names.split()]
+
+    class Params(C.Structure):       # openjpeg.h's opj_cparameters_t
+        _fields_ = ints("tile_size_on cp_tx0 cp_ty0 cp_tdx cp_tdy "
+                        "cp_disto_alloc cp_fixed_alloc cp_fixed_quality") + [
+            ("cp_matrice", C.c_void_p), ("cp_comment", C.c_char_p),
+            ("csty", C.c_int), ("prog_order", C.c_int), ("POC", Poc * 32),
+            ("numpocs", u32), ("tcp_numlayers", C.c_int),
+            ("tcp_rates", C.c_float * 100),
+            ("tcp_distoratio", C.c_float * 100)] + ints(
+            "numresolution cblockw_init cblockh_init mode irreversible "
+            "roi_compno roi_shift res_spec") + [
+            ("prcw_init", C.c_int * 33), ("prch_init", C.c_int * 33),
+            ("infile", C.c_char * 4096), ("outfile", C.c_char * 4096),
+            ("index_on", C.c_int), ("index", C.c_char * 4096)] + ints(
+            "image_offset_x0 image_offset_y0 subsampling_dx subsampling_dy "
+            "decod_format cod_format") + [    # the rest, left as set
+            ("rest", C.c_char * 1024)]
+
+    class CmptParm(C.Structure):     # opj_image_cmptparm_t
+        _fields_ = [(n, u32) for n in "dx dy w h x0 y0 prec bpp sgnd".split()]
+
+    class Comp(C.Structure):         # opj_image_comp_t
+        _fields_ = [(n, u32) for n in "dx dy w h x0 y0 prec bpp sgnd "
+                    "resno_decoded factor".split()] + [
+            ("data", C.POINTER(C.c_int32)), ("alpha", C.c_uint16)]
+
+    class Image(C.Structure):        # opj_image_t
+        _fields_ = [(n, u32) for n in "x0 y0 x1 y1 numcomps".split()] + [
+            ("color_space", C.c_int), ("comps", C.POINTER(Comp)),
+            ("icc_profile_buf", C.c_void_p), ("icc_profile_len", u32)]
+
+    lib.opj_image_create.restype = C.POINTER(Image)
+    lib.opj_create_compress.restype = C.c_void_p
+    lib.opj_stream_create_default_file_stream.restype = C.c_void_p
+    lib.opj_stream_create_default_file_stream.argtypes = [C.c_char_p, C.c_int]
+    factors = factors or [(1, 1)] * len(planes)
+    cmpt = (CmptParm * len(planes))()
+    for c, (plane, (fx, fy)) in enumerate(zip(planes, factors)):
+        cmpt[c].dx, cmpt[c].dy = fx, fy
+        cmpt[c].h, cmpt[c].w = plane.shape
+        cmpt[c].prec = cmpt[c].bpp = 8
+    image = lib.opj_image_create(len(planes), cmpt, 1)
+    im = image.contents
+    im.x1 = W or planes[0].shape[1]
+    im.y1 = H or planes[0].shape[0]
+    for c, plane in enumerate(planes):
+        a = np.ascontiguousarray(plane, np.int32)
+        C.memmove(im.comps[c].data, a.ctypes.data, a.nbytes)
+    p = Params()
+    lib.opj_set_default_encoder_parameters(C.byref(p))
+    p.cp_disto_alloc, p.tcp_numlayers = 1, len(rates)
+    for k, r in enumerate(rates):
+        p.tcp_rates[k] = r
+    for k, (r0, c0, l1, r1, c1, prg) in enumerate(pocs):
+        q = p.POC[k]
+        q.tile, q.resno0, q.compno0, q.layno1, q.resno1, q.compno1, q.prg1 = \
+            1, r0, c0, l1, r1, c1, prg
+    p.numpocs = len(pocs)
+    for k, v in params.items():
+        setattr(p, k, v)
+    codec = C.c_void_p(lib.opj_create_compress(0))    # OPJ_CODEC_J2K
+    assert lib.opj_setup_encoder(codec, C.byref(p), image)
+    fd, path = tempfile.mkstemp(suffix=".j2k")
+    os.close(fd)
+    stream = C.c_void_p(lib.opj_stream_create_default_file_stream(
+        path.encode(), 0))
+    ok = lib.opj_start_compress(codec, image, stream) and lib.opj_encode(
+        codec, stream) and lib.opj_end_compress(codec, stream)
+    lib.opj_stream_destroy(stream)
+    lib.opj_destroy_codec(codec)
+    lib.opj_image_destroy(image)
+    data = Path(path).read_bytes()
+    os.unlink(path)
+    assert ok, "OpenJPEG refused the parameters"
+    return data
+
+
+def set_precision(cs, comp, bits):
+    """A codestream with component ``comp``'s Ssiz set to ``bits`` unsigned
+    bits."""
+    out = bytearray(cs)
+    out[42 + 3 * comp] = bits - 1
+    return bytes(out)
+
+
 def cases():
     """(name, bytes, facts) of every fixture."""
     from PIL import Image
@@ -2334,8 +2531,155 @@ def cases():
         planes, 3, layers=[(2, 3, np.moveaxis(textured(10, 12, 3), -1, 0),
                             (0, 1, 2))]), raises="PSD",
         note="a layer over the merged image")
-    # AVIF and JPEG 2000 stay queued: imageio reads them, the port refuses
-    # them naming the format
+    # JPEG 2000, written by Pillow's OpenJPEG (JP2 boxes or a raw
+    # codestream), or patched from its files
+    grey = rgb[..., 0].copy()
+    rgba = np.dstack([rgb, textured(29, 37, 5)[..., 1]])
+    grey16 = (textured(29, 37, 6)[..., 0].astype(np.uint16) * 257
+              + np.arange(37, dtype=np.uint16))
+    images = {"l": Image.fromarray(grey),
+              "la": Image.fromarray(rgba[..., ::2].copy(), "LA"),
+              "rgb": Image.fromarray(rgb), "rgba": Image.fromarray(rgba),
+              "i16": Image.fromarray(grey16)}
+    for tag, im in images.items():
+        for ext, no_jp2 in (("jp2", False), ("j2k", True)):
+            add(f"jpeg2000_{tag}.{ext}", pil_bytes(im, "JPEG2000",
+                                                   no_jp2=no_jp2),
+                mode=im.mode, wavelet="5/3")
+    j2k = lambda img=images["rgb"], **kw: pil_bytes(img, "JPEG2000",
+                                                     no_jp2=True, **kw)
+    add("jpeg2000_rct.j2k", j2k(mct=1), wavelet="5/3", mct="RCT")
+    add("jpeg2000_97_ict.jp2", pil_bytes(images["rgb"], "JPEG2000",
+                                         irreversible=True, mct=1),
+        wavelet="9/7", mct="ICT")
+    add("jpeg2000_97_grey.j2k", j2k(images["l"], irreversible=True),
+        wavelet="9/7")
+    add("jpeg2000_layers.j2k", j2k(quality_layers=[40, 20, 8]),
+        wavelet="5/3", note="three quality layers, lossy")
+    add("jpeg2000_97_layers.j2k", j2k(irreversible=True, mct=1,
+                                      quality_layers=[60, 25, 10]),
+        wavelet="9/7", mct="ICT", note="three quality layers")
+    add("jpeg2000_tiles_offset.j2k", j2k(offset=(3, 5), tile_offset=(1, 2),
+                                         tile_size=(16, 12)),
+        wavelet="5/3", note="odd image and tile origins, 12 tiles")
+    add("jpeg2000_97_tiles_offset.jp2", pil_bytes(
+        images["rgb"], "JPEG2000", offset=(7, 2), tile_offset=(6, 1),
+        tile_size=(20, 20), irreversible=True, mct=1), wavelet="9/7",
+        mct="ICT")
+    add("jpeg2000_precincts.j2k", j2k(precinct_size=(32, 16),
+                                      quality_layers=[30, 10]),
+        wavelet="5/3", note="precincts and two layers")
+    add("jpeg2000_codeblocks_16x4.j2k", j2k(codeblock_size=(16, 4)),
+        wavelet="5/3")
+    add("jpeg2000_resolutions_1.j2k", j2k(num_resolutions=1), wavelet="5/3",
+        note="no wavelet level")
+    add("jpeg2000_resolutions_7.jp2", pil_bytes(
+        Image.fromarray(textured(64, 64, 7)), "JPEG2000",
+        num_resolutions=7, irreversible=True), wavelet="9/7",
+        note="six levels")
+    for order in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        add(f"jpeg2000_{order.lower()}.j2k", j2k(
+            progression=order, precinct_size=(16, 16),
+            quality_layers=[30, 12]), wavelet="5/3", progression=order)
+    add("jpeg2000_plt.j2k", j2k(plt=True), wavelet="5/3",
+        note="PLT markers, skipped")
+    add("jpeg2000_comment.jp2", pil_bytes(images["rgb"], "JPEG2000",
+                                          comment="a texture"),
+        wavelet="5/3", note="a COM marker")
+    add("jpeg2000_cinema2k.j2k", j2k(cinema_mode="cinema2k-24"),
+        wavelet="9/7", note="three tile-parts, TLM, CPRL")
+    add("jpeg2000_1x1.j2k", j2k(Image.fromarray(rgb[:1, :1])),
+        wavelet="5/3")
+    add("jpeg2000_97_1x2.jp2", pil_bytes(Image.fromarray(rgb[:2, :1]),
+                                         "JPEG2000", irreversible=True),
+        wavelet="9/7")
+    add("jpeg2000_odd_19x7.j2k", j2k(Image.fromarray(textured(7, 19, 8)),
+                                     offset=(1, 3), tile_size=(32, 32),
+                                     irreversible=True, num_resolutions=3),
+        wavelet="9/7", note="odd sizes at odd origins")
+    add("jpeg2000_signed.jp2", pil_bytes(images["rgb"], "JPEG2000",
+                                         signed=True),
+        wavelet="5/3", note="signed samples: read back shifted by 128")
+    add("jpeg2000_ycbcr.jp2", pil_bytes(images["rgb"].convert("YCbCr"),
+                                        "JPEG2000"),
+        wavelet="5/3", note="sYCC, made RGB by Pillow's tables")
+    add("jpeg2000_cmyk.jp2", pil_bytes(images["rgb"].convert("CMYK"),
+                                       "JPEG2000"),
+        wavelet="5/3", rule="cmyk", note="colr 12: imageio gives CMYK")
+    add("jpeg2000_subsampled.j2k", j2k_subsampled(rgb), wavelet="5/3",
+        note="components 1 and 2 sub-sampled 2 x 2: OpenJPEG takes them "
+             "for sYCC, Pillow indexes them by width // 2")
+    add("jpeg2000_subsampled_srgb.jp2", jp2_join([
+        [b"jP  ", b"\r\n\x87\n"], [b"ftyp", b"jp2 \0\0\0\0jp2 "],
+        [b"jp2h", jp2_join([[b"ihdr", struct.pack(">IIHBBBB", 29, 37, 3, 7,
+                                                  7, 0, 0)], colr(16)])],
+        [b"jp2c", j2k_subsampled(rgb, (1, 1, 3))]]), wavelet="5/3",
+        note="component 2 sub-sampled 3 x 3 under an sRGB colr box")
+    # the encoder options Pillow does not pass on, through its OpenJPEG
+    planes = [rgb[..., c] for c in range(3)]
+    opj = lambda **kw: openjpeg_encode(planes, numresolution=4, **kw)
+    add("jpeg2000_sop_eph.j2k", opj(csty=6, rates=(30, 10, 0)),
+        wavelet="5/3", note="SOP before and EPH after every packet header")
+    add("jpeg2000_poc.j2k", opj(rates=(20, 0), pocs=[
+        (0, 0, 2, 2, 3, 2), (2, 0, 2, 4, 3, 4)]), wavelet="5/3",
+        note="POC: RPCL over resolutions 0-1, CPRL over 2-3")
+    for mode, tag in ((1, "bypass"), (2, "reset"), (4, "termall"),
+                      (8, "vertically_causal"), (16, "pterm"),
+                      (32, "segsym"), (63, "all_styles")):
+        add(f"jpeg2000_cblk_{tag}.j2k", opj(mode=mode, irreversible=1,
+                                            rates=(40, 12, 3)),
+            wavelet="9/7", cblksty=mode, note="code-block style")
+    add("jpeg2000_rgn.j2k", opj(roi_compno=0, roi_shift=5), wavelet="5/3",
+        note="RGN: component 0 shifted up 5 bit planes")
+    add("jpeg2000_420_encoder.j2k", openjpeg_encode(
+        [rgb[..., 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2]],
+        [(1, 1), (2, 2), (2, 2)], W=37, H=29, numresolution=3,
+        irreversible=1), wavelet="9/7",
+        note="4:2:0 from the encoder: OpenJPEG's sYCC guess")
+    base = pil_bytes(images["l"], "JPEG2000", no_jp2=True)
+    add("jpeg2000_precision_5.j2k", set_precision(base, 0, 5),
+        note="SIZ patched to 5 bits: clamped, shifted up to 8")
+    add("jpeg2000_precision_12.j2k", set_precision(base, 0, 12),
+        note="SIZ patched to 12 bits: mode I;16")
+    add("jpeg2000_97_precision_10.j2k", set_precision(set_precision(
+        set_precision(j2k(irreversible=True, mct=1), 0, 10), 1, 10), 2, 10),
+        note="SIZ patched to 10 bits: rounded down to 8")
+    jrgb = pil_bytes(images["rgb"], "JPEG2000")
+    jrgba = pil_bytes(images["rgba"], "JPEG2000")
+    jgrey = pil_bytes(images["l"], "JPEG2000")
+    add("jpeg2000_colr_cmyk.jp2", jp2_header(
+        jrgba, lambda h: [h[0], colr(12)]), rule="cmyk",
+        note="an RGBA file's colr patched to CMYK")
+    add("jpeg2000_colr_icc.jp2", jp2_header(
+        jrgb, lambda h: [h[0], colr(icc=b"\x00" * 24)]),
+        note="an ICC colr: colour space unspecified")
+    add("jpeg2000_cdef_reorder.jp2", jp2_header(jrgb, lambda h: h + [[
+        b"cdef", struct.pack(">H", 3) + b"".join(struct.pack(
+            ">HHH", i, 0, a) for i, a in ((0, 3), (1, 2), (2, 1)))]]),
+        note="cdef reverses the channels: not applied")
+    palette = [tuple(int(v) for v in c) for c in textured(16, 16, 9)
+               .reshape(-1, 3)]
+    add("jpeg2000_pclr.jp2", jp2_header(jgrey, lambda h: [
+        h[0], colr(16)] + pclr(palette)), mode="P",
+        note="a 256-entry palette; equal colours kept once")
+    add("jpeg2000_pclr_rgba.jp2", jp2_header(jgrey, lambda h: [
+        h[0], colr(16)] + pclr([c + (c[0],) for c in palette[:200]])),
+        mode="P", note="a 4-column palette of 200 entries")
+    add("jpeg2000_pclr_la.jp2", jp2_header(
+        pil_bytes(images["la"], "JPEG2000"),
+        lambda h: [h[0], colr(16)] + pclr(palette)), mode="PA",
+        note="PA: imageio gives the indices and alpha")
+    add("jpeg2000_truncated.jp2", jrgb[:-40], raises="runs past",
+        note="cut inside the tile's data")
+    add("jpeg2000_no_eoc.j2k", base[:-2], raises="EOC")
+    add("jpeg2000_colr_grey_rgb.jp2", jp2_header(
+        jrgb, lambda h: [h[0], colr(17)]), raises="Pillow reads no",
+        note="grey colour space for three components")
+    add("jpeg2000_pclr_300.jp2", jp2_header(jgrey, lambda h: [
+        h[0], colr(16)] + pclr([(i % 256, i // 256, 1) for i in range(300)])),
+        raises="256 colours", note="Pillow cannot allocate the palette")
+    # AVIF stays queued: imageio reads it, the port refuses it naming the
+    # format
 
     # the decode-time fixtures of this slice's formats
     bg = big()
@@ -2356,6 +2700,11 @@ def cases():
         256 * 256, 16, 12, BC7_MODES), dxgi=98), pixel_format="BC7_UNORM",
         large=True, note="random blocks over every mode")
     add("qoi_1024.qoi", pil_bytes(bg // 4 * 4, "QOI"), channels=3,
+        large=True)
+    add("jp2_1024_53.jp2", pil_bytes(bg, "JPEG2000"), wavelet="5/3",
+        large=True)
+    add("jp2_1024_97_mct.jp2", pil_bytes(bg, "JPEG2000", irreversible=True,
+                                         mct=1), wavelet="9/7", mct="ICT",
         large=True)
     return out
 
@@ -2430,6 +2779,7 @@ def versions() -> dict:
             "libjpeg-turbo": features.version("libjpeg_turbo"),
             "libtiff": features.version("libtiff"),
             "zlib": features.version("zlib"),
+            "openjpeg": features.version("jpg_2000"),
             # imageio reads .pbm and .pfm through OpenCV where it is present
             "opencv": cv2.__version__}
 
