@@ -59,8 +59,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
     and a grad_accum=2 step: finite losses and grad_norm, frozen parameters
     unchanged to the bit, K1 and K2 forward on every microbatch, K2
     backward on every detector-phase microbatch and never in the learner
-    phase; step times, the device busy share of two profiled steps and the
-    peak memory per phase; then two-phase training: the detector-phase
+    phase; step times, the device busy share of two profiled steps (after
+    a warm-up step under the profiler; the K1 operations it records) and
+    the peak memory per phase; then two-phase training: the detector-phase
     epoch's checkpoint and a reference-layout ``.pth`` each start a
     ``pretrained_mode=1`` ``Trainer`` (T = 20), whose detector must equal
     the saved one to the bit before and after a few learner steps; then a
@@ -76,8 +77,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
     also with its device time per kernel, its occupied voxels, and its
     times on a 30 % and a fully occupied grid (``k2_times``);
 13. where a serving window's time goes, route off and on: per-layer times
-    of one window and, under ``torch.profiler``, the device's busy share,
-    its copies and its top kernels;
+    of one window and, under ``torch.profiler`` (a warm-up window first;
+    it must record K1 once a window), the device's busy share, its copies
+    and its top kernels;
 14. the apps at the full AIST width, float32, seeded informative weights:
     ``Marionette.generate`` (a 5-frame clip, Tgen 25, sample_num 3),
     ``interpolate`` (20 frames, anchor_rate 10, sample_num 10000) and
@@ -112,7 +114,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
     epoch with ``--debug_nans 1`` that completes, and a ``Trainer`` of that
     configuration with a parameter poisoned with NaN that must raise
     ``FloatingPointError``; then the three demo CLIs (``cli.vis_*``) from
-    the run's directory, their ``.npy`` outputs checked;
+    the run's directory, their ``.npy`` outputs checked
+    (``cli.vis_generation`` with ``--sample_num 1``, ``CLI_GEN_SAMPLES``:
+    the run's time limit);
 16. the OBJ textures (``textures`` line): every fixture of
     ``tests/torch_textures/`` (PNG of every colour type, depth and
     interlace; JPEG baseline, extended, progressive and lossless, Huffman
@@ -149,7 +153,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     same inputs, their PNGs read back equal to ``to_uint8``;
     ``vis_keypoints`` (arrows and lines) and ``vis_recon`` at the CLI's
     shape (4 videos x 10 frames, K 24, G 64) equal to the bit to the CPU,
-    their GIFs decoded equal to the frames; the generation and
+    their GIFs decoded equal to the frames; the generation (its first
+    sample, ``RENDER_GEN_SAMPLES``: the run's time limit) and
     interpolation output sets of the apps phase's results and the retarget
     sets (10 frames) of its 4096-point surfel target and of a textured OBJ
     the script writes (a PNG texture), then of a smaller textured sphere
@@ -180,7 +185,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
     distance, and for the GroupNorm whose card gradient of set C lies
     furthest from float64 its input, output gradient and weight gradient
     alone (``cudnn.deterministic`` off and on) against float64;
-18. the flagship orchestrator (``cli.flagship``) on the card at the
+18. the rematerialised detector (``cfg.remat``): a float32 small-width
+    step at remat 1 and 2 against the nearest of six remat 0 steps on
+    the card, no further than those are from each other; a routed bf16
+    B 4 step at remat 0, 1 and 2, whose K3 launches equal
+    :func:`routed_remat_launches` (48, 96, 140); bf16 AIST-width detector
+    steps through ``Trainer`` at B 6 and 12 (T 10, ``grad_accum`` 1) at
+    each value: step ms (p50 after the first) and the peak allocated and
+    reserved GiB, whose slopes per folded frame reckon B 24 (240 frames,
+    the JAX package's configuration); remat 1 and 2 then run at B 24, or
+    at the largest B whose reserved peak the slope reckons under
+    ``REMAT_CAP_GIB``;
+19. the flagship orchestrator (``cli.flagship``) on the card at the
     flagship's widths (grid 64, K 24, feat 128, bfloat16, B 24 with
     grad_accum 2 then 4, T 10 then 20) on 96 synthetic sequences, 2
     epochs a phase, each phase a ``cli.train`` process, then its three
@@ -190,7 +206,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
     and K2 (``FLAGSHIP_LAUNCHES``, derived there); seconds per epoch, step
     p50 through the loader, peak memory per phase and the detector step's
     model-FLOPs utilisation;
-19. the distributed layer (``parallel/``, ``Trainer(mesh=...)``): the
+20. the distributed layer (``parallel/``, ``Trainer(mesh=...)``): the
     training CLI in a process group of one over NCCL
     (``--num_processes 1 --coordinator_address localhost:<port>``) at the
     CPU tests' width, its files, finite losses and launches; two processes
@@ -212,7 +228,8 @@ K2's and K3's with their launches under the CLI), a
 ``{"stream_conv_kernel": ...}`` line, a ``{"profile": ...}`` line, a
 ``{"train": ...}`` line, an ``{"apps": ...}`` line, a ``{"cli": ...}``
 line, a ``{"textures": ...}`` line, a ``{"render": ...}`` line, an
-``{"options": ...}`` line, a
+``{"options": ...}`` line, a ``{"remat": ...}`` line (K3's record carries
+``launches_remat``), a
 ``{"flagship": ...}`` line (K1's and K2's records carry
 ``launches_flagship`` per phase), a ``{"distributed": ...}`` line (K1's
 and K2's records carry ``launches_distributed`` per topology and rank, and
@@ -284,28 +301,59 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, n=10):
+PROFILER_GAP_S = 0.05
+
+
+def profiler_gap():
+    """An idle gap at the edges of a recorded round. The profiler keeps
+    only the device operations whose start it places inside the round, and
+    it can place the first operations launched after the round opens
+    before it, dropping them (``scripts/profiler_k1_count.py``); a round
+    that opens and closes on an idle card loses none."""
+    import torch
+    torch.cuda.synchronize()
+    time.sleep(PROFILER_GAP_S)
+
+
+def device_events(fn, n=10, attempts=3):
     """The device operations of ``n`` calls of ``fn`` under
     ``torch.profiler`` (not the ``ProfilerStep`` span the schedule adds).
     The profiler records a first round of ``n`` calls as warm-up and drops
-    it: started cold, it can miss the device operations of the first calls
-    (up to all of them for a call of a few microseconds), which undercounts
-    a device time per call."""
+    it, and the recorded round opens and closes with ``profiler_gap``:
+    otherwise it can miss the device operations of the first calls (up to
+    all of them for a call of a few microseconds), which undercounts a
+    device time per call. A round that still holds fewer kernels than it
+    holds host ``cudaLaunchKernel`` records lost some of them, and is
+    recorded again, up to ``attempts`` rounds in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        prof.step()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith("ProfilerStep")]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            profiler_gap()
+            for _ in range(n):
+                fn()
+            profiler_gap()
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                      for e in dev)
+        launches = sum(e.device_type == DeviceType.CPU
+                       and e.name.startswith("cudaLaunchKernel")
+                       for e in events)
+        if kernels >= launches:
+            return dev
+        log(f"[profiler] round {attempt} of {attempts} recorded {kernels} "
+            f"kernels of {launches} launches")
+    raise AssertionError(f"the profiler lost kernels in each of {attempts} "
+                         f"rounds")
 
 
 # ------------------------------------------------------------------ inputs
@@ -1183,7 +1231,10 @@ def _busy(prof, wall_us):
     over the wall time, the device time of the port's own kernels (by their
     ``__global__`` names), and every device operation's time and calls."""
     from torch.autograd import DeviceType
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # not the ProfilerStep span a schedule adds on the device's timeline,
+    # which covers the whole recorded round
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("ProfilerStep")]
     if not dev:
         raise AssertionError("the profiler recorded no device operation")
     busy, end = 0.0, -np.inf
@@ -1202,6 +1253,13 @@ def _busy(prof, wall_us):
     return busy / 1e3, busy / wall_us, dict(ours), dict(by_name)
 
 
+def _calls_of(by_name, kernel):
+    """Device operations recorded of the port's kernel ``kernel`` (its
+    ``__global__`` name)."""
+    return sum(calls for name, (_, calls) in by_name.items()
+               if kernel in name)
+
+
 def _top_kernels(by_name, n, per, k=12):
     """The ``k`` device operations that take the most time, per ``per``
     (window or step) over ``n`` of them."""
@@ -1210,16 +1268,17 @@ def _top_kernels(by_name, n, per, k=12):
              f"calls_per_{per}": calls / n} for name, (us, calls) in top]
 
 
-def _train_epoch(trainer, epoch, n_steps, seed, counts, T=SERVE_T):
-    """One epoch of ``n_steps`` AIST-width point batches of ``T`` frames
-    through ``Trainer.train_epoch``, the launch counters set to 0 just
-    before it and read just after; returns (record, per-step ms, peak
-    GiB)."""
+def _train_epoch(trainer, epoch, n_steps, seed, counts, T=SERVE_T,
+                 B=SERVE_B):
+    """One epoch of ``n_steps`` AIST-width point batches of ``B`` clips of
+    ``T`` frames through ``Trainer.train_epoch``, the launch counters set
+    to 0 just before it and read just after; returns (record, per-step ms,
+    peak GiB)."""
     import torch
     from neural_marionette_tpu_torch.ops import conv3d as K3
     from neural_marionette_tpu_torch.ops import losses as L
     from neural_marionette_tpu_torch.ops import voxelize as V
-    batches = [serving_points(SERVE_B, T, SERVE_N, seed=seed + i)
+    batches = [serving_points(B, T, SERVE_N, seed=seed + i)
                for i in range(n_steps)]
     stamps = []
     torch.cuda.synchronize()
@@ -1249,7 +1308,7 @@ def phase_train(cfg, device, card, detector_dir, n_steps=12,
     host extraction of it)."""
     import dataclasses
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from neural_marionette_tpu_torch.train import Trainer
     # save_every=2: a checkpoint after epoch 0 (the detector phase) only
     cfg = dataclasses.replace(cfg, detector_start=0, detector_end=1,
@@ -1295,19 +1354,29 @@ def phase_train(cfg, device, card, detector_dir, n_steps=12,
         if not torch.equal(params["dyna_module.offset_param"].detach(),
                            offset):
             raise AssertionError("offset_param moved")
-        # two more steps of the phase under the profiler
+        # more steps of the phase under the profiler: one in its warm-up
+        # round (started cold, it misses the first device operations), then
+        # the n_profiled it records, between two profiler_gap()s. Without
+        # the gap the learner phase's lost a K1 operation now and then
+        # (scripts/profiler_k1_count.py); its count is recorded, not held
         pts = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=5000 + i)
-               for i in range(n_profiled)]
+               for i in range(n_profiled + 1)]
         step = trainer.phase_step()
         sk = trainer.phase_skeleton()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            step(trainer.state, torch.from_numpy(pts[0]).to(device), sk)
+            torch.cuda.synchronize()
+            prof.step()
+            profiler_gap()
             t0 = time.perf_counter()
-            for p in pts:
+            for p in pts[1:]:
                 step(trainer.state, torch.from_numpy(p).to(device), sk)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            profiler_gap()
         busy_ms, share, ours, by_name = _busy(prof, wall_us)
         top = _top_kernels(by_name, n_profiled, "step")
         timed = ms[1:]   # the first step is warm-up
@@ -1317,6 +1386,7 @@ def phase_train(cfg, device, card, detector_dir, n_steps=12,
             "p50_ms_per_step": float(np.percentile(timed, 50)),
             "step_ms": [float(x) for x in ms],
             "profiled_steps": n_profiled,
+            "k1_profiled": _calls_of(by_name, "voxelize_kernel"),
             "device_busy_ms_per_step": busy_ms / n_profiled,
             "device_busy_share": share,
             "port_kernel_ms_per_step": {k: v / n_profiled
@@ -1700,6 +1770,35 @@ def _routed_per_forward(det):
                if isinstance(m, torch.nn.Conv3d))
 
 
+def routed_remat_launches(det, remat):
+    """K3 launches of one training forward and backward of a routed
+    bfloat16 detector ``det`` (one microbatch) at ``remat``: each routed
+    conv launches once in the forward and once more in each region's
+    recompute that reaches it. At 1 the regions are each feature net and
+    the decoder, so every routed conv launches twice. At 2 each block of a
+    feature net and each decoder stage is a region inside those, and every
+    routed conv lies in one: three launches, less the routed convs of each
+    feature net's last block (``Res3DBlock_1``), which the outer recompute
+    does not reach, since PyTorch's non-reentrant checkpoint stops a
+    recompute once it has rebuilt the last tensor its region saved, here
+    that block's input. The decoder's outer region saves its 1x1 head's
+    input last, after every stage."""
+    import torch
+    from neural_marionette_tpu_torch.models.blocks import routes_to_kernel
+
+    def routed(m):
+        return sum(routes_to_kernel(c, torch.bfloat16) for c in m.modules()
+                   if isinstance(c, torch.nn.Conv3d))
+
+    total = routed(det)
+    if remat >= 2:
+        nets = [m for name, m in det.vox_to_kypt.named_children()
+                if name in ("extract_features",
+                            "extract_spatio_temporal_features")]
+        return 3 * total - sum(routed(n[-1]) for n in nets)
+    return 2 * total if remat else total
+
+
 def _option_window(cfg, device, seed, n_windows=3):
     """A bfloat16 stream of ``n_windows`` windows (B 4, T 10, N 4096) of a
     set through ``Marionette.stream`` (seeded weights; a seeded skeleton
@@ -2055,6 +2154,223 @@ def phase_options(cfg, device, card):
     log(f"[options] phase {time.perf_counter() - t_phase:.1f} s")
     return {"B": SERVE_B, "T": SERVE_T, "N": SERVE_N, "dtype": "bfloat16",
             "sets": out, "card": card}
+
+
+# ------------------------------------------------------------------- remat
+REMAT_SLOPE_B = (6, 12)   # clips a microbatch of the slope: 60, 120 frames
+REMAT_FULL_B = 24         # the JAX package's B 24 at grad_accum 1 (240)
+REMAT_STEPS = 4           # detector steps a (remat, B); the first warms up
+# the most a reckoned reserved peak may reach (of the card's 79.18 GiB): the
+# reserved peak runs above its linear reckoning (remat 2, B 24: 73.29 GiB
+# against 67.2 reckoned), and a B whose allocated peak reckoned 73 GiB ran
+# out of memory
+REMAT_CAP_GIB = 72.0
+REMAT_REPEATS = 6         # float32 remat 0 steps the card check spans
+REMAT_SMALL = dict(grid_size=32, feat_dim=32, nkeypoints=6, Ttot=4,
+                   nlatent_kypt=16, nhidden_kypt=32, grad_accum=2)
+
+
+def _remat_cfg(cfg, remat, **kw):
+    import dataclasses
+    return dataclasses.replace(cfg, detector_start=0, learner_start=10 ** 9,
+                               affinity_anneal=0, remat=remat, **kw)
+
+
+def _remat_timed(cfg, device, remat, B):
+    """``REMAT_STEPS`` bf16 detector steps of ``Trainer`` at the preset's
+    width, ``B`` clips of T 10 a step, ``grad_accum`` 1: per-step ms, p50
+    of the steps after the first, the process's peak allocated and
+    reserved GiB; the launches must be K1 and K2 once a step, K3 never."""
+    import gc
+    import torch
+    from neural_marionette_tpu_torch.train import Trainer
+    trainer = Trainer(_remat_cfg(cfg, remat, nbatch=B, grad_accum=1),
+                      device=device, dtype="bfloat16")
+    counts = {}
+    record, ms, peak = _train_epoch(trainer, 0, REMAT_STEPS,
+                                    9000 + 100 * B + remat, counts, B=B)
+    n = REMAT_STEPS
+    if counts != {"voxelize": n, "chamfer_fwd": n, "chamfer_bwd": n,
+                  "conv3d": 0}:
+        raise AssertionError(f"remat {remat} B {B}: launches {counts}")
+    if not all(np.isfinite(v) for v in record["train"].values()):
+        raise AssertionError(f"remat {remat} B {B}: metrics "
+                             f"{record['train']}")
+    out = {"B": B, "frames": B * SERVE_T, "step_ms": [float(x) for x in ms],
+           "p50_ms_per_step": float(np.percentile(ms[1:], 50)),
+           "peak_gib": peak,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "total_loss": record["train"]["total_loss"]}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[remat] remat {remat}, B {B} ({B * SERVE_T} frames): ms per step "
+        f"{[round(float(x), 1) for x in ms]}, p50 "
+        f"{out['p50_ms_per_step']:.1f}, peak {peak:.2f} GiB (reserved "
+        f"{out['peak_reserved_gib']:.2f})")
+    return out
+
+
+def _remat_small_step(cfg, device, remat):
+    """One float32 detector step (TF32 off) at ``REMAT_SMALL``'s width on
+    ``device``: its metrics, the gradients the optimizer got, the
+    parameters after Adam and the generator's state, on the host."""
+    import torch
+    from neural_marionette_tpu_torch.models import NeuralMarionette
+    from neural_marionette_tpu_torch.train import (LossScheduler,
+                                                   create_train_state,
+                                                   make_train_step)
+    c = _remat_cfg(cfg, remat, **REMAT_SMALL)
+    net = NeuralMarionette(c, device=device)
+    _informative_weights(net, seed=71)
+    sched = LossScheduler(c)
+    sched.anneal(0)
+    state = create_train_state(c, net, torch.Generator(device).manual_seed(
+        72))
+    grads, update = [], state.optimizer.update
+
+    def capture(gs, trainable):
+        grads.extend(g.detach().cpu() for g in gs if g is not None)
+        return update(gs, trainable)
+
+    state.optimizer.update = capture
+    pts = torch.from_numpy(serving_points(4, c.Ttot, 1024, seed=73))
+    metrics = make_train_step(net, c, sched.active_weights(), True, False,
+                              True)(state, pts.to(device))
+    return {"metrics": [float(metrics[k]) for k in sorted(metrics)],
+            "grads": grads,
+            "params": [p.detach().cpu() for p in net.parameters()],
+            "generator": state.generator.get_state()}
+
+
+def _max_gap(a, b):
+    """The largest absolute difference between two small steps' metrics,
+    gradients and parameters (0.0: equal to the bit); inf when their
+    generators differ."""
+    import torch
+    if not torch.equal(a["generator"], b["generator"]):
+        return float("inf")
+    gap = float(np.max(np.abs(np.subtract(a["metrics"], b["metrics"]))))
+    for part in ("grads", "params"):
+        for x, y in zip(a[part], b[part]):
+            gap = max(gap, float((x - y).abs().max()))
+    return gap
+
+
+def phase_remat(cfg, device, card):
+    """The rematerialised detector (``cfg.remat``): the peak memory and
+    step time of a bf16 detector step at the preset's width by remat value
+    and microbatch, the K3 launches of a routed step at each value
+    (:func:`routed_remat_launches`), and a float32 small-width step at
+    remat 1 and 2 against remat 0 on the card."""
+    import gc
+    import torch
+    from neural_marionette_tpu_torch.models.detector import remat_level
+    from neural_marionette_tpu_torch.train import Trainer
+    t_phase = time.perf_counter()
+    out = {"card": card, "T": SERVE_T, "N": SERVE_N, "dtype": "bfloat16",
+           "grad_accum": 1, "steps": REMAT_STEPS, "cap_gib": REMAT_CAP_GIB}
+
+    # float32, small width: remat 1 and 2 against remat 0. The card's
+    # float32 step is not repeatable to the bit (atomics in cuDNN's and
+    # the trilinear upsample's backward), so a step is held to the
+    # nearest of REMAT_REPEATS remat 0 steps, which must be no further
+    # apart than the farthest two of those are from each other. Were the
+    # n + 1 steps' gaps exchangeable, a right step would fail this by
+    # chance with probability 1 / C(C(n + 1, 2), n): 1 in 20 at n 3
+    # (which failed a run), 1 in 54,264 at 6
+    ref = [_remat_small_step(cfg, device, 0) for _ in range(REMAT_REPEATS)]
+    spread = max(_max_gap(a, b) for i, a in enumerate(ref)
+                 for b in ref[i + 1:])
+    check = {"remat0_vs_remat0": spread}
+    for r in (1, 2):
+        step = _remat_small_step(cfg, device, r)
+        gap = min(_max_gap(step, a) for a in ref)
+        check[f"remat{r}_vs_remat0"] = gap
+        if not gap <= spread:
+            raise AssertionError(f"remat {r}: the float32 step lies {gap} "
+                                 f"from the nearest remat 0 step's, remat 0 "
+                                 f"steps up to {spread} from each other")
+    out["float32_check"] = check
+    log(f"[remat] float32 small-width step on the card: max abs gap to "
+        f"remat 0 {check}")
+
+    # routed bf16 B 4 steps: K3 launches per the formula
+    routed = {}
+    for r in (0, 1, 2):
+        trainer = Trainer(_remat_cfg(cfg, r), device=device,
+                          dtype="bfloat16", conv_kernel=True)
+        det = trainer.model.kypt_detector
+        counts = {}
+        record, ms, _ = _train_epoch(trainer, 0, 1, 9500 + r, counts)
+        want = routed_remat_launches(det, r)
+        if remat_level(det.vox_to_kypt) != r or counts != {
+                "voxelize": 1, "chamfer_fwd": 1, "chamfer_bwd": 1,
+                "conv3d": want}:
+            raise AssertionError(f"remat {r} routed step: launches {counts}, "
+                                 f"K3 wanted {want}")
+        if not all(np.isfinite(v) for v in record["train"].values()):
+            raise AssertionError(f"remat {r} routed step: {record['train']}")
+        routed[r] = {"launches": counts, "conv3d_wanted": want,
+                     "first_step_ms": float(ms[0])}
+        del trainer, det
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["routed_b4"] = routed
+    log("[remat] routed bf16 B 4 step, K3 launches (forward + one "
+        "recompute per region reaching the conv): "
+        + ", ".join(f"remat {r} {v['launches']['conv3d']}"
+                    for r, v in routed.items()))
+
+    # the slope of the peak with the microbatch, then 240 frames
+    runs = {r: {} for r in (0, 1, 2)}
+    for r in (0, 1, 2):
+        for b in REMAT_SLOPE_B:
+            runs[r][b] = _remat_timed(cfg, device, r, b)
+    # the slopes of the allocated and of the reserved peak; the reserved
+    # one (the allocator's hold on the card, fragmentation included)
+    # decides B (REMAT_CAP_GIB)
+    b0, b1 = REMAT_SLOPE_B
+    frames = (b1 - b0) * SERVE_T
+    slope, reserved = ({r: (runs[r][b1][k] - runs[r][b0][k]) / frames
+                        for r in runs}
+                       for k in ("peak_gib", "peak_reserved_gib"))
+    if not all(v > 0 for v in (*slope.values(), *reserved.values())):
+        raise AssertionError(f"remat: the peak does not grow with B: "
+                             f"{slope}, {reserved}")
+
+    def reckon(r, b):
+        return runs[r][b1]["peak_reserved_gib"] + reserved[r] * (b - b1) * \
+            SERVE_T
+
+    reckoned = {r: reckon(r, REMAT_FULL_B) for r in runs}
+    full = {}
+    for r in (1, 2):
+        b = REMAT_FULL_B
+        while reckon(r, b) > REMAT_CAP_GIB:
+            b -= 1
+        full[r] = dict(_remat_timed(cfg, device, r, b),
+                       reckoned_reserved_gib=reckon(r, b),
+                       cut_from_b24=b != REMAT_FULL_B)
+        if b != REMAT_FULL_B:
+            log(f"[remat] remat {r}: B 24 reckoned at {reckoned[r]:.2f} GiB "
+                f"reserved, above {REMAT_CAP_GIB}: ran the largest B "
+                f"reckoned under it, {b} ({reckon(r, b):.2f} GiB)")
+    out["runs"] = {str(r): {str(b): v for b, v in bs.items()}
+                   for r, bs in runs.items()}
+    out["gib_per_frame"] = {str(r): v for r, v in slope.items()}
+    out["reserved_gib_per_frame"] = {str(r): v for r, v in reserved.items()}
+    out["reckoned_b24_reserved_gib"] = {str(r): v
+                                        for r, v in reckoned.items()}
+    out["full"] = {str(r): v for r, v in full.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("[remat] peak GiB a folded frame (B 6 -> 12), allocated / reserved: "
+        + ", ".join(f"remat {r} {slope[r]:.4f} / {reserved[r]:.4f}"
+                    for r in runs)
+        + "; B 24 reckoned reserved " + ", ".join(
+            f"remat {r} {v:.1f}" for r, v in reckoned.items()))
+    log(f"[remat] phase {out['phase_s']:.1f} s")
+    return out
 
 
 def phase_timing(device, G, K, launches, errs):
@@ -2458,7 +2774,7 @@ def phase_profile(marionette, n_windows=4, conv_kernel=False,
     most device time, the copies and layout conversions, and the device
     time per call of the port's own kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from neural_marionette_tpu_torch.models import SkeletonArrays
     cfg = marionette.cfg
     tag = "profile conv_kernel" if conv_kernel else "profile"
@@ -2478,16 +2794,31 @@ def phase_profile(marionette, n_windows=4, conv_kernel=False,
                                             for k, v in layers.items()))
     ws = [serving_points(SERVE_B, SERVE_T, SERVE_N, seed=200 + i)
           for i in range(n_windows)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # a window of a stream like it in the profiler's warm-up round: started
+    # cold, the profiler misses the first device operations
+    warm = marionette.stream(
+        dtype="bfloat16", sample_num=SAMPLE_NUM, conv_kernel=conv_kernel,
+        **({} if outputs is None else {"outputs": outputs}))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in warm.run(ws[:1]):
+            pass
         torch.cuda.synchronize()
+        prof.step()
+        profiler_gap()
         t0 = time.perf_counter()
         for _ in stream.run(ws):
             pass
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        profiler_gap()
+    del warm
     busy_ms, share, _, by_name = _busy(prof, wall_us)
     n = n_windows
+    if _calls_of(by_name, "voxelize_kernel") != n:
+        raise AssertionError(f"[{tag}] the profiler recorded "
+                             f"{_calls_of(by_name, 'voxelize_kernel')} K1 "
+                             f"launches in {n} windows")
     # the port's own kernels, by the names of their __global__s in csrc/
     ours = {k: v for k, v in by_name.items()
             if any(p in k for p in PORT_KERNELS)}
@@ -2924,6 +3255,7 @@ CLI_LAUNCHES = [{"voxelize": 6 + 7, "chamfer_fwd": 4 + 5, "chamfer_bwd": 3,
                  "conv3d": 4 * ROUTED_CONVS + ROUTED_CONVS
                  + ROUTED_DECODER_CONVS}]
 CLI_GIF_VIDEOS = 4   # min(log_gif_num 4 of the AIST preset, B 4)
+CLI_GEN_SAMPLES = 1  # cli.vis_generation's --sample_num (its default 3)
 # SMPL's kinematic tree (24 joints), the parents prepare_aistpp.py reads
 SMPL_PARENTS = (-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14,
                 16, 17, 18, 19, 20, 21)
@@ -3204,9 +3536,12 @@ def _vis_outputs(exp: Path, work: Path, source: Path, G: int):
                                                  vis_interpolation,
                                                  vis_retarget)
     runs = {
-        "vis_generation": (vis_generation, ["--source_file", str(source)],
-                           {"gen_voxels.npy": (3, 30, G, G, G, 1),
-                            "keypoints.npy": (3, 30, 24, 4)}),
+        "vis_generation": (vis_generation,
+                           ["--source_file", str(source), "--sample_num",
+                            str(CLI_GEN_SAMPLES)],
+                           {"gen_voxels.npy": (CLI_GEN_SAMPLES, 30, G, G, G,
+                                               1),
+                            "keypoints.npy": (CLI_GEN_SAMPLES, 30, 24, 4)}),
         "vis_interpolation": (vis_interpolation,
                               ["--source_file", str(work / "absent.npy")],
                               {"interp_voxels.npy": (21, G, G, G, 1),
@@ -3932,6 +4267,7 @@ TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
                  "jpeg_1024_arith_progressive_420.jpg", "jpeg_1024_cmyk.jpg",
                  "dds_1024_bc1.dds", "dds_1024_bc7.dds", "qoi_1024.qoi",
                  "jp2_1024_53.jp2", "jp2_1024_97_mct.jp2")
+RENDER_GEN_SAMPLES = 1     # generated samples rendered of the apps' 3
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
 RENDER_WEBP = "webp_1024_lossless.webp"    # the WebP-textured retarget set
@@ -4054,6 +4390,9 @@ def phase_render(cfg, device, card, apps_keep, trained_affinity):
         # the apps phase's generated clip and interpolation, as the demos
         # save them
         gen, itp, clip20 = (apps_keep[k] for k in ("gen", "itp", "clip20"))
+        # the first of the clip's samples (30 frames; the run's time limit)
+        gen = dict(gen, gen_voxels=gen["gen_voxels"][:RENDER_GEN_SAMPLES],
+                   keypoints=gen["keypoints"][:RENDER_GEN_SAMPLES])
         d = work / "generation"
         stats, t = _sync_ms(lambda: AG.save_outputs(
             gen, str(d), vox_cond=clip20[:5], Tcond=5, device=device))
@@ -4837,9 +5176,9 @@ def main() -> int:
     apps["generate_step"] = phase_generate_step(cfg, device)
     apps["reference"] = phase_apps_reference(cfg, device)
     torch.cuda.empty_cache()
-    # the phases that read device events from the profiler come before the
-    # renders: in two runs after them the profiler recorded 0 and 1 of K1's
-    # 10 launches (timing phase)
+    # the phases that read device events from the profiler; each recorded
+    # round opens and closes on an idle card (profiler_gap), without which
+    # the profiler dropped some or all of K1's 10 launches here now and then
     records = phase_timing(device, G, K, launches, errs)
     for rec in conv_records:
         rec["launches"] = launches[rec["name"]]
@@ -4854,6 +5193,8 @@ def main() -> int:
     textures = phase_textures(card)
     render = phase_render(cfg, device, card, apps_keep, trained_affinity)
     del apps_keep
+    torch.cuda.empty_cache()
+    remat = phase_remat(cfg, device, card)
     torch.cuda.empty_cache()
     flag = phase_flagship(card)
     dist = phase_distributed(cfg, device, card)
@@ -4876,6 +5217,9 @@ def main() -> int:
         elif rec["name"] == "conv3d":
             rec["launches_generate_step"] = \
                 apps["generate_step"]["conv_kernel"]["launches"]["conv3d"]
+            rec["launches_remat"] = {
+                r: v["launches"]["conv3d"]
+                for r, v in remat["routed_b4"].items()}
         if rec["name"] in cli["launches"]:
             rec["launches_cli"] = cli["launches"][rec["name"]]
         if rec["name"] in FLAGSHIP_LAUNCHES["phase1"]:
@@ -4911,6 +5255,7 @@ def main() -> int:
     print(json.dumps({"textures": textures}))
     print(json.dumps({"render": render}))
     print(json.dumps({"options": options}))
+    print(json.dumps({"remat": remat}))
     print(json.dumps({"flagship": flag}))
     print(json.dumps({"distributed": dist}))
     print(card)

@@ -42,11 +42,14 @@ It runs on ``cuda`` and raises without a card, unless ``--platform cpu``.
 ``--compute_dtype bfloat16`` trains in bfloat16 (the default is float32,
 as the JAX CLI's); ``--conv_kernel 1`` routes its eligible convs through
 kernel K3, the counterpart of running ``train.py`` under
-``NM_PALLAS_CONV=1`` (the port reads no environment variable). The TPU
-knobs of the configuration (strips, frame chunks, remat) are read and
-ignored. ``--debug_nans 1`` (the JAX ``jax_debug_nans``) checks every
-training step on the card and raises ``FloatingPointError`` at the first
-non-finite metric, ``grad_norm`` or parameter (``Trainer._checked_step``).
+``NM_PALLAS_CONV=1`` (the port reads no environment variable).
+``--remat 1`` or ``2`` rematerialises the detector's conv stacks in the
+training steps (``config.remat``): the same results in less activation
+memory, for more recompute. The TPU layout knobs of the configuration
+(strips, upconv, frame chunks) are read and ignored. ``--debug_nans 1``
+(the JAX ``jax_debug_nans``) checks every training step on the card and
+raises ``FloatingPointError`` at the first non-finite metric,
+``grad_norm`` or parameter (``Trainer._checked_step``).
 """
 from __future__ import annotations
 

@@ -140,14 +140,20 @@ class MarionetteConfig:
     compute_dtype: str = "float32"  # bfloat16 optionally for conv stacks
     debug_nans: int = 0
     profile_dir: str = ""  # capture a jax.profiler trace of early steps
+    # remat: rematerialize the detector's conv stacks where a gradient is
+    # taken, trading recompute in the backward for activation memory, as
+    # the JAX package's nn.remat (models/detector.py). 0 = off; 1 = each
+    # feature net and the voxel decoder is one region, whose activations
+    # are recomputed in the backward; 2 = also each block of a feature net
+    # and each conv stage of the decoder, nested inside those, which bounds
+    # the decoder's backward to one stage's activations. The results are
+    # remat 0's; eval, serving and no_grad runs ignore it.
+    remat: int = 0
     # The fields below up to frame_chunk are the JAX package's TPU layout
     # options. The port reads each one (the CLI takes the flag, a
-    # checkpoint's opt.json keeps it) and ignores it: it has no
-    # rematerialization and no strip, upconv or frame-chunk rewrite of
-    # its convs, whose results those rewrites leave exactly as the plain
-    # conv's (models/detector.py, ROADMAP.md).
-    # remat: rematerialize the detector's conv stacks (0 = off, 1, 2).
-    remat: int = 0
+    # checkpoint's opt.json keeps it) and ignores it: it has no strip,
+    # upconv or frame-chunk rewrite of its convs, whose results those
+    # rewrites leave exactly as the plain conv's (ROADMAP.md).
     # strip-packed decoder convs (JAX ops/stripconv.py): -1 = auto,
     # 0 = off, 1 = on.
     strip_decoder: int = -1

@@ -13,14 +13,26 @@ Every value of the detector options that the JAX package runs is ported:
 with Gumbel noise from an explicit generator or an injected draw),
 ``keypoints_graph="none"`` and ``keypoints_detach``; the losses' options
 (``vol_fit_type``, ``graph_loss_ver``) are in ``ops/losses.py``.
+
+``cfg.remat`` rematerialises the conv stacks where a gradient is taken
+(training mode, grad enabled), as the JAX package's ``nn.remat`` does:
+not 0 checkpoints each feature net and the voxel decoder (upsample ->
+stages -> 1x1 head; the 1x1 ``adjust`` conv stays outside) whole, 2 also
+each block of a feature net (the hourglass as one) and each conv +
+GroupNorm + LeakyReLU stage of the decoder, the upsamples outside them.
+The regions are ``torch.utils.checkpoint``'s non-reentrant ones, nested
+at 2; no random draw happens inside them. Only memory and recompute
+change: the results, the parameters and their ``state_dict`` keys are
+those of ``remat=0``.
 """
 from __future__ import annotations
 
-from typing import Any, Collection, Optional, Union
+from typing import Any, Callable, Collection, Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import MarionetteConfig, check_supported
 from ..ops import losses as L
@@ -36,6 +48,38 @@ from .blocks import (LEAKY_SLOPE, Basic3DBlock, Hourglass, Pool3DBlock,
 def _channels_last_vox(seq: torch.Tensor) -> torch.Tensor:
     """(N, G, G, G, 1) -> (N, 1, G, G, G); a view, since C = 1."""
     return seq.reshape(seq.shape[0], 1, *seq.shape[1:4])
+
+
+def _remat(fn: Callable, *args):
+    """``fn(*args)`` as one rematerialised region: its activations are
+    dropped after the forward and recomputed in the backward. No random
+    draw happens in a region, so no generator state is stashed."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def remat_level(module: nn.Module) -> int:
+    """``cfg.remat`` where ``module`` takes a gradient (training mode and
+    grad enabled), else 0: without a backward there is nothing to
+    rematerialise."""
+    return module.cfg.remat if module.training and \
+        torch.is_grad_enabled() else 0
+
+
+def run_feature_net(net: nn.Sequential, x: torch.Tensor, remat: int
+                    ) -> torch.Tensor:
+    """``net(x)``; with ``remat`` not 0 as one region, at 2 or above with
+    each block a region of its own inside it (the JAX ``FeatureNet`` under
+    ``nn.remat``, ``remat_stages``)."""
+    if not remat:
+        return net(x)
+
+    def whole(v):
+        for block in net:
+            v = _remat(block, v) if remat >= 2 else block(v)
+        return v
+
+    return _remat(whole, x)
 
 
 def feature_net(C: int, grid_size: int, dtype, device,
@@ -119,12 +163,13 @@ class VoxToKyptNet(nn.Module):
         return F.softplus(h) if isinstance(head[1], nn.Softplus) \
             else leaky_relu(h)
 
-    def _prior(self, summed: torch.Tensor) -> torch.Tensor:
+    def _prior(self, summed: torch.Tensor, remat: int = 0) -> torch.Tensor:
         """(B, G, G, G, 1) -> the spatio-temporal net's (B, K, g, g, g)."""
         return self._heatmaps(
             self.extract_spatio_temporal_heatmaps_from_features,
-            self.extract_spatio_temporal_features(
-                add_coord_channels_first(_channels_last_vox(summed))))
+            run_feature_net(self.extract_spatio_temporal_features,
+                            add_coord_channels_first(
+                                _channels_last_vox(summed)), remat))
 
     def _propagate(self, heatmap, prev):
         """softplus(w0 * h + w1 * prev + b), in float32 as the JAX package's
@@ -144,22 +189,24 @@ class VoxToKyptNet(nn.Module):
         keypoints stay replicated."""
         B, T = seq.shape[:2]
         ci = self.cfg.const_intensity
+        remat = remat_level(self)
         prev = None                                       # (B, K, g, g, g)
         if ci == 1:
             prev = self.initial_heatmaps[None].expand(
                 (B,) + self.initial_heatmaps.shape)
         elif ci in (2, 3):
-            prev = self._prior(seq.mean(dim=1))
+            prev = self._prior(seq.mean(dim=1), remat)
         elif ci == 4:
             # motion saliency: dynamic voxels ~1, static ~1/T, masked to the
             # union of the occupancy
             prev = self._prior((1.0 - seq.mean(dim=1) + 1.0 / T)
-                               * torch.clamp(seq.sum(dim=1), 0, 1))
+                               * torch.clamp(seq.sum(dim=1), 0, 1), remat)
 
         local = seq[:, frame_slice(mesh, T)]     # every frame without a mesh
         Tl = local.shape[1]
         frames = _channels_last_vox(local.reshape((B * Tl,) + seq.shape[2:]))
-        features = self.extract_features(add_coord_channels_first(frames))
+        features = run_feature_net(self.extract_features,
+                                   add_coord_channels_first(frames), remat)
         heatmaps = self._heatmaps(self.extract_heatmaps_from_features,
                                   features)               # (BT, K, g, g, g)
         heatmaps = gather_frames(heatmaps.reshape((B, Tl)
@@ -219,16 +266,31 @@ class KyptToVoxNet(nn.Module):
             group_norm(C4, device), act,
             nn.Conv3d(C4, 1, 1, device=device))
 
-    def _decode(self, x):
+    def _decode(self, x, remat: int):
+        """The voxel decoder; with ``remat`` not 0 one region, at 2 or
+        above with each conv stage a region of its own inside it (the JAX
+        ``VoxelDecoder`` under ``nn.remat``, ``remat_stages``)."""
         d = self.decode_voxel_from_combined_representation
         dt, ck = self.dtype, self.conv_kernel
-        x = upsample2_trilinear_first(x)
-        x = leaky_relu(norm(d[2], conv(d[1], x, dt, ck)))
-        x = leaky_relu(norm(d[5], conv(d[4], x, dt, ck)))
-        x = upsample2_trilinear_first(x)
-        x = leaky_relu(norm(d[9], conv(d[8], x, dt, ck)))
-        x = leaky_relu(norm(d[12], conv(d[11], x, dt, ck)))
-        return conv(d[14], x, dt)
+
+        def stage(i, v):          # conv d[i] -> GroupNorm d[i + 1] -> act
+            return leaky_relu(norm(d[i + 1], conv(d[i], v, dt, ck)))
+
+        def run(i, v):
+            return _remat(stage, i, v) if remat >= 2 else stage(i, v)
+
+        def whole(v):
+            # one name, rebound at each step: an upsampled 64^3 input held
+            # through the next stage costs as much as the stage itself
+            v = upsample2_trilinear_first(v)
+            v = run(1, v)
+            v = run(4, v)
+            v = upsample2_trilinear_first(v)
+            v = run(8, v)
+            v = run(11, v)
+            return conv(d[14], v, dt)
+
+        return _remat(whole, x) if remat else whole(x)
 
     def forward(self, gaussians, first_feature, first_frame,
                 sharpness: float = 10.0, translation: float = 0.5,
@@ -255,7 +317,7 @@ class KyptToVoxNet(nn.Module):
         combined = add_coord_channels_first(combined)
         x = leaky_relu(conv(self.adjust_combined_representation[0], combined,
                             self.dtype))
-        logits = self._decode(x)                          # (BT, 1, G, G, G)
+        logits = self._decode(x, remat_level(self))      # (BT, 1, G, G, G)
         logits = gather_frames(
             logits.reshape((B, Tl) + first_frame.shape[1:]), mesh)
         return torch.sigmoid(

@@ -169,7 +169,9 @@ def _kypt_to_vox(prefix: str, params: Mapping) -> Entry:
         if name == "Conv_0":
             yield from _layer(f"{prefix}.adjust_combined_representation.0",
                               value)
-        elif name == "VoxelDecoder_0":
+        elif name in ("VoxelDecoder_0", "CheckpointVoxelDecoder_0"):
+            # the JAX package's decoder takes the second name under
+            # nn.remat (cfg.remat >= 1); its children keep theirs
             for child, leaves in value.items():
                 yield from _layer(
                     f"{prefix}.decode_voxel_from_combined_representation."
