@@ -124,8 +124,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
     and 4, with restart intervals, CMYK and YCCK, without DHT, progressive
     files cut short (block smoothing); BMP with run-length and bitfields;
     TGA at 16 bits; GIF; TIFF of every layout and compression imageio
-    reads, signed and YCbCr samples; WebP lossless, lossy, with alpha and
-    animated; DDS uncompressed and BC1-BC7; QOI; PNM and PFM; JPEG 2000
+    reads, every sample type of its tifffile (1-64-bit, signed, float,
+    complex, 5-6-5), YCbCr, CMYK and other inks at every depth, CIELab,
+    ICCLab and ITULab, the other photometrics, ImageDepth volumes; WebP
+    lossless, lossy, with alpha and animated; DDS uncompressed and BC1-BC7;
+    QOI; PNM, PFM and PAM as Pillow and OpenCV read them, Pillow's CMYK and
+    RGBA extensions; JPEG 2000
     as JP2 and raw codestreams: every mode, 5/3 and 9/7, RCT and ICT,
     layers, tiles, precincts, the five progression orders and POC, every
     code-block style, RGN, SOP/EPH, sYCC, sub-sampled components,
@@ -137,15 +141,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
     ``MANIFEST.json`` (imageio's pixels on the machine that wrote them);
     the refused files (hierarchical, 12-bit, fractionally sampled,
     lossless YCbCr or without tables or arithmetic-coded JPEG, an
-    arithmetic scan past 64 KiB; TIFF JPEG, CCITT, old-style LZW, YCbCr
-    subsampling; truncated GIF, WebP, DDS and QOI, a bad LZW code, BMP
-    layouts and a DDS format Pillow refuses; PSD, which imageio does not
-    read; JPEG 2000 cut short, without EOC, of a colour space Pillow does
-    not unpack or a palette past 256 colours) raising ``ValueError``
+    arithmetic scan past 64 KiB; TIFF JPEG, CCITT, SGI LogLuv, old-style
+    LZW, YCbCr subsampling, the depths and sample formats tifffile cannot
+    unpack, predictor 3 on integers or in separate tiles; Pillow's PyP;
+    OpenCV PNM cut short or with a bad header; truncated GIF, WebP, DDS
+    and QOI, a bad LZW code, BMP layouts and a DDS format Pillow refuses;
+    PSD, which imageio does not read; JPEG 2000 cut short, without EOC,
+    of a colour space Pillow does not unpack or a palette past 256
+    colours) raising ``ValueError``
     naming what they are; the host ms of decoding each 1024 x 1024 file
     (baseline and progressive 4:2:0 JPEG, arithmetic sequential and
     progressive 4:2:0 JPEG, CMYK JPEG, GIF, TIFF LZW, WebP lossless and
-    lossy, BC1 and BC7 DDS, QOI, JPEG 2000 5/3 and 9/7 with ICT);
+    lossy, BC1 and BC7 DDS, QOI, JPEG 2000 5/3 and 9/7 with ICT, TIFF of
+    32-bit unsigned samples with predictor 2 and 8-bit CIELab);
     then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
@@ -3832,6 +3840,15 @@ def phase_flagship(card):
     from neural_marionette_tpu_torch.train.checkpoint import load_params_only
     torch.cuda.synchronize()
     torch.cuda.empty_cache()     # the phases' processes share the card
+    # what the card holds before the phases' processes start: this process
+    # keeps its context and tensors through them
+    free, total = torch.cuda.mem_get_info()
+    held = {k: v / 2 ** 30 for k, v in (
+        ("card_free_gib", free), ("card_total_gib", total),
+        ("this_process_allocated_gib", torch.cuda.memory_allocated()),
+        ("this_process_reserved_gib", torch.cuda.memory_reserved()))}
+    log(f"[flagship] card at the start, GiB: "
+        f"{ {k: round(v, 2) for k, v in held.items()} }")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_flagship_"))
     t0 = time.perf_counter()
     try:
@@ -3878,7 +3895,7 @@ def phase_flagship(card):
                     raise AssertionError(f"flagship demo {name}: {fname} "
                                          f"{arr.shape}")
         rec = {"sequences": FLAGSHIP_SEQS, "epochs": FLAGSHIP_EPOCHS,
-               "seconds": seconds, "card": card}
+               "seconds": seconds, "card": card, "at_start": held}
         for phase, records in (("phase1", rec1), ("phase2", rec2)):
             stats = summary[f"{phase}_stats"]
             if stats["launches"] != FLAGSHIP_LAUNCHES[phase]:
@@ -4266,7 +4283,9 @@ TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
                  "jpeg_1024_arith_sequential_420.jpg",
                  "jpeg_1024_arith_progressive_420.jpg", "jpeg_1024_cmyk.jpg",
                  "dds_1024_bc1.dds", "dds_1024_bc7.dds", "qoi_1024.qoi",
-                 "jp2_1024_53.jp2", "jp2_1024_97_mct.jp2")
+                 "jp2_1024_53.jp2", "jp2_1024_97_mct.jp2",
+                 "tiff_1024_uint32_deflate_predictor.tif",
+                 "tiff_1024_cielab_lzw.tif")
 RENDER_GEN_SAMPLES = 1     # generated samples rendered of the apps' 3
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
@@ -4275,9 +4294,11 @@ WEBP_SET_RES = 28                           # its sphere: 4 * 28^2 faces
 
 
 def _texture_expected(entry, arrays):
-    """A manifest entry's expected (H, W, 3) float32 texture."""
-    return arrays[entry["key"]].astype(np.float32) / np.float32(
-        entry["divisor"])
+    """A manifest entry's expected (H, W, 3) float32 texture: the samples
+    and the divisor rounded to float64, divided there, the quotient
+    rounded to float32 (the port's rule, ``image_files.unit_interval``)."""
+    return (arrays[entry["key"]].astype(np.float64)
+            / np.float64(entry["divisor"])).astype(np.float32)
 
 
 def phase_textures(card, reps=11):
@@ -4332,6 +4353,7 @@ def phase_textures(card, reps=11):
                                  "manifest")
         checked += 1
         per_format[fmt]["checked"] += 1
+    check_s = time.perf_counter() - t_phase
     times = {}
     for name in TEXTURE_TIMED:
         data = (TEXTURES / name).read_bytes()
@@ -4351,7 +4373,8 @@ def phase_textures(card, reps=11):
             "read_image_ms_p50": float(np.median(read)), "reps": reps}
     out = {"card": card, "checked": checked, "refused": refused,
            "fixtures": len(manifest), "per_format": per_format,
-           "decode": times, "phase_s": time.perf_counter() - t_phase}
+           "decode": times, "check_s": check_s,
+           "phase_s": time.perf_counter() - t_phase}
     log(f"[textures] {checked} fixtures equal to the manifest, {refused} "
         "refused as it names; 1024 x 1024 decode p50 (min) on the host: "
         + ", ".join(f"{n} {t['decode_ms_p50']:.2f} ({t['decode_ms_min']:.2f})"

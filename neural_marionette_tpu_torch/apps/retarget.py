@@ -22,7 +22,9 @@ from ..models import SkeletonArrays
 from ..ops.voxelize import voxelize_np
 from ..retarget import retarget_motion
 from ..viz import raster as R
-from ..viz.image_files import read_image, to_uint8, write_gif, write_png
+from ..viz.image_files import (read_image, to_uint8, unit_interval,
+                                write_gif, write_png)
+from ..viz.tiff import offset_binary
 from .common import detect_and_extract_skeleton
 
 RENDER_DELAY_S = 0.1   # the JAX save_gif's duration=0.1
@@ -118,38 +120,54 @@ def _find_texture(mtl_path: str):
 def texture_rgb(img: np.ndarray) -> np.ndarray:
     """(H, W, C) samples of ``viz.image_files.read_image`` -> (H, W, 3)
     float32 in [0, 1]. Where the JAX function's result is an RGB image
-    (imageio gives 8-bit samples, C = 3 or 4) this is its ``/ 255`` then
+    (imageio gives 8-bit samples, C of 3 or more) this is its ``/ 255`` then
     ``[..., :3]``, equal to the bit. Elsewhere it is defined, and
     ``ROADMAP.md`` (Queue 3) lists each case as a fault of the JAX function
-    that the port does not share: grey is replicated to RGB, alpha is
-    dropped, a 16-bit sample is divided by 65535 (the JAX function keeps 3
-    columns of a grey image, 2 channels of grey + alpha, and divides 16-bit
-    samples by 255); float samples are clipped to [0, 1], NaN read as 0 (the
-    JAX function divides them by 255); a signed d-bit sample (TIFF's int8,
-    int16) is offset by 2^(d-1) and divided by 2^d - 1 (the JAX texture is
-    negative); int32 (Pillow's mode "I" of a PGM past 8 bits, 0-65535) is
-    divided by 65535. ``read_image`` has already applied the rest of the
-    rules: to a TIFF, a palette's indices mapped through its colour map
-    (16-bit entries, so / 65535), planar samples read as (H, W, C), the
-    first page of several, CMYK made RGB as Pillow's ``convert("RGB")``
-    does and YCbCr as libtiff's ``TIFFYCbCrToRGB`` does, min-is-white
-    inverted, 1-, 2- and 4-bit samples scaled to 8 bits (the JAX function
-    gets tifffile's raw indices, (C, H, W), all pages, the CMYK and YCbCr
-    samples, the stored levels); to a CMYK or YCCK JPEG and a CMYK JPEG
-    2000, Pillow's CMYK made RGB as for TIFF (the JAX texture is C, M, Y); a
-    bitmap's bool as 0 and 255."""
+    that the port does not share:
+
+    * grey is replicated to RGB and alpha dropped (the JAX function keeps
+      3 columns of a grey image and 2 channels of grey + alpha);
+    * every integer sample goes through ``image_files.unit_interval``: the
+      value and 2^d - 1 rounded to float64, divided there, the quotient
+      rounded to float32 (for 8- and 16-bit samples that is float32's own
+      division, to the bit). A d-bit unsigned sample is divided by
+      2^d - 1: uint8 by 255, uint16 by 65535 (the JAX function divides
+      16-bit samples by 255); int32 is Pillow's mode "I" of a PGM past 8
+      bits, 0-65535, divided by 65535;
+    * a signed d-bit sample (TIFF's int8, int16) is offset by 2^(d-1),
+      then divided by 2^d - 1 (the JAX texture is negative);
+    * float samples are clipped to [0, 1], NaN read as 0 (the JAX function
+      divides them by 255).
+
+    ``read_image`` has already applied the rest of the rules. To a TIFF
+    (``viz/tiff.py``; the JAX function gets tifffile's raw samples): a
+    palette's indices mapped through its colour map (16-bit entries, so
+    / 65535; the JAX texture is the indices); planar samples read as
+    (H, W, C) (JAX: (C, H, W)); the first page of several and the first
+    plane of an ``ImageDepth`` volume (JAX: all of them); CMYK made RGB as
+    Pillow's ``convert("RGB")`` does and YCbCr as libtiff's
+    ``TIFFYCbCrToRGB`` does, each from 8-bit samples (a wider sample's high
+    byte, a signed one offset first, a float one as ``to_uint8`` makes
+    it; JAX: the inks, the YCbCr samples); CIELab, ICCLab and ITULab made
+    sRGB by ``viz.tiff.lab_to_rgb`` (JAX: the L, a, b codes); min-is-white
+    inverted (JAX: the stored levels); 1-, 2- and 4-bit samples scaled to
+    8 bits, a predictor's sum past 2^d - 1 saturated (JAX: the indices);
+    32- and 64-bit integers already normalised to float32 by
+    ``unit_interval`` (JAX: divided by 255, far past 1); complex samples'
+    real parts, then the float rule (as the JAX ``np.asarray(...,
+    np.float32)`` keeps them, then divides by 255); packed 5-6-5 RGB as
+    tifffile rescales it to 8 bits (equal to the JAX texture). To a CMYK or
+    YCCK JPEG, a CMYK JPEG 2000 and a Pillow ``P0CMYK`` or ``PyCMYK`` file,
+    Pillow's CMYK made RGB as for TIFF (the JAX texture is C, M, Y); a
+    bitmap's bool as 0 and 255; an OpenCV PNM's 8-bit samples as OpenCV
+    gives them (16-bit ones cut to their high byte, grey as RGB)."""
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3,
                                                            axis=-1)
     if img.dtype.kind == "f":
         return np.clip(np.nan_to_num(rgb, nan=0.0), 0, 1).astype(np.float32)
-    if img.dtype in (np.int8, np.int16):   # signed: offset, then / 2^d - 1
-        bits = 8 * img.dtype.itemsize
-        return (rgb.astype(np.float32) + np.float32(1 << (bits - 1))) \
-            / np.float32((1 << bits) - 1)
-    # int32: a PGM past 8 bits, which Pillow scales to 0-65535
-    scale = np.float32(65535.0 if img.dtype in (np.uint16, np.int32)
-                       else 255.0)
-    return rgb.astype(np.float32) / scale
+    if img.dtype == np.int32:   # a PGM past 8 bits, Pillow's 0-65535
+        return unit_interval(rgb, 16)
+    return unit_interval(offset_binary(rgb), 8 * img.dtype.itemsize)
 
 
 def load_target_points(path: str, scale: float = 0.8, x_trans: float = 0.0,

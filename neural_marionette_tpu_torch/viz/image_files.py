@@ -51,6 +51,19 @@ def to_uint8(img) -> np.ndarray:
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
+def unit_interval(samples: np.ndarray, bits: int) -> np.ndarray:
+    """Unsigned integer samples of ``bits`` bits -> float32 in [0, 1]:
+    v / (2^d - 1), the value and the divisor each rounded to float64,
+    divided there, the quotient rounded to float32. The one rule of every
+    integer texture sample (a signed one goes through
+    ``viz/tiff.offset_binary`` first). Below 2^24 it is float32's own
+    correctly rounded division (float64's 53 bits are more than 2 x 24 +
+    2, so rounding twice changes nothing); for 32- and 64-bit samples it
+    is the rule that the fixtures' expected textures follow too."""
+    return (samples.astype(np.float64) / float((1 << bits) - 1)).astype(
+        np.float32)
+
+
 # --------------------------------------------------------------------- PNG
 def _chunk(kind: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + kind + data
@@ -215,7 +228,10 @@ MAX_PIXELS = 178956970
 
 def check_pixels(width: int, height: int, path: str, fmt: str) -> None:
     """Raise ``ValueError`` for an image past Pillow's decompression-bomb
-    limit, which the port holds every format to."""
+    limit, which the port holds every format that imageio reads through
+    Pillow to. A TIFF has no cap (imageio reads it with its own tifffile,
+    which has none; ``viz/tiff.py`` bounds each strip by the data the file
+    holds instead), and OpenCV's PNM files have OpenCV's limits."""
     if width * height > MAX_PIXELS:
         raise ValueError(f"{path}: a {fmt} image of {width} x {height} "
                          f"pixels, past the limit of {MAX_PIXELS}")
@@ -549,10 +565,11 @@ _AVIF_BRANDS = (b"avif", b"avis")
 
 def image_format(data: bytes, path: str = "") -> str:
     """The format of an image file's bytes, as Pillow would take it: by
-    its magic number (PNM by ``P1``-``P6``, ``Pf`` or ``PF`` and a
-    whitespace; JPEG 2000 by the JP2 signature box or a codestream's SOC
-    and SIZ; PSD, and AVIF by an ``ftyp`` box of brand ``avif`` or
-    ``avis``, are named to be refused), else TGA where the header passes
+    its magic number (PNM by ``P1``-``P7``, ``Pf``, ``PF`` or ``PyP`` and
+    a whitespace, or Pillow's ``P0CMYK``, ``PyCMYK`` and ``PyRGBA``; JPEG
+    2000 by the JP2 signature box or a codestream's SOC and SIZ; PSD, and
+    AVIF by an ``ftyp`` box of brand ``avif`` or ``avis``, are named to
+    be refused), else TGA where the header passes
     Pillow's TGA checks or the extension is ``.tga``; "unknown"
     otherwise."""
     for magic, name in _MAGIC:
@@ -566,9 +583,12 @@ def image_format(data: bytes, path: str = "") -> str:
         return "AVIF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
+    space = (b" ", b"\t", b"\n", b"\x0b", b"\x0c", b"\r")
     if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5",
-                                         b"6", b"f", b"F") \
-            and data[2:3] in (b" ", b"\t", b"\n", b"\x0b", b"\x0c", b"\r"):
+                                         b"6", b"7", b"f", b"F") \
+            and data[2:3] in space or data[:3] == b"PyP" and \
+            data[3:4] in space or data[:6] in (b"P0CMYK", b"PyCMYK",
+                                                b"PyRGBA"):
         return "PNM"
     if _tga_header(data) is not None or path.lower().endswith(".tga"):
         return "TGA"
@@ -586,19 +606,30 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
     the host library as libjpeg-turbo 3 does, block smoothing included; a
     CMYK or YCCK file's inverted CMYK made RGB as Pillow's
     ``convert("RGB")`` does); BMP, TGA and GIF (the first frame; uint8);
-    TIFF (the first page, ``viz/tiff.decode_tiff``: uint8, uint16, int8,
-    int16 or float32); WebP (lossless and lossy, the first frame of an
-    animation; RGB, or RGBA where the file has alpha; decoded by the host
-    library as libwebp does); DDS, QOI and PNM
-    (``viz/texture_formats.py``: uint8, a PGM past 8 bits int32, a float
-    map float32); JPEG 2000 (a JP2 file or a raw codestream, any
-    progression with POC, layers, precincts and tiles, every code-block
-    style of Part 1, RGN, SOP/EPH, the 5/3 and 9/7 wavelets, RCT and ICT,
-    ``viz/jpeg2000.py``: uint8 grey, grey + alpha, RGB, RGBA,
-    a palette's colours, CMYK made RGB; uint16 past 8 bits; decoded by the
-    host library as OpenJPEG does). A PSD file, which imageio does not
-    read, an AVIF file, an unknown file, or one that cannot be decoded,
-    raises ``ValueError`` naming the format."""
+    TIFF (the first plane of the first page, every sample type and
+    photometric interpretation imageio's tifffile reads, with no pixel
+    cap, ``viz/tiff.decode_tiff``: uint8, uint16, int8, int16 or float32,
+    32- and 64-bit integers normalised to float32); WebP (lossless and
+    lossy, the first frame of an animation; RGB, or RGBA where the file
+    has alpha; decoded by the host library as libwebp does); DDS, QOI and
+    PNM (``viz/texture_formats.py``, by name and magic as imageio's
+    Pillow and OpenCV plugins read them: uint8, Pillow's PGM past 8 bits
+    int32, its float map float32, a CMYK extension made RGB); JPEG 2000
+    (a JP2 file or a raw codestream, any progression with POC, layers,
+    precincts and tiles, every code-block style of Part 1, RGN, SOP/EPH,
+    the 5/3 and 9/7 wavelets, RCT and ICT, ``viz/jpeg2000.py``: uint8
+    grey, grey + alpha, RGB, RGBA, a palette's colours, CMYK made RGB;
+    uint16 past 8 bits; decoded by the host library as OpenJPEG does). A
+    PSD file, which imageio does not read, an AVIF file, an unknown file,
+    or one that cannot be decoded, raises ``ValueError`` naming the
+    format.
+
+    Each sample's type states its scale, which ``apps.retarget.texture_rgb``
+    reads from it: uint8 0-255, uint16 0-65535, int8 and int16 two's
+    complement of 8 and 16 bits, int32 only Pillow's mode "I" (0-65535),
+    float32 the samples themselves (a TIFF's 32- and 64-bit integers are
+    already normalised to [0, 1]). A decoder whose samples span less than
+    their type (a TIFF's 1-, 2- and 4-bit samples) widens them first."""
     fmt = image_format(data, path)
     if fmt == "AVIF":
         raise ValueError(f"{path}: an AVIF image; its AV1 decoding waits "

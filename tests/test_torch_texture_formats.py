@@ -260,6 +260,158 @@ def test_pfm_through_opencv(tmp_path, magic, scale):
                  _imageio(data, tmp_path, "x.pfm"))
 
 
+def _both(data: bytes, tmp_path: Path, name: str):
+    """imageio's array of the file, or None where imageio refuses it; and
+    the port's samples, or None where it raises ``ValueError``."""
+    try:
+        want = _imageio(data, tmp_path, name)
+    except Exception:
+        want = None
+    try:
+        got = F.decode_image(data, name)
+    except ValueError:
+        got = None
+    return want, got
+
+
+def _plain(values) -> bytes:
+    return " ".join(str(int(v)) for v in np.ravel(values)).encode() + b"\n"
+
+
+_CV_MAXVALS = [1, 100, 255, 256, 4095, 65535]
+
+
+@pytest.mark.parametrize("ext", ["pbm", "pfm"])
+@pytest.mark.parametrize("magic", [b"P2", b"P3", b"P5", b"P6"])
+@pytest.mark.parametrize("maxval", _CV_MAXVALS)
+def test_pnm_through_opencv_by_name(tmp_path, ext, magic, maxval):
+    """P2, P3, P5 and P6 named .pbm or .pfm, which imageio hands to
+    OpenCV, at maxvals below, at and past 255 (a comment in the header;
+    plain samples past the maxval, which OpenCV clamps; raw 8-bit ones past
+    it, which it keeps): imageio's (H, W, 3) uint8, to the bit."""
+    rng = np.random.default_rng(maxval * 7 + magic[1])
+    bands = 3 if magic in (b"P3", b"P6") else 1
+    top = 255 if maxval < 256 else 65535
+    v = rng.integers(0, min(top, 2 * maxval) + 1, (5, 6, bands))
+    head = magic + b"\n# OpenCV skips this\n6 5\n%d\n" % maxval
+    body = _plain(v) if magic in (b"P2", b"P3") else v.astype(
+        np.uint8 if maxval < 256 else ">u2").tobytes()
+    want, got = _both(head + body, tmp_path, "x." + ext)
+    assert want is not None and want.shape == (5, 6, 3)
+    assert got is not None and _same(got, want)
+
+
+@pytest.mark.parametrize("data", [
+    b"P1\n5 2\n0123456789", b"P1 5 2 0 1 0 1 1\n1 1 0 0 0\n",
+    b"P4\n9 2\n\xa5\x80\x5a\x00", b"P5\n3 1\n255\n\x01\x02",
+    b"P2\n2 1\n1000\n5 999", b"P2\n2 1\n1000\n5 999\n",
+    b"P5 2 1 0\n\x01\x02", b"P5 2 1 70000\n\x01\x02",
+    b"P6\n#\n1 1\n255\n\x01\x02\x03", b"P3\n1 1\n255\n1 x 3\n",
+    b"P5\n0 1\n255\n\x01", b"P5\n2000000 1\n255\n\x01",
+    b"Pf\n2 1\n-1.0\n" + np.float32([1.5, 300]).tobytes(),
+    b"Pf 2 1 -1.0\n" + np.float32([1.5, 300]).tobytes(),
+    b"Pf\n2  1\n-1.0\n" + np.float32([1.5, 300]).tobytes(),
+    b"Pf\n2 1\ninf\n" + np.float32([1.5, 300]).tobytes(),
+    b"Pf\n2 1\n0\n" + np.float32([1.5, 300]).tobytes(),
+    b"Pf\n2 1\n-2.5e0x\n" + np.float32([7.5, 300]).tobytes(),
+    b"PF\n1 1\n-4\n" + np.float32([2, 10, 1022]).tobytes()],
+    ids=range(19))
+@pytest.mark.parametrize("ext", ["pbm", "pfm"])
+def test_opencv_headers_and_ends(tmp_path, data, ext):
+    """OpenCV's readers of headers and data, byte by byte: a bitmap's
+    digits one at a time, a number at the very end of the file (OpenCV
+    reads a byte past it and fails), maxval 0 and past 65535, a comment at
+    the end of the header, a byte that is not a number, OpenCV's size
+    limits, a float map's line feed, empty fields, infinite, zero and
+    suffixed scales: the port reads what imageio reads, to the bit, and
+    raises where it raises."""
+    want, got = _both(data, tmp_path, "x." + ext)
+    assert (want is None) == (got is None)
+    if want is not None:
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("name", ["x.ppm", "x.pbm", "x.pgm"])
+@pytest.mark.parametrize("magic, maxval", [
+    (b"P0CMYK", 255), (b"PyCMYK", 100), (b"PyCMYK", 1000),
+    (b"PyRGBA", 255), (b"PyRGBA", 40000), (b"PyP", 255)])
+def test_pillow_ppm_extensions(tmp_path, name, magic, maxval):
+    """Pillow's own magics, which OpenCV does not know, whatever the name:
+    CMYK (made RGB by Pillow's formula, as every CMYK texture) and RGBA at
+    maxvals that Pillow rescales, and ``PyP``, on which imageio raises."""
+    rng = np.random.default_rng(maxval + magic[1])
+    v = rng.integers(0, maxval + 1, (4, 5, 1 if magic == b"PyP" else 4))
+    data = magic + b"\n5 4\n%d\n" % maxval + v.astype(
+        np.uint8 if maxval < 256 else ">u2").tobytes()
+    want, got = _both(data, tmp_path, name)
+    if magic == b"PyP":
+        assert want is None and got is None
+        with pytest.raises(ValueError, match="PyP"):
+            F.decode_image(data, name)
+        return
+    if magic != b"PyRGBA":
+        want = np.asarray(Image.fromarray(want, "CMYK").convert("RGB"))
+    assert got is not None and _same(got, want)
+
+
+def _pam(depth, maxval, tuple_type, body, head=b""):
+    return (b"P7\n" + head + b"WIDTH 11\nHEIGHT 3\nDEPTH %d\nMAXVAL %d\n"
+            % (depth, maxval) + (b"TUPLTYPE " + tuple_type + b"\n"
+                                 if tuple_type else b"") + b"ENDHDR\n" + body)
+
+
+@pytest.mark.parametrize("name", ["x.pbm", "x.ppm"])
+@pytest.mark.parametrize("tuple_type", [None, b"GRAYSCALE", b"RGB",
+                                        b"BLACKANDWHITE"])
+@pytest.mark.parametrize("depth, maxval", [
+    (1, 1), (1, 7), (1, 255), (1, 65535), (3, 1), (3, 200), (3, 65535)])
+def test_pam_through_opencv(tmp_path, name, tuple_type, depth, maxval):
+    """PAM (P7), which imageio hands to OpenCV under any name: grey and
+    colour, 8 and 16 bits, maxval 1's bits, with and without a tuple type
+    (which must match the depth): the port reads what imageio reads, to
+    the bit, and raises where it raises."""
+    rng = np.random.default_rng(depth * 100000 + maxval)
+    v = rng.integers(0, 256 if maxval == 1 else maxval + 1, (3, 11, depth))
+    data = _pam(depth, maxval, tuple_type, v.astype(
+        ">u2" if maxval > 255 else np.uint8).tobytes())
+    want, got = _both(data, tmp_path, name)
+    assert (want is None) == (got is None)
+    if want is not None:
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("data", [
+    _pam(1, 255, None, bytes(33), b"# a comment\n\n  \n"),
+    b"P7\r" + _pam(1, 255, None, bytes(33))[3:],
+    b"P7 " + _pam(1, 255, None, bytes(33))[3:],
+    _pam(1, 255, b"GRAYSCALE  ", bytes(33)),
+    _pam(1, 255, None, bytes(20)), _pam(1, 255, None, bytes(33), b"WIDTH 3\n"),
+    _pam(1, 255, None, bytes(33), b"FOO 1\n"),
+    _pam(1, 255, b"FOO", bytes(33)),
+    _pam(1, 255, None, bytes(33)).replace(b"MAXVAL 255", b"MAXVAL 0xff"),
+    _pam(1, 255, None, bytes(33)).replace(b"MAXVAL 255", b"MAXVAL 255x")],
+    ids=range(10))
+def test_pam_headers(tmp_path, data):
+    """OpenCV's PAM header: comments and blank lines, a CR after the magic
+    (a space is refused), trailing spaces, data cut short, a field twice,
+    unknown fields and tuple types, values that are not decimal."""
+    want, got = _both(data, tmp_path, "x.pbm")
+    assert (want is None) == (got is None)
+    if want is not None:
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("depth, tuple_type", [(2, b"GRAYSCALE_ALPHA"),
+                                               (4, b"RGB_ALPHA")])
+def test_pam_with_alpha_raises_naming_it(depth, tuple_type):
+    """Depths 2 and 4: OpenCV converts the first W / 2 or W / 4 pixels of
+    each row and leaves the rest of its image unset, so imageio's pixels
+    are not the file's; the port raises, naming the depth."""
+    data = _pam(depth, 255, tuple_type, bytes(33 * depth))
+    with pytest.raises(ValueError, match=f"depth {depth}"):
+        F.decode_image(data, "x.ppm")
+
+
 def test_psd_raises_naming_it():
     """imageio reads no PSD; the port says so."""
     data = (TEX / "psd_rgb_rle.psd").read_bytes()

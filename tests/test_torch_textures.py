@@ -12,9 +12,11 @@ Where the JAX texture is an (H, W, 3) float image in [0, 1] the port's is
 equal to the bit, on every key of the mesh. Where it is not (grey: imageio
 gives (H, W) and the JAX ``[..., :3]`` keeps 3 columns; grey + alpha: 2
 channels; 16-bit samples divided by 255; 1-bit grey as bool; and for TIFF:
-palette indices, planar (C, H, W), several pages, CMYK samples, float
-samples divided by 255, min-is-white levels, signed and YCbCr samples;
-for JPEG: CMYK; for PNM: int32 past 8 bits, float maps, bitmaps; for
+palette indices, planar (C, H, W), several pages and volume planes,
+CMYK and YCbCr samples at every depth, float and complex samples and
+32- and 64-bit integers divided by 255, min-is-white levels, signed
+samples, CIELab, ICCLab and ITULab codes; for JPEG: CMYK; for PNM:
+int32 past 8 bits, float maps, bitmaps, Pillow's CMYK; for
 JPEG 2000: grey, grey + alpha, 16-bit, CMYK, palette indices + alpha) the
 port's is imageio's pixels under the rule of ``texture_rgb``'s docstring
 (``ROADMAP.md`` Queue 3), and the JAX texture differs from it.
@@ -55,8 +57,10 @@ def _ids(entries):
 
 
 def _expected(entry) -> np.ndarray:
-    return EXPECTED[entry["key"]].astype(np.float32) / np.float32(
-        entry["divisor"])
+    """The texture rule: samples and divisor rounded to float64, divided
+    there, rounded to float32 (``image_files.unit_interval``)."""
+    return (EXPECTED[entry["key"]].astype(np.float64)
+            / np.float64(entry["divisor"])).astype(np.float32)
 
 
 def _write_obj(root: Path, texture: Path) -> Path:
@@ -133,7 +137,10 @@ def test_refused_texture_raises_naming_it(tmp_path, entry):
     """What neither imageio nor the port reads (a truncated GIF, WebP,
     DDS or QOI, a bad LZW code, a BMP bitfields layout or compression
     Pillow refuses, TIFF's JPEG and CCITT compressions, old-style LZW,
-    YCbCr subsampling; JPEG: hierarchical, 12-bit, a fractional sampling
+    YCbCr subsampling, SGI LogLuv, the depths and sample formats tifffile
+    cannot unpack, predictor 3 on integers or in separate tiles; Pillow's
+    PyP; OpenCV's PNM cut short or without its line feed; JPEG:
+    hierarchical, 12-bit, a fractional sampling
     ratio, lossless YCbCr, lossless without tables or arithmetic-coded,
     an arithmetic scan past Pillow's first 64 KiB; a DDS format Pillow
     refuses; every PSD; JPEG 2000: a truncated codestream or one without

@@ -8,8 +8,10 @@ written with Pillow, or by the small writers below where Pillow cannot
 write the case (16-bit colour, 2- and 4-bit grey and Adam7 PNGs; top-down,
 4-bit, run-length and bitfield BMPs; 16-bit TGAs; GIF frames with local
 tables, offsets, interlace and transparency; TIFFs in both byte orders and
-BigTIFF, with tiles, planar samples, predictors, fill order 2 and every
-compression imageio's tifffile reads; WebP containers with ALPH chunks and
+BigTIFF, with tiles, planar samples, predictors, fill order 2, every
+compression imageio's tifffile reads, every sample type of its table,
+every photometric, ImageDepth volumes; PNM, PFM and PAM for OpenCV and
+Pillow's PPM extensions; WebP containers with ALPH chunks and
 offset animation frames), by Pillow's own libwebp through ctypes for the
 lossy WebP options Pillow does not pass on (filter type and sharpness,
 token partitions, segments), by Pillow's own OpenJPEG through ctypes for
@@ -19,15 +21,17 @@ quantization table, sampling factors or frame marker). Each file is then
 read back with ``imageio.v2.imread``, as the JAX package's
 ``apps/retarget._find_texture`` reads it, and ``MANIFEST.json`` records
 per file its format facts and the expected texture: where imageio's array
-is an RGB image (8-bit samples, 3 or 4 channels) the JAX function's own
-``/ 255`` then ``[..., :3]``; elsewhere the port's defined result (grey
-replicated to RGB, alpha dropped, a sample of d bits divided by 2^d - 1).
-The expected textures of the small files are ``expected.npz`` (the
-samples, divided by the manifest's ``divisor``); those of the 1024 x 1024
-files (JPEG baseline and progressive, GIF, TIFF LZW, WebP lossless and
-lossy) a SHA-256 of imageio's uint8 pixels. Every file imageio reads also
-records the SHA-256 of imageio's array (``imageio_sha256``), and the
-manifest records the versions of the tools that made it. Files the port
+is an RGB image (8-bit samples, 3 channels or more) the JAX function's
+own ``/ 255`` then ``[..., :3]``; elsewhere the port's defined result
+(grey replicated to RGB, alpha dropped, a sample of d bits divided by
+2^d - 1 in float64 and then rounded to float32; the rules of
+``expected``). The expected textures of the small files are
+``expected.npz`` (the samples, to be divided by the manifest's
+``divisor`` in float64 and rounded to float32); those of the 1024 x 1024
+files a SHA-256 of the port's samples (imageio's pixels under the
+rule). Every file imageio reads also records the SHA-256 of imageio's
+array (``imageio_sha256``), and the manifest records the versions of the
+tools that made it. Files the port
 must refuse carry the word its ``ValueError`` names instead, and what
 imageio's own refusal of them says.
 Deterministic: a second run writes the same bytes.
@@ -508,10 +512,13 @@ TIFF_COMPRESS = {1: lambda b: b, 5: lzw_tiff, 8: lambda b: zlib.compress(b, 9),
 def tiff_file(samples, photometric, order="<", big=False, compression=1,
               planar=1, predictor=1, rows_per_strip=None, tile=None,
               colormap=None, bits=None, sample_format=1, extra=(),
-              fillorder=1, extra_tags=()):
+              fillorder=1, extra_tags=(), depth=1):
     """A TIFF of (H, W, S) samples: classic or BigTIFF, either byte order,
     strips or tiles, either planar configuration, predictor 1, 2 or 3, a
-    colour map, samples of 1, 2 or 4 bits (``bits``, packed per row)."""
+    colour map, samples of any width (``bits``, packed per row, the most
+    significant bit first) or packed RGB (``bits`` a tuple such as (5, 6,
+    5), one integer a pixel), an SGI ``ImageDepth`` (``depth`` planes of
+    H / depth rows, one after the other)."""
     H, W, S = samples.shape
     dt = samples.dtype
     bits = bits or dt.itemsize * 8
@@ -530,15 +537,22 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
             diff = by.copy()
             diff[:, c:] = by[:, c:] - by[:, :-c]
             raw = diff.tobytes()
-        elif bits < 8:
-            v = block.reshape(h, w * c).astype(np.uint8)
-            b = (v[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+        elif isinstance(bits, tuple):   # packed RGB, one integer a pixel
+            v = np.zeros((h, w), np.uint32)
+            for i, b in enumerate(bits):
+                v = (v << b) | block[..., i].astype(np.uint32)
+            raw = v.astype(order + ("u2" if sum(bits) <= 16 else "u4")
+                           ).tobytes()
+        elif bits != 8 * item:        # most significant bit first
+            v = block.reshape(h, w * c).astype(np.uint64)
+            b = (v[..., None] >> np.arange(bits - 1, -1, -1, dtype=np.uint64)
+                 ) & np.uint64(1)
             raw = np.packbits(b.reshape(h, w * c * bits).astype(np.uint8),
                               axis=1).tobytes()
         else:
             raw = np.ascontiguousarray(block).astype(
                 order + dt.str[1:]).tobytes()
-        raw = TIFF_COMPRESS[compression](raw)
+        raw = TIFF_COMPRESS.get(compression, lambda b: b)(raw)
         if fillorder == 2:     # the bits of the stored bytes reversed
             raw = bytes(int(f"{x:08b}"[::-1], 2) for x in raw)
         return raw
@@ -567,15 +581,19 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
         data += b
         if len(data) % 2:
             data.append(0)
-    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bits] * S),
+    tags = [(256, 4, [W]), (257, 4, [H // depth]),
+            (258, 3, list(bits) if isinstance(bits, tuple) else [bits] * S),
             (259, 3, [compression]), (262, 3, [photometric]),
             (277, 3, [S]), (284, 3, [planar])]
     if fillorder != 1:
         tags.append((266, 3, [fillorder]))
+    if depth != 1:
+        tags.append((32997, 4, [depth]))
     if predictor != 1:
         tags.append((317, 3, [predictor]))
     if sample_format != 1:
-        tags.append((339, 3, [sample_format] * S))
+        tags.append((339, 3, list(sample_format) if isinstance(
+            sample_format, tuple) else [sample_format] * S))
     if extra:
         tags.append((338, 3, list(extra)))
     if colormap is not None:
@@ -590,7 +608,7 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
                  (325, cnt_type, [len(b) for b in blocks])]
     tags += list(extra_tags)
     tags.sort()
-    fmt = {3: "H", 4: "I", 5: "I", 16: "Q"}     # a rational: two "I"
+    fmt = {3: "H", 4: "I", 5: "I", 10: "i", 16: "Q"}   # a rational: two
     ifd_at = first + len(data)
     entry, inline = (20, 8) if big else (12, 4)
     ifd_size = (8 if big else 2) + entry * len(tags) + (8 if big else 4)
@@ -599,7 +617,7 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
     for code, kind, values in tags:
         body = struct.pack(order + fmt[kind] * len(values), *values)
         head = struct.pack(order + "HH" + ("Q" if big else "I"), code, kind,
-                           len(values) // (2 if kind == 5 else 1))
+                           len(values) // (2 if kind in (5, 10) else 1))
         if len(body) <= inline:
             ifd += head + body + bytes(inline - len(body))
         else:
@@ -2706,59 +2724,507 @@ def cases():
     add("jp2_1024_97_mct.jp2", pil_bytes(bg, "JPEG2000", irreversible=True,
                                          mct=1), wavelet="9/7", mct="ICT",
         large=True)
+    tiff_sample_cases(add)
+    pnm_cases(add)
     return out
+
+
+# ---------------------------------------------- TIFF samples and Lab, PNM
+# sRGB (D65) -> XYZ (D50) by Bradford, the inverse of the port's stated
+# Lab rule's matrix, to make Lab fixtures of the synthetic textures
+SRGB_TO_XYZ = np.array([[0.43604125161605095, 0.38511291079815546,
+                         0.1430458375857936],
+                        [0.2224845402294774, 0.7169050786084573,
+                         0.06061038116206523],
+                        [0.01392018747137537, 0.09706723869712398,
+                         0.7139125738315005]])
+D50 = (0.9642, 1.0, 0.8249)
+XYZ_TO_SRGB = ((3.134186364236819, -1.6172089589982752, -0.49069406400638405),
+               (-0.9787485041906941, 1.9161300967735873, 0.03343339915999557),
+               (0.07196392780224675, -0.22899387345320327, 1.4057537328964445))
+
+
+def srgb_to_lab(rgb):
+    """uint8 sRGB -> CIE L*a*b* (D50) float64."""
+    c = rgb.astype(np.float64) / 255.0
+    lin = np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+    xyz = lin @ SRGB_TO_XYZ.T / np.array(D50)
+    f = np.where(xyz > (6 / 29) ** 3, np.cbrt(xyz),
+                 xyz / (3 * (6 / 29) ** 2) + 4 / 29)
+    return np.stack([116 * f[..., 1] - 16, 500 * (f[..., 0] - f[..., 1]),
+                     200 * (f[..., 1] - f[..., 2])], -1)
+
+
+def lab_rule(lab):
+    """The port's stated Lab rule (``viz/tiff.lab_to_rgb``): L*a*b* (D50)
+    -> XYZ by CIE 1976's inverse -> linear sRGB (the matrix of
+    ``viz/tiff.XYZ_TO_SRGB``, each row's products summed left to right) ->
+    clipped, sRGB-encoded, times 255, rounded half to even."""
+    fy = (lab[..., 0] + 16.0) / 116.0
+    fs = (fy + lab[..., 1] / 500.0, fy, fy - lab[..., 2] / 200.0)
+    xyz = [np.where(f > 6.0 / 29.0, f * f * f,
+                    3.0 * (6.0 / 29.0) ** 2 * (f - 4.0 / 29.0)) * w
+           for f, w in zip(fs, D50)]
+    out = []
+    for m in XYZ_TO_SRGB:
+        lin = np.clip(m[0] * xyz[0] + m[1] * xyz[1] + m[2] * xyz[2], 0, 1)
+        enc = np.where(lin <= 0.0031308, 12.92 * lin,
+                       1.055 * lin ** (1.0 / 2.4) - 0.055)
+        out.append(np.rint(enc * 255.0))
+    return np.stack(out, -1).astype(np.uint8)
+
+
+def lab_codes(lab, photometric, bits):
+    """L*a*b* -> (H, W, 3) stored samples of a CIELab (8: a*, b* two's
+    complement, over 2^(bits-8)), ICCLab (9: a* + 128 on the 8-bit scale)
+    or ITULab (10: the default Decode ranges) file of ``bits`` bits."""
+    top = (1 << bits) - 1
+    dt = np.uint8 if bits == 8 else np.uint16
+    L = np.rint(lab[..., 0] / 100 * top)
+    if photometric == 8:
+        ab = np.rint(lab[..., 1:] * (1 << (bits - 8)))
+        ab = ab.clip(-(1 << (bits - 1)), (1 << (bits - 1)) - 1).astype(
+            np.int64) & top
+    elif photometric == 9:
+        ab = np.rint((lab[..., 1:] + 128) / 255 * top)
+    else:
+        lo, hi = np.array([-85.0, -75.0]), np.array([85.0, 125.0])
+        ab = np.rint((lab[..., 1:] - lo) / (hi - lo) * top)
+    return np.dstack([L, ab]).clip(0, top).astype(dt)
+
+
+def lab_from_codes(arr, photometric, bits, decode=None):
+    """A Lab file's samples as imageio gives them -> L*a*b*, as the TIFF
+    specifications encode it (the rule's reading: ``viz/tiff.py``)."""
+    u = arr.astype(np.int64) & ((1 << bits) - 1)
+    t = u / float((1 << bits) - 1)
+    n = 3 if arr.ndim == 3 and arr.shape[-1] >= 3 else 1
+    if arr.ndim == 2:
+        t, u = t[..., None], u[..., None]
+    lab = np.zeros(t.shape[:-1] + (3,))
+    if photometric == 10:
+        rng = decode or (0.0, 100.0, -85.0, 85.0, -75.0, 125.0)
+        for c in range(n):
+            lab[..., c] = rng[2 * c] + t[..., c] * (rng[2 * c + 1]
+                                                    - rng[2 * c])
+        return lab
+    lab[..., 0] = 100.0 * t[..., 0]
+    if n == 3 and photometric == 8:
+        s = np.where(u[..., 1:3] >= 1 << (bits - 1), u[..., 1:3] - (1 << bits),
+                     u[..., 1:3])
+        lab[..., 1:] = s / float(1 << (bits - 8))
+    elif n == 3:
+        lab[..., 1:] = 255.0 * t[..., 1:3] - 128.0
+    return lab
+
+
+def tiff_sample_cases(add):
+    """The TIFFs of every sample type, photometric interpretation and depth
+    imageio's tifffile reads, and those it refuses."""
+    from PIL import Image
+    g = np.random.default_rng(1800)
+    rgb = textured(29, 37, 40)
+    smooth8 = smooth(29, 37, 41)
+    wide32 = rgb.astype(np.uint32) * 16843009 + g.integers(
+        0, 1 << 24, rgb.shape).astype(np.uint32)
+    add("tiff_uint32_rgb_lzw_predictor.tif", tiff_file(
+        wide32, 2, compression=5, predictor=2, rows_per_strip=8),
+        depth=32, predictor=2, rule="wide", note="imageio gives uint32")
+    add("tiff_uint32_grey_big_endian_tiles.tif", tiff_file(
+        wide32[..., :1], 1, order=">", tile=(16, 16), compression=8),
+        depth=32, order="MM", rule="wide")
+    wide64 = rgb.astype(np.uint64) * np.uint64(0x0101010101010101) \
+        + g.integers(0, 1 << 56, rgb.shape, dtype=np.uint64)
+    add("tiff_uint64_rgb_big_endian_deflate.tif", tiff_file(
+        wide64, 2, order=">", compression=8), depth=64, order="MM",
+        rule="wide", note="the sample and 2^64 - 1 rounded to float64")
+    add("tiff_uint64_rgb_planar_predictor.tif", tiff_file(
+        wide64, 2, planar=2, predictor=2, compression=5, rows_per_strip=10),
+        depth=64, planar=2, predictor=2, rule="planar+wide")
+    s32 = (wide32.astype(np.int64) - (1 << 31)).astype(np.int32)
+    add("tiff_int32_rgb_big_endian_predictor.tif", tiff_file(
+        s32, 2, order=">", sample_format=2, predictor=2, compression=8),
+        sample_format=2, depth=32, predictor=2, rule="signed")
+    add("tiff_int32_grey_tiles.tif", tiff_file(
+        s32[..., 1:2], 1, sample_format=2, tile=(32, 16), compression=32773),
+        sample_format=2, depth=32, rule="signed")
+    s64 = (wide64 ^ np.uint64(1 << 63)).view(np.int64)
+    add("tiff_int64_grey_lzw.tif", tiff_file(
+        s64[..., :1], 1, sample_format=2, compression=5), sample_format=2,
+        depth=64, rule="signed")
+    add("tiff_int64_rgb_big_endian_planar.tif", tiff_file(
+        s64, 2, order=">", sample_format=2, planar=2), sample_format=2,
+        depth=64, planar=2, rule="planar+signed")
+    cpx = (smooth8.astype(np.float32) / 250.0 - 0.01) + 1j * g.random(
+        smooth8.shape).astype(np.float32)
+    add("tiff_complex64_grey.tif", tiff_file(
+        cpx[..., :1].astype(np.complex64), 1, sample_format=6,
+        compression=8), sample_format=6, depth=64, rule="complex",
+        note="the real part, as np.asarray(..., np.float32) keeps it")
+    add("tiff_complex128_rgb_big_endian_predictor.tif", tiff_file(
+        cpx.astype(np.complex128), 2, order=">", sample_format=6,
+        predictor=2, compression=5), sample_format=6, depth=128,
+        predictor=2, rule="complex")
+    f64 = smooth8.astype(np.float64) / 240.0 - 0.02
+    add("tiff_float64_rgb_predictor3_big_endian_raw.tif", tiff_file(
+        f64, 2, order=">", sample_format=3, predictor=3), sample_format=3,
+        depth=64, predictor=3, order="MM", rule="float",
+        note="uncompressed: tifffile swaps each sample's bytes before it "
+             "undoes the predictor")
+    add("tiff_float64_rgb_predictor3_raw.tif", tiff_file(
+        f64, 2, sample_format=3, predictor=3), sample_format=3, depth=64,
+        predictor=3, rule="float")
+    f32 = smooth(32, 32, 47).astype(np.float32) / 240.0 - 0.02
+    add("tiff_float32_tiles_predictor3_one_block.tif", tiff_file(
+        f32, 2, sample_format=3, predictor=3, tile=(32, 16)),
+        sample_format=3, predictor=3, rule="float",
+        note="tiles as wide as the image, uncompressed: one block")
+    add("tiff_float32_grey_predictor2.tif", tiff_file(
+        f64[..., :1].astype(np.float32), 1, sample_format=3, predictor=2,
+        compression=8), sample_format=3, predictor=2, rule="float")
+    p565 = np.stack([g.integers(0, 1 << b, (29, 37)) for b in (5, 6, 5)],
+                    -1).astype(np.uint8)
+    add("tiff_rgb565.tif", tiff_file(p565, 2, bits=(5, 6, 5),
+                                     compression=5), bits="5-6-5",
+        note="imageio gives uint8, each field rescaled")
+    add("tiff_rgb565_big_endian_predictor.tif", tiff_file(
+        p565, 2, order=">", bits=(5, 6, 5), predictor=2), bits="5-6-5",
+        order="MM", predictor=2, note="tifffile reads the pixels "
+                                      "little-endian")
+    grey2 = g.integers(0, 4, (29, 37, 1)).astype(np.uint8)
+    add("tiff_grey2_big_endian.tif", tiff_file(grey2, 1, order=">", bits=2,
+                                               compression=32773),
+        depth=2, rule="scale")
+    add("tiff_grey2_predictor2.tif", tiff_file(grey2, 1, bits=2,
+                                               predictor=2),
+        depth=2, predictor=2, rule="scale",
+        note="tifffile's sums wrap at 8 bits: values past 3, saturated")
+    add("tiff_bilevel_predictor2.tif", tiff_file(grey2 & 1, 1, bits=1,
+                                                 predictor=2, compression=5),
+        depth=1, predictor=2, note="tifffile ORs the bits along the row")
+    cmap2 = g.integers(0, 65536, (4, 3))
+    add("tiff_palette2_predictor2.tif", tiff_file(
+        grey2, 3, bits=2, predictor=2, colormap=cmap2), depth=2,
+        predictor=2, rule="palette", note="indices past the map black")
+    idx16 = g.integers(0, 65536, (29, 37, 1)).astype(np.uint16)
+    add("tiff_palette16.tif", tiff_file(
+        idx16, 3, colormap=g.integers(0, 65536, (65536, 3)),
+        compression=8), depth=16, rule="palette")
+    add("tiff_palette_without_colormap.tif", tiff_file(
+        rgb[..., :1], 3, compression=5), note="the indices, as grey")
+    add("tiff_rgb_predictor5.tif", tiff_file(rgb, 2, predictor=5),
+        predictor=5, note="tifffile ignores an unknown predictor")
+    # photometric interpretations
+    lab = srgb_to_lab(smooth8)
+    add("tiff_cielab_pillow.tif", pil_bytes(Image.frombytes(
+        "LAB", (37, 29), lab_codes(lab, 8, 8).tobytes()), "TIFF",
+        compression="tiff_lzw"), photometric=8, rule="lab",
+        note="Pillow's file, which Pillow opens as LAB")
+    add("tiff_cielab16_big_endian.tif", tiff_file(
+        lab_codes(lab, 8, 16), 8, order=">", compression=8), photometric=8,
+        depth=16, rule="lab")
+    add("tiff_cielab_l_only.tif", tiff_file(
+        lab_codes(lab, 8, 8)[..., :1], 8), photometric=8, rule="lab")
+    add("tiff_icclab.tif", tiff_file(lab_codes(lab, 9, 8), 9,
+                                     compression=5), photometric=9,
+        rule="lab")
+    add("tiff_icclab16_tiles.tif", tiff_file(
+        lab_codes(lab, 9, 16), 9, tile=(16, 16), compression=8),
+        photometric=9, depth=16, rule="lab")
+    add("tiff_itulab.tif", tiff_file(lab_codes(lab, 10, 8), 10,
+                                     compression=5), photometric=10,
+        rule="lab")
+    add("tiff_itulab_decode.tif", tiff_file(
+        lab_codes(lab, 10, 8), 10, extra_tags=((433, 10, [
+            0, 1, 100, 1, -100, 1, 100, 1, -100, 1, 100, 1]),)),
+        photometric=10, rule="lab", decode=[0, 100, -100, 100, -100, 100])
+    add("tiff_cielab_float32.tif", tiff_file(
+        lab.astype(np.float32) / 100, 8, sample_format=3), photometric=8,
+        sample_format=3, rule="float", note="Lab at another depth: the "
+                                            "samples")
+    add("tiff_cfa16.tif", tiff_file(
+        (smooth8[..., :1].astype(np.uint16) * 257), 32803, compression=5),
+        photometric=32803, depth=16)
+    add("tiff_linear_raw_rgb.tif", tiff_file(rgb, 34892, compression=8),
+        photometric=34892)
+    add("tiff_transparency_mask.tif", tiff_file(grey2 & 1, 4, bits=1,
+                                                compression=32773),
+        photometric=4, depth=1)
+    add("tiff_logluv_raw.tif", tiff_file(rgb, 32845), photometric=32845,
+        note="LogLuv samples without SGILog compression: as stored")
+    add("tiff_logl16.tif", tiff_file(
+        smooth8[..., 1:2].astype(np.uint16) * 200, 32844, compression=8),
+        photometric=32844, depth=16)
+    add("tiff_photometric_7.tif", tiff_file(rgb, 7), photometric=7,
+        note="a code TIFF does not define")
+    cmyk = np.asarray(Image.fromarray(smooth8).convert("CMYK"))
+    add("tiff_cmyk16_big_endian.tif", tiff_file(
+        cmyk.astype(np.uint16) * 257 + g.integers(0, 257, cmyk.shape).astype(
+            np.uint16), 5, order=">", compression=5), photometric=5,
+        depth=16, rule="cmyk", note="the high byte, then Pillow's formula")
+    add("tiff_cmyk_float32.tif", tiff_file(
+        cmyk.astype(np.float32) / 255.0, 5, sample_format=3),
+        photometric=5, sample_format=3, rule="cmyk")
+    add("tiff_cmyk4.tif", tiff_file(cmyk >> 4, 5, bits=4), photometric=5,
+        depth=4, rule="cmyk")
+    add("tiff_separated_five_inks.tif", tiff_file(
+        np.dstack([cmyk, rgb[..., :1]]), 5, compression=5,
+        extra_tags=((332, 3, [2]),)), photometric=5, inkset=2,
+        note="not CMYK: the samples")
+    add("tiff_ycbcr16.tif", tiff_file(
+        ycbcr(smooth8).astype(np.uint16) * 257, 6, compression=8,
+        extra_tags=((530, 3, [1, 1]),)), photometric=6, depth=16,
+        rule="ycbcr16")
+    add("tiff_miniswhite16.tif", tiff_file(
+        65535 - smooth8[..., :1].astype(np.uint16) * 257, 0), photometric=0,
+        depth=16, rule="miniswhite")
+    add("tiff_miniswhite_int16.tif", tiff_file(
+        (smooth8[..., :1].astype(np.int16) * 200 - 20000), 0,
+        sample_format=2, compression=5), photometric=0, sample_format=2,
+        rule="miniswhite+signed")
+    add("tiff_miniswhite_float32.tif", tiff_file(
+        f64[..., :1].astype(np.float32), 0, sample_format=3),
+        photometric=0, sample_format=3, rule="miniswhite+float")
+    add("tiff_rgb_two_samples.tif", tiff_file(rgb[..., :2], 2),
+        note="photometric RGB with two samples: grey + alpha")
+    # image depth above 1: imageio gives the volume, the port its first
+    # plane
+    vol = np.concatenate([rgb, textured(29, 37, 42), textured(29, 37, 43)])
+    add("tiff_depth3_rgb_strips.tif", tiff_file(
+        vol, 2, depth=3, rows_per_strip=10, compression=5), image_depth=3,
+        rule="depth", note="strips run on across the planes")
+    vol2 = np.concatenate([smooth8[:16, :32, :1], rgb[:16, :32, :1]])
+    add("tiff_depth2_grey_tiles.tif", tiff_file(
+        vol2, 1, depth=2, tile=(16, 16), compression=8), image_depth=2,
+        rule="depth")
+    add("tiff_depth2_rgb_planar.tif", tiff_file(
+        vol[:58], 2, depth=2, planar=2, rows_per_strip=7), image_depth=2,
+        planar=2, rule="depth_planar")
+    # imageio refuses these, and so does the port
+    for bits, dt in ((3, np.uint8), (12, np.uint16), (24, np.uint32)):
+        v = g.integers(0, 1 << bits, (29, 37, 3)).astype(dt)
+        add(f"tiff_uint{bits}_rgb.tif", tiff_file(v, 2, bits=bits,
+                                                  compression=5),
+            depth=bits, raises=f"{bits}-bit samples")
+    add("tiff_float24.tif", tiff_file(wide32 >> 8, 1, bits=24,
+                                      sample_format=3),
+        raises="sample format 3 at 24 bits")
+    add("tiff_sample_format4.tif", tiff_file(rgb, 2, sample_format=4),
+        raises="sample format 4")
+    add("tiff_sample_format5.tif", tiff_file(
+        wide32.astype(np.uint16), 2, sample_format=5),
+        raises="sample format 5")
+    add("tiff_mixed_sample_formats.tif", tiff_file(
+        rgb, 2, sample_format=(2, 1, 2)), raises="sample format")
+    add("tiff_int16_predictor3.tif", tiff_file(
+        s32.astype(np.int16), 2, sample_format=2, predictor=3),
+        raises="predictor 3")
+    add("tiff_float32_predictor3_tiles.tif", tiff_file(
+        f32, 2, sample_format=3, predictor=3, tile=(16, 16),
+        compression=8), raises="predictor 3 in tiles")
+    planar565 = bytearray(tiff_file(p565, 2, bits=(5, 6, 5)))
+    at = planar565.index(struct.pack("<HHIH", 284, 3, 1, 1))
+    planar565[at + 8] = 2
+    add("tiff_rgb565_planar.tif", bytes(planar565), bits="5-6-5",
+        planar=2, rule="planar", note="chunky data with PlanarConfiguration "
+        "2: tifffile fills the first plane with the fields in turn")
+    add("tiff_logluv_sgilog.tif", tiff_file(rgb, 32845, compression=34676),
+        raises="SGI LogLuv")
+    # the decode-time fixtures of this slice
+    bg = big()
+    add("tiff_1024_uint32_deflate_predictor.tif", tiff_file(
+        bg.astype(np.uint32) * 16843009, 2, compression=8, predictor=2,
+        rows_per_strip=64), depth=32, predictor=2, rule="wide", large=True)
+    add("tiff_1024_cielab_lzw.tif", pil_bytes(Image.frombytes(
+        "LAB", (1024, 1024), lab_codes(srgb_to_lab(bg), 8, 8).tobytes()),
+        "TIFF", compression="tiff_lzw", tiffinfo={317: 2}), photometric=8,
+        predictor=2, rule="lab", large=True)
+
+
+def pnm_cases(add):
+    """PNM files of every magic OpenCV reads under the names imageio hands
+    to it (.pbm, .pfm; PF and PAM under any name), and Pillow's PPM
+    extensions."""
+    g = np.random.default_rng(1801)
+    grey = smooth(29, 37, 44)[..., 0]
+    rgb = textured(29, 37, 45)
+    add("pbm_grey_raw_maxval100.pbm", b"P5\n37 29\n100\n" + (
+        grey // 2).astype(np.uint8).tobytes(), magic="P5", maxval=100,
+        note="OpenCV: raw samples unscaled, grey as RGB")
+    rgb16 = rgb.astype(np.uint16) * 256 + g.integers(0, 256, rgb.shape)
+    add("pbm_rgb_raw16.pbm", b"P6 37 29 65535\n" + rgb16.astype(
+        ">u2").tobytes(), magic="P6", maxval=65535,
+        note="OpenCV: the high byte")
+    grey12 = grey.astype(np.int64) * 16 + g.integers(0, 16, grey.shape)
+    add("pbm_grey_plain_maxval4095.pbm", ("P2\n# OpenCV's comment\n37 29\n"
+        "4095\n" + " ".join(str(v) for v in grey12.ravel()) + "\n"
+        ).encode(), magic="P2", maxval=4095)
+    v = (rgb.astype(np.int64) * 100 // 255).ravel()
+    v[::97] = 150                       # past the maxval: clamped
+    add("pbm_rgb_plain_maxval100.pbm", ("P3 37 29 100\n" + "\n".join(
+        " ".join(str(x) for x in v[i:i + 20]) for i in range(0, v.size, 20))
+        + "\n").encode(), magic="P3", maxval=100,
+        note="OpenCV: clamped to the maxval, v * 255 // maxval")
+    add("pfm_rgb_raw.pfm", b"P6\n37 29\n255\n" + rgb.tobytes(),
+        magic="P6")
+    add("pbm_bitmap_plain_digits.pbm", b"P1\n37 29\n" + (
+        48 + g.integers(0, 10, 37 * 29) * g.integers(0, 2, 37 * 29)).astype(
+            np.uint8).tobytes() + b"\n", magic="P1",
+        note="OpenCV: one digit a pixel, any nonzero one black")
+    fmap = (smooth(29, 37, 46).astype(np.float32) / 200.0 - 0.1)
+    add("pbm_float_grey.pbm", b"Pf\n37 29\n-0.5\n" + (fmap[::-1, :, 0] * 100)
+        .astype("<f4").tobytes(), magic="Pf", note="OpenCV's float map")
+    add("ppm_float_colour.ppm", b"PF\n37 29\n3\n" + (fmap[::-1] * 700)
+        .astype(">f4").tobytes(), magic="PF",
+        note="PF, which Pillow does not read: OpenCV, whatever the name")
+    cmyk = np.dstack([rgb, grey])
+    add("pnm_p0cmyk.pnm", b"P0CMYK\n37 29\n255\n" + cmyk.tobytes(),
+        magic="P0CMYK", rule="cmyk")
+    add("ppm_pycmyk_maxval100.ppm", b"PyCMYK\n37 29\n100\n" + (
+        cmyk.astype(np.int64) * 100 // 255).astype(np.uint8).tobytes(),
+        magic="PyCMYK", maxval=100, rule="cmyk")
+    add("pbm_pyrgba.pbm", b"PyRGBA 37 29 255\n" + cmyk.tobytes(),
+        magic="PyRGBA", note="OpenCV knows no PyRGBA: Pillow reads it")
+    # PAM, which only OpenCV reads, whatever the name
+    pam = b"P7\nWIDTH 37\nHEIGHT 29\nDEPTH %d\nMAXVAL %d\n%sENDHDR\n"
+    add("pam_rgb.ppm", pam % (3, 255, b"# no tuple type\n") + rgb.tobytes(),
+        magic="P7", note="OpenCV reads the samples as BGR: imageio's RGB "
+                         "is reversed")
+    add("pam_grey16.pgm", pam % (1, 65535, b"TUPLTYPE GRAYSCALE\n")
+        + (grey.astype(np.uint16) * 257).astype(">u2").tobytes(),
+        magic="P7", maxval=65535, note="the high byte, as RGB")
+    add("pam_bits.pbm", pam % (1, 1, b"TUPLTYPE BLACKANDWHITE\n")
+        + g.integers(0, 256, (29, 37)).astype(np.uint8).tobytes(),
+        magic="P7", maxval=1, note="each row's first 37 bits, 1 white")
+    # imageio refuses these, and so does the port
+    add("ppm_pyp.ppm", b"PyP\n37 29\n255\n" + grey.tobytes(),
+        raises="PyP")
+    add("pbm_plain_maxval1000_unterminated.pbm", b"P2\n2 1\n1000\n5 999",
+        raises="past the end", note="OpenCV reads a byte past the last "
+                                    "number")
+    add("pfm_without_line_feed.pfm", b"Pf 37 29 -1.0\n" + fmap[..., 0]
+        .astype("<f4").tobytes(), raises="line feed")
+
+
+def tiff_page(path):
+    """(bits, photometric, Decode ranges or None) of a TIFF's first page as
+    imageio's tifffile reads them; None for another format."""
+    from imageio.plugins import _tifffile
+    if path is None or not str(path).lower().endswith(".tif"):
+        return None
+    with _tifffile.TiffFile(str(path)) as t:
+        page = t.pages[0]
+        tag = page.tags.get("Decode")
+        decode = None if tag is None else [
+            tag.value[i] / tag.value[i + 1] for i in range(0, 12, 2)]
+        return page.bitspersample, int(page.photometric), decode
+
+
+def unit(u, bits):
+    """The stated rule of an integer sample: the value and 2^bits - 1
+    rounded to float64, divided there, rounded to float32."""
+    return (u.astype(np.float64) / float((1 << bits) - 1)).astype(np.float32)
+
+
+def to_8bit(arr, bits):
+    """Inks made 8-bit for the CMYK and YCbCr rules: 1, 2 and 4 bits
+    scaled, wider unsigned samples their high byte, float ones clipped,
+    times 255 and truncated."""
+    if arr.dtype.kind == "f":
+        return (np.clip(np.nan_to_num(arr.astype(np.float32)), 0, 1)
+                * 255).astype(np.uint8)
+    if bits < 8:
+        return arr * np.uint8(255 // ((1 << bits) - 1))
+    return (arr >> (8 * arr.dtype.itemsize - 8)).astype(np.uint8)
 
 
 def expected(arr, rule=None, path=None):
     """imageio's array -> (the port's texture samples (H, W, 3), divisor,
     whether the JAX texture is the image's RGB). Without a rule, where
-    imageio's array is 8-bit RGB(A) the JAX function's own ``/ 255`` then
-    ``[..., :3]``; elsewhere grey is replicated, alpha dropped, a sample of
-    d bits divided by 2^d - 1 (bool: 0 or 1). The rules of the TIFF cases
-    that are not RGB images for the JAX function: ``planar`` (S, H, W) is
-    read as (H, W, S); ``pages``: the first page; ``palette``: the indices
-    through the file's colour map (as imageio's tifffile reads it), / 65535;
-    ``cmyk``: Pillow's ``convert("RGB")`` (of a TIFF's or a JPEG's CMYK);
-    ``float``: clipped to [0, 1] (NaN as 0); ``miniswhite``: inverted;
-    ``scale``: 4-bit samples scaled to 8 bits; ``signed``: offset by
-    2^(d-1), divided by 2^d - 1; ``ycbcr``: Pillow's open and
-    ``convert("RGB")``, which is libtiff's ``TIFFYCbCrToRGB``. Without a
-    rule an int32 array (Pillow's mode "I" of a PGM past 8 bits, 0-65535)
-    is divided by 65535."""
-    well = rule is None and arr.ndim == 3 and arr.shape[-1] in (3, 4) \
+    imageio's array is 8-bit with 3 or more channels the JAX function's
+    own ``/ 255`` then ``[..., :3]``; elsewhere grey is replicated, alpha
+    dropped, a sample of d bits divided by 2^d - 1 (bool: 0 or 1). The
+    rules of the cases that are not RGB images for the JAX function, one
+    or several joined by ``+``, in order: ``planar`` (S, H, W) is read as
+    (H, W, S); ``pages``: the first page; ``depth``: the first plane of a
+    (D, H, W, S) volume, ``depth_planar`` of an (S, D, H, W) one;
+    ``palette``: the indices through the file's colour map (as imageio's
+    tifffile reads it; indices past it black), / 65535; ``cmyk``: the inks
+    made 8-bit (``to_8bit``), then Pillow's ``convert("RGB")`` (of a TIFF's,
+    a JPEG's or a PNM's CMYK); ``float``: clipped to [0, 1] (NaN as 0);
+    ``complex``: the real part, then ``float``; ``miniswhite``: inverted
+    (2^d - 1 - v, a signed sample's bits flipped, 1 - x); ``scale``: 1-,
+    2- and 4-bit samples saturated at 2^d - 1 and scaled to 8 bits;
+    ``signed``: offset by 2^(d-1), divided by 2^d - 1 (past 16 bits by
+    ``unit``); ``wide``: 32- and 64-bit unsigned samples by ``unit``;
+    ``ycbcr``: Pillow's open and ``convert("RGB")``, which is libtiff's
+    ``TIFFYCbCrToRGB``; ``ycbcr16``: the same of the samples' high bytes;
+    ``lab``: the Lab rule of the samples as their photometric encodes them.
+    Without a rule an int32 array (Pillow's mode "I" of a PGM past 8 bits,
+    0-65535) is divided by 65535. The divisor is 1 where the rule has
+    already divided."""
+    well = rule is None and arr.ndim == 3 and arr.shape[-1] >= 3 \
         and arr.dtype == np.uint8
-    if rule == "planar":
-        arr = np.moveaxis(arr, 0, -1)
-    elif rule == "pages":
-        arr = arr[0]
-    elif rule == "palette":
-        from imageio.plugins import _tifffile
-        with _tifffile.TiffFile(str(path)) as t:
-            cmap = np.asarray(t.pages[0].colormap, np.uint16)
-        return np.ascontiguousarray(cmap.T[arr]), 65535, False
-    elif rule == "cmyk":
-        from PIL import Image
-        rgb = np.asarray(Image.fromarray(arr, "CMYK").convert("RGB"))
-        return rgb, 255, False
-    elif rule == "ycbcr":
-        from PIL import Image
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB")), 255, False
-    elif rule == "signed":
-        bits = 8 * arr.dtype.itemsize
-        arr = (arr.astype(np.int64) + (1 << (bits - 1))).astype(
-            np.uint8 if bits == 8 else np.uint16)
-    elif rule == "float":
+    page = tiff_page(path)
+    bits = page[0] if page and isinstance(page[0], int) else \
+        8 * arr.dtype.itemsize
+    divisor = None
+    for r in (rule or "").split("+"):
+        if r == "planar":
+            arr = np.moveaxis(arr, 0, -1)
+        elif r == "pages":
+            arr = arr[0]
+        elif r == "depth":
+            arr = arr[0]
+        elif r == "depth_planar":
+            arr = np.moveaxis(arr[:, 0], 0, -1)
+        elif r == "palette":
+            from imageio.plugins import _tifffile
+            with _tifffile.TiffFile(str(path)) as t:
+                cmap = np.asarray(t.pages[0].colormap, np.uint16)
+            lut = np.zeros((256 if bits <= 8 else 65536, 3), np.uint16)
+            lut[:cmap.shape[1]] = cmap.T
+            return np.ascontiguousarray(lut[arr]), 65535, False
+        elif r == "cmyk":
+            from PIL import Image
+            ink = np.ascontiguousarray(to_8bit(arr, bits)[..., :4])
+            return np.asarray(Image.fromarray(ink, "CMYK").convert(
+                "RGB")), 255, False
+        elif r in ("ycbcr", "ycbcr16"):
+            from PIL import Image
+            if r == "ycbcr16":
+                path = io.BytesIO(tiff_file(    # LZW: libtiff's decoder
+                    to_8bit(arr, bits), 6, compression=5,
+                    extra_tags=((530, 3, [1, 1]),)))
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB")), 255, False
+        elif r == "lab":
+            lab = lab_from_codes(arr, page[1], bits, page[2])
+            return lab_rule(lab), 255, False
+        elif r == "complex":
+            arr = arr.real.astype(np.float32)
+        elif r == "miniswhite":
+            if arr.dtype == np.bool_ or arr.dtype.kind == "i":
+                arr = ~arr
+            elif arr.dtype.kind == "f":
+                arr = np.float32(1) - arr.astype(np.float32)
+            else:
+                top = (1 << bits) - 1
+                arr = arr.dtype.type(top) - arr
+        elif r == "scale":
+            top = (1 << bits) - 1
+            arr = np.minimum(arr, np.uint8(top)) * np.uint8(255 // top)
+        elif r == "signed":
+            d = 8 * arr.dtype.itemsize
+            u = arr.view(arr.dtype.str.replace("i", "u")) ^ arr.dtype.type(
+                -1 << (d - 1)).view(arr.dtype.str.replace("i", "u"))
+            arr = u if d <= 16 else unit(u, d)
+        elif r == "wide":
+            arr = unit(arr, 8 * arr.dtype.itemsize)
+    if arr.dtype.kind == "f":
         arr = np.clip(np.nan_to_num(arr, nan=0.0), 0, 1).astype(np.float32)
-        arr = arr if arr.ndim == 3 else arr[..., None]
-        rgb = arr[..., :3] if arr.shape[-1] >= 3 else np.repeat(arr[..., :1],
-                                                                3, -1)
-        return np.ascontiguousarray(rgb), 1, False
-    elif rule == "miniswhite":
-        arr = ~arr if arr.dtype == np.bool_ else 255 - arr
-    elif rule == "scale":
-        arr = arr * np.uint8(17)
-    if arr.dtype == np.bool_:
+        divisor = 1
+    elif arr.dtype == np.bool_:
         arr, divisor = arr.astype(np.uint8), 1
     else:
         divisor = 65535 if arr.dtype in (np.uint16, np.int32) else 255
@@ -2798,7 +3264,8 @@ def main() -> int:
             try:
                 imageio.imread(HERE / name)
             except Exception as e:     # what imageio's refusal says
-                entry["imageio_refuses"] = f"{type(e).__name__}: {e}"
+                entry["imageio_refuses"] = f"{type(e).__name__}: {e}" \
+                    .replace(f"{HERE}/", "")     # the message, not the path
             else:
                 raise AssertionError(f"imageio reads {name}, which the "
                                      "port must refuse")
