@@ -153,7 +153,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (baseline and progressive 4:2:0 JPEG, arithmetic sequential and
     progressive 4:2:0 JPEG, CMYK JPEG, GIF, TIFF LZW, WebP lossless and
     lossy, BC1 and BC7 DDS, QOI, JPEG 2000 5/3 and 9/7 with ICT, TIFF of
-    32-bit unsigned samples with predictor 2 and 8-bit CIELab);
+    32-bit unsigned samples with predictor 2 and 8-bit CIELab); then
+    imageio's OpenCV route: every fixture and the Radiance HDR and Sun
+    raster fixtures copied under ``.pbm`` and ``.hdr`` (and the latter
+    under ``.ras``, ``.png``, an unknown name and ``.sr``) in a temporary
+    directory and read by ``read_image``, each equal to the manifest's
+    digest of imageio's array or refused where imageio refuses it (the
+    CCITT and SGILog TIFFs refused by name, their decoders queued; content
+    OpenCV does not take read as under its own name), and the host ms of a
+    1024 x 1024 run-length Radiance HDR and a 1024 x 1024 16-bit RGB PNG
+    under ``.pbm``;
     then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
@@ -4286,11 +4295,83 @@ TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
                  "jp2_1024_53.jp2", "jp2_1024_97_mct.jp2",
                  "tiff_1024_uint32_deflate_predictor.tif",
                  "tiff_1024_cielab_lzw.tif")
+# timed on imageio's OpenCV route: a fixture, and a 16-bit PNG this script
+# writes (_png16), each read under a .pbm name
+ROUTE_TIMED = ("hdr_1024_rle.hdr", "png_1024_rgb16")
+# OpenCV's libtiff decodes these; the port refuses them by name, its
+# decoders for them queued
+ROUTE_QUEUED = ("tiff_ccitt_g4.tif", "tiff_logluv_sgilog.tif")
 RENDER_GEN_SAMPLES = 1     # generated samples rendered of the apps' 3
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
 RENDER_WEBP = "webp_1024_lossless.webp"    # the WebP-textured retarget set
 WEBP_SET_RES = 28                           # its sphere: 4 * 28^2 faces
+
+
+def _png16(n=1024):
+    """(a 16-bit RGB PNG of a smooth n x n image, its samples): rows
+    unfiltered, zlib at level 6."""
+    import struct
+    import zlib
+
+    from neural_marionette_tpu_torch.viz.image_files import (PNG_SIGNATURE,
+                                                             _chunk)
+    y, x = np.mgrid[0:n, 0:n].astype(np.float64)
+    rgb = np.stack([32767 + 30000 * np.sin(x / 37.0) * np.cos(y / 23.0),
+                    32767 + 25000 * np.sin((x + 2 * y) / 51.0),
+                    32767 + 30000 * np.cos(np.hypot(x - 500, y - 400) / 29.0)],
+                   -1).astype(">u2")
+    rows = np.zeros((n, 1 + 6 * n), np.uint8)
+    rows[:, 1:] = rgb.view(np.uint8).reshape(n, 6 * n)
+    data = (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", n, n, 16, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+    return data, rgb.astype(np.uint16)
+
+
+def _route_check(manifest, decode_image, read_image):
+    """imageio's OpenCV route on every fixture (see ``phase_textures``):
+    (reads equal to the manifest, refusals, queued refusals, reads of
+    content OpenCV does not take equal to the fixture's own)."""
+    import hashlib
+    equal = refused = queued = own = 0
+    for e in manifest["files"] + manifest["route_files"]:
+        data = (TEXTURES / e["file"]).read_bytes()
+        for ext, want in (e.get("opencv_route") or e["reads"]).items():
+            name = "texture" + ext
+            try:
+                got = decode_image(data, name)
+            except ValueError as err:
+                if e["file"] in ROUTE_QUEUED and "queued" in str(err):
+                    queued += 1
+                    continue
+                if "raises" not in want:
+                    raise AssertionError(f"textures route {e['file']} as "
+                                         f"{ext}: {err}") from None
+                refused += 1
+                continue
+            if "raises" in want:
+                raise AssertionError(f"textures route {e['file']} as {ext}: "
+                                     "read; imageio refuses it")
+            if "opencv_route" in e and not want["opencv_reads"]:
+                # Pillow's content: read as under its own name
+                if not np.array_equal(got, read_image(str(TEXTURES
+                                                          / e["file"]))):
+                    raise AssertionError(f"textures route {e['file']} as "
+                                         f"{ext}: not its own reading")
+                own += 1
+                continue
+            # a bitmap: Pillow's bool array holds bytes 0 and 255, as the
+            # port's uint8 does
+            dtype = want["dtype"].replace("bool", "uint8")
+            digest = hashlib.sha256(got.tobytes()).hexdigest()
+            if got.size != int(np.prod(want["shape"])) \
+                    or str(got.dtype) != dtype or digest != want["sha256"]:
+                raise AssertionError(f"textures route {e['file']} as {ext}: "
+                                     "differs from the manifest")
+            equal += 1
+    return equal, refused, queued, own
 
 
 def _texture_expected(entry, arrays):
@@ -4310,15 +4391,24 @@ def phase_textures(card, reps=11):
     equal to the bit to ``expected.npz``, or the SHA-256 of the 1024 x
     1024 files' samples; a refused file must raise ``ValueError`` naming
     what it is.
+    Then imageio's OpenCV route (``_route_check``): every fixture copied
+    under ``.pbm`` and ``.hdr`` and the Radiance HDR and Sun raster
+    fixtures under the names of ``MANIFEST.json``'s ``route_files``, read
+    by ``decode_image``: equal to the digest of imageio's array, or
+    refused where imageio refuses (``ROUTE_QUEUED`` refused by name), or,
+    where OpenCV does not take the content, equal to the file's reading
+    under its own name.
     Then each 1024 x 1024 file's decode time on the host (p50 and min of
     ``reps`` calls of ``image_files.decode_image`` on the file's bytes, and
-    of ``read_image`` with the file read)."""
+    of ``read_image`` with the file read), and those of ``ROUTE_TIMED``
+    under a ``.pbm`` name (the PNG checked: its samples' high bytes)."""
     import hashlib
     from neural_marionette_tpu_torch.apps.retarget import texture_rgb
     from neural_marionette_tpu_torch.viz.image_files import (
         decode_image, image_format, read_image)
     t_phase = time.perf_counter()
-    manifest = json.loads((TEXTURES / "MANIFEST.json").read_text())["files"]
+    full = json.loads((TEXTURES / "MANIFEST.json").read_text())
+    manifest = full["files"]
     with np.load(TEXTURES / "expected.npz") as npz:
         arrays = {k: npz[k] for k in npz.files}
     checked, refused, per_format = 0, 0, {}
@@ -4354,6 +4444,30 @@ def phase_textures(card, reps=11):
         checked += 1
         per_format[fmt]["checked"] += 1
     check_s = time.perf_counter() - t_phase
+    t_route = time.perf_counter()
+    route = dict(zip(("equal", "refused", "queued", "own"),
+                     _route_check(full, decode_image, read_image)))
+    route["check_s"] = time.perf_counter() - t_route
+    png16, samples16 = _png16()
+    timed_route = {}
+    for name in ROUTE_TIMED:
+        data = png16 if name == "png_1024_rgb16" else \
+            (TEXTURES / name).read_bytes()
+        decode = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            img = decode_image(data, name.rsplit(".", 1)[0] + ".pbm")
+            decode.append((time.perf_counter() - t0) * 1e3)
+        if name == "png_1024_rgb16" and not np.array_equal(
+                img, (samples16 >> 8).astype(np.uint8)):
+            raise AssertionError("textures route: the 16-bit PNG under .pbm "
+                                 "is not its samples' high bytes")
+        timed_route[name] = {
+            "format": image_format(data, name), "bytes": len(data),
+            "pixels": int(img.shape[0] * img.shape[1]), "as": ".pbm",
+            "decode_ms_p50": float(np.median(decode)),
+            "decode_ms_min": float(np.min(decode)), "reps": reps}
+    route["decode"] = timed_route
     times = {}
     for name in TEXTURE_TIMED:
         data = (TEXTURES / name).read_bytes()
@@ -4373,12 +4487,16 @@ def phase_textures(card, reps=11):
             "read_image_ms_p50": float(np.median(read)), "reps": reps}
     out = {"card": card, "checked": checked, "refused": refused,
            "fixtures": len(manifest), "per_format": per_format,
-           "decode": times, "check_s": check_s,
+           "decode": times, "check_s": check_s, "opencv_route": route,
            "phase_s": time.perf_counter() - t_phase}
     log(f"[textures] {checked} fixtures equal to the manifest, {refused} "
         "refused as it names; 1024 x 1024 decode p50 (min) on the host: "
         + ", ".join(f"{n} {t['decode_ms_p50']:.2f} ({t['decode_ms_min']:.2f})"
                     " ms" for n, t in times.items())
+        + f"; OpenCV route {route['equal']} equal, {route['refused']} "
+        f"refused, {route['queued']} queued, {route['own']} as their own; "
+        + ", ".join(f"{n} as .pbm {t['decode_ms_p50']:.2f} ms"
+                    for n, t in timed_route.items())
         + f" ({card}); phase {out['phase_s']:.1f} s")
     return out
 

@@ -96,9 +96,13 @@ def _find_texture(mtl_path: str):
     [0, 1]; None when the file is absent or declares no texture, and, with
     a warning, when the declared image is missing (the JAX function's
     None). The image is read by ``viz.image_files.read_image`` (PNG, JPEG,
-    BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM, JPEG 2000); a file that is
-    present but cannot be read (a PSD, which imageio does not read either,
-    or an AVIF) raises ``ValueError``."""
+    BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM, Sun raster, Radiance HDR,
+    JPEG 2000), by the plugin imageio picks for the file's name and
+    content: under ``.pbm``, ``.hdr`` and OpenCV's other names, and for
+    Radiance HDR under any name, as OpenCV reads it, which gives (H, W, 3)
+    uint8 RGB and so a texture equal to the JAX one. A file that is present
+    but cannot be read (a PSD, which imageio does not read either, an
+    AVIF, an OpenEXR) raises ``ValueError``."""
     if not os.path.exists(mtl_path):
         return None
     tex_file = None

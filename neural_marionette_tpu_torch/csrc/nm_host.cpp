@@ -20,6 +20,10 @@
 //   * nm_gif_unlzw      — decode one GIF frame's LZW code stream
 //   * nm_tiff_unlzw / nm_packbits — TIFF's LZW (MSB first, early change)
 //                          and PackBits strips, as tifffile decodes them
+//   * nm_tiff_unlzw_compat — old-style TIFF LZW (LSB first, no early
+//                          change), as libtiff's LZWDecodeCompat reads it
+//   * nm_hdr_unrle      — the scanlines of a Radiance HDR file, as the
+//                          RGBE reader of OpenCV's HdrDecoder reads them
 //   * nm_bmp_unrle      — a BI_RLE8 / BI_RLE4 BMP, as Pillow expands it
 //   * nm_qoi_decode     — a QOI image's ops, as Pillow's QoiDecoder reads
 //                          them
@@ -30,7 +34,8 @@
 //                          3 does by default: its integer IDCT, block
 //                          smoothing, fancy upsampling, colour tables and
 //                          colour space guess, so the pixels equal
-//                          Pillow's
+//                          Pillow's (or, whole, with none of the limits
+//                          of Pillow's feed: OpenCV's)
 //
 // Exposed with C linkage for ctypes. Nothing throws across that boundary:
 // the JPEG entry points return an error code and write a message.
@@ -562,6 +567,10 @@ class Decoder {
     }
   }
 
+  // Whether libjpeg holds the whole file (OpenCV's source), rather than
+  // the blocks Pillow feeds it (see kFeed).
+  void set_whole(bool whole) { whole_ = whole; }
+
   // The rest of the file, then the pixels: (height, width, channels()).
   void decode(uint8_t* out) {
     for (int c = 0; c < ncomp_; ++c) {
@@ -601,7 +610,7 @@ class Decoder {
   const uint8_t* d_;
   size_t n_, pos_ = 0;
   int width_ = 0, height_ = 0, ncomp_ = 0, process_ = -1;
-  bool arith_ = false, lossless_ = false;
+  bool arith_ = false, lossless_ = false, whole_ = false;
   int hmax_ = 1, vmax_ = 1, mcusx_ = 0, mcusy_ = 0;
   Component comp_[4];
   uint16_t qt_[4][64];
@@ -926,7 +935,7 @@ class Decoder {
     if (arith_) {
       clear_stats(sc, ns, kind);
       ar_.reset(d_, n_, pos_);
-      ar_.limit = (pos_ + kFeed - 1) / kFeed * kFeed;
+      ar_.limit = whole_ ? SIZE_MAX : (pos_ + kFeed - 1) / kFeed * kFeed;
     } else {
       if (scans_ == 0 && process_ < 2) standard_tables();
       for (int i = 0; i < ns; ++i) {
@@ -1983,13 +1992,15 @@ int64_t nm_gif_unlzw(const uint8_t* src, int64_t size, int mcs, uint8_t* out,
 // decode_lzw reads it: codes MSB first, 9 bits after a clear, widening
 // one code early (at table sizes 511, 1023, 2047); the stream must start
 // with a clear code; it ends at end-of-information or once a code reaches
-// the end of src (that code unused). At most cap bytes are written.
-// Returns the bytes written, -1 when the stream does not start with a
-// clear code, -2 on a code that names no entry.
+// the end of src (that code unused). With libtiff set, as libtiff's
+// LZWDecode reads it instead: a code that fits in src is used. At most
+// cap bytes are written. Returns the bytes written, -1 when the stream
+// does not start with a clear code, or -2 - n on a code that names no
+// entry, n bytes having been written before it.
 int64_t nm_tiff_unlzw(const uint8_t* src, int64_t size, uint8_t* out,
-                      int64_t cap) {
-  if (size < 4) return -1;
-  const int64_t max_bits = size * 8;
+                      int64_t cap, int32_t libtiff) {
+  if (size < 4 && !libtiff) return -1;
+  const int64_t max_bits = size * 8 + (libtiff ? 1 : 0);
   int64_t bitpos = 0;
   auto read_code = [&](int width) {
     uint32_t v = 0;
@@ -1999,7 +2010,7 @@ int64_t nm_tiff_unlzw(const uint8_t* src, int64_t size, uint8_t* out,
     v <<= (bitpos & 7);
     return static_cast<int>(v >> (32 - width));
   };
-  if (read_code(9) != 256) return -1;
+  if (size * 8 < 9 || read_code(9) != 256) return -1;
   std::vector<int32_t> prefix(4096, -1);
   std::vector<uint8_t> suffix(4096), first(4096);
   std::vector<int32_t> length(4096, 1);
@@ -2033,11 +2044,14 @@ int64_t nm_tiff_unlzw(const uint8_t* src, int64_t size, uint8_t* out,
       width = 9;
       code = read_code(width);
       bitpos += width;
-      if (code == 257) break;
-      if (code >= 256) return -2;      // a fresh table holds only bytes
+      if (code == 257 || (libtiff && bitpos >= max_bits)) break;
+      if (code >= 256) return -2 - written;   // a fresh table: bytes only
       emit(code);
     } else {
-      if (old >= table || old >= 4096) return -2;
+      if (old >= table || old >= 4096) return -2 - written;
+      // libtiff: "Using code not yet in table"; tifffile takes any code
+      // past the table for the entry it adds
+      if (libtiff && code > table) return -2 - written;
       if (code < table) {
         add(old, first[code]);
         emit(code);
@@ -2052,6 +2066,141 @@ int64_t nm_tiff_unlzw(const uint8_t* src, int64_t size, uint8_t* out,
     else if (table == 2047) width = 12;
   }
   return written;
+}
+
+// Old-style TIFF LZW (compression 5 in files of libtiff before 5.0), as
+// libtiff's LZWDecodeCompat reads one strip or tile: codes LSB first, 9
+// bits after a clear, widening once the table reaches 512, 1024 and 2048
+// entries (no early change); it ends at end-of-information or where the
+// data runs out. At most cap bytes are written. Returns the bytes written,
+// or -2 - n on a code that names no entry (libtiff's "Corrupted LZW table"
+// and "Wrong length of decoded string"), n bytes having been written.
+int64_t nm_tiff_unlzw_compat(const uint8_t* src, int64_t size, uint8_t* out,
+                             int64_t cap) {
+  // libtiff's table holds 1024 entries past the 4096 that 12-bit codes
+  // can name (CSIZE); it fills them before it fails
+  constexpr int kTable = 4096 + 1024;
+  std::vector<int32_t> prefix(kTable, -1);
+  std::vector<uint8_t> suffix(kTable), first(kTable);
+  std::vector<int32_t> length(kTable, 0);
+  for (int i = 0; i < 256; ++i) {
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+    length[i] = 1;
+  }
+  int64_t pos = 0, written = 0, left = size * 8;
+  uint64_t bits = 0;
+  int nbits_in = 0, width = 9, table = 258, old = -1;
+  auto next = [&]() -> int {
+    if (left < width) return 257;      // not terminated: end of information
+    while (nbits_in < width) {
+      bits |= uint64_t(pos < size ? src[pos] : 0) << nbits_in;
+      ++pos;
+      nbits_in += 8;
+    }
+    const int code = static_cast<int>(bits & ((1u << width) - 1));
+    bits >>= width;
+    nbits_in -= width;
+    left -= width;
+    return code;
+  };
+  auto emit = [&](int code) {
+    const int len = length[code];
+    int c = code;
+    for (int k = len - 1; k >= 0; --k) {
+      if (written + k < cap) out[written + k] = suffix[c];
+      c = prefix[c];
+    }
+    written = std::min<int64_t>(written + len, cap);
+  };
+  while (written < cap) {
+    int code = next();
+    if (code == 257) break;
+    if (code == 256) {
+      do {
+        table = 258;
+        width = 9;
+        std::fill(length.begin() + 258, length.end(), 0);
+        code = next();
+      } while (code == 256);
+      if (code == 257) break;
+      if (code > 256) return -2 - written;
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (old < 0 || table >= kTable) return -2 - written;
+    // the entry after old: old's string and the first byte of code's (or,
+    // where code is this very entry, of old's)
+    prefix[table] = old;
+    first[table] = first[old];
+    length[table] = length[old] + 1;
+    suffix[table] = code < table ? first[code] : first[old];
+    if (code > table || length[code] == 0) return -2 - written;
+    ++table;
+    if (table > (1 << width) - 1 && width < 12) ++width;
+    emit(code);
+    old = code;
+  }
+  return written;
+}
+
+// The pixels of a Radiance HDR file after its header, as OpenCV's rgbe.cpp
+// (RGBE_ReadPixels_RLE) reads width x height of them into out (4 bytes
+// each: R, G, B, E): scanlines that start 2, 2 and a width below 32768
+// hold four run-length coded channels (a count past 128 repeats the next
+// byte count - 128 times, a count up to 128 copies that many bytes); a
+// scanline that does not start so is flat, and so is the rest of the
+// image; a width below 8 or past 0x7fff is flat throughout. Returns the
+// bytes read, or -1 where the data ends early (an "RGBE read error"), -2 on
+// a scanline of another width ("wrong scanline width"), -3 on a count of 0
+// or one past the scanline ("bad scanline data").
+int64_t nm_hdr_unrle(const uint8_t* src, int64_t size, int64_t width,
+                     int64_t height, uint8_t* out) {
+  int64_t pos = 0;
+  auto flat = [&](int64_t from) -> int64_t {
+    const int64_t need = (width * height - from) * 4;
+    if (size - pos < need) return -1;
+    std::memcpy(out + from * 4, src + pos, static_cast<size_t>(need));
+    return pos + need;
+  };
+  if (width < 8 || width > 0x7fff) return flat(0);
+  std::vector<uint8_t> line(static_cast<size_t>(4 * width));
+  for (int64_t y = 0; y < height; ++y) {
+    if (size - pos < 4) return -1;
+    const uint8_t* h = src + pos;
+    if (h[0] != 2 || h[1] != 2 || (h[2] & 0x80)) return flat(y * width);
+    pos += 4;
+    if (((int64_t(h[2]) << 8) | h[3]) != width) return -2;
+    for (int c = 0; c < 4; ++c) {
+      uint8_t* p = line.data() + c * width;
+      uint8_t* const end = p + width;
+      while (p < end) {
+        if (size - pos < 2) return -1;
+        int count = src[pos];
+        const uint8_t value = src[pos + 1];
+        pos += 2;
+        if (count > 128) {
+          count -= 128;
+          if (count > end - p) return -3;
+          std::memset(p, value, static_cast<size_t>(count));
+          p += count;
+        } else {
+          if (count == 0 || count > end - p) return -3;
+          *p++ = value;
+          if (--count > 0) {
+            if (size - pos < count) return -1;
+            std::memcpy(p, src + pos, static_cast<size_t>(count));
+            p += count;
+            pos += count;
+          }
+        }
+      }
+    }
+    uint8_t* o = out + y * width * 4;
+    for (int64_t x = 0; x < width; ++x)
+      for (int c = 0; c < 4; ++c) o[x * 4 + c] = line[size_t(c * width + x)];
+  }
+  return pos;
 }
 
 // PackBits (TIFF compression 32773), as tifffile's decode_packbits: a
@@ -2211,10 +2360,13 @@ int nm_jpeg_info(const uint8_t* data, int64_t size, int32_t* info, char* msg,
 // The pixels of a JPEG file into out: height x width x channels bytes
 // (cap bytes available). Returns as nm_jpeg_info, or 3 when out is too
 // small or memory runs out.
+// whole: the arithmetic decoder reads the whole file (OpenCV's libjpeg
+// source), not only the blocks Pillow has fed it.
 int nm_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out,
-                   int64_t cap, char* msg, int64_t msg_cap) {
+                   int64_t cap, int32_t whole, char* msg, int64_t msg_cap) {
   return jpeg::guarded(msg, msg_cap, [&]() {
     jpeg::Decoder dec(data, static_cast<size_t>(size));
+    dec.set_whole(whole != 0);
     dec.read_header();
     if (int64_t(dec.width()) * dec.height() * dec.channels() > cap)
       jpeg::fail(jpeg::kNoRoom, "JPEG: output buffer too small");
@@ -2222,6 +2374,6 @@ int nm_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out,
   });
 }
 
-int nm_version() { return 5; }
+int nm_version() { return 6; }
 
 }  // extern "C"

@@ -25,7 +25,8 @@
 //     constants and order of operations, RCT and ICT, the DC shift;
 //   * Pillow's unpacking of each tile into its mode (L, P, PA, I;16, LA,
 //     RGB, RGBA, CMYK), with its sYCC conversion (libImaging's fixed-point
-//     tables).
+//     tables); or (nm_jp2_components) every whole component's samples as
+//     opj_decode leaves them, for OpenCV's reading in viz/opencv_read.py.
 //
 // Every read is bounds-checked. Exposed with C linkage for ctypes; nothing
 // throws across that boundary: each entry point returns an error code and
@@ -1905,6 +1906,37 @@ struct Image {
   }
 };
 
+// Every component's samples as OpenJPEG's opj_decode leaves them (before
+// the JP2 box transforms), into out: C x H x W int32 for a codestream
+// whose components are all whole (XRsiz = YRsiz = 1), cap values
+// available.
+void decode_components(const uint8_t* data, int64_t size, int32_t* out,
+                       int64_t cap) {
+  Decoder dec;
+  dec.cs.read(data, size, false);
+  const Siz& s = dec.cs.siz;
+  const int64_t W = s.X1 - s.X0, H = s.Y1 - s.Y0;
+  for (int c = 0; c < s.C; ++c)
+    if (s.dx[c] != 1 || s.dy[c] != 1)
+      fail(kUnsupported, "JPEG 2000: component %d is sub-sampled", c);
+  if (W <= 0 || H <= 0 || W * H > 2 * kMaxPixels)
+    fail(kUnsupported, "an image of %lld x %lld pixels",
+         static_cast<long long>(W), static_cast<long long>(H));
+  if (W * H * s.C > cap) fail(kNoRoom, "output buffer too small");
+  std::memset(out, 0, size_t(W * H * s.C) * sizeof(int32_t));
+  for (int64_t t : dec.cs.order) {
+    dec.decode_tile(t);
+    const int64_t x0 = dec.tx0 - s.X0, y0 = dec.ty0 - s.Y0;
+    const int64_t w = dec.tx1 - dec.tx0, h = dec.ty1 - dec.ty0;
+    for (int c = 0; c < s.C; ++c)
+      for (int64_t y = 0; y < h; ++y)
+        std::memcpy(out + (c * H + y0 + y) * W + x0,
+                    dec.out[size_t(c)].data() + y * w,
+                    size_t(w) * sizeof(int32_t));
+    std::vector<uint8_t>().swap(dec.cs.tiles[size_t(t)].bytes);
+  }
+}
+
 int report(const Failure& f, char* msg, int64_t cap) {
   if (msg != nullptr && cap > 0) {
     std::strncpy(msg, f.msg.c_str(), static_cast<size_t>(cap) - 1);
@@ -1967,6 +1999,16 @@ int nm_jp2_decode(const uint8_t* data, int64_t size, int32_t mode,
   return guarded(msg, msg_cap, [&]() {
     Image img;
     img.decode(data, size, mode, space, width, height, out, cap);
+  });
+}
+
+// The samples of a codestream whose components are all whole, as OpenJPEG
+// decodes them: out holds components x height x width int32 (cap values
+// available). Returns as nm_jp2_decode.
+int nm_jp2_components(const uint8_t* data, int64_t size, int32_t* out,
+                      int64_t cap, char* msg, int64_t msg_cap) {
+  return guarded(msg, msg_cap, [&]() {
+    decode_components(data, size, out, cap);
   });
 }
 

@@ -57,8 +57,13 @@ def library() -> ctypes.CDLL:
             lib.nm_tga_unrle.restype = i64
             lib.nm_gif_unlzw.argtypes = [u8p, i64, ctypes.c_int, u8p, i64]
             lib.nm_gif_unlzw.restype = i64
-            lib.nm_tiff_unlzw.argtypes = [u8p, i64, u8p, i64]
+            lib.nm_tiff_unlzw.argtypes = [u8p, i64, u8p, i64,
+                                          ctypes.c_int32]
             lib.nm_tiff_unlzw.restype = i64
+            lib.nm_tiff_unlzw_compat.argtypes = [u8p, i64, u8p, i64]
+            lib.nm_tiff_unlzw_compat.restype = i64
+            lib.nm_hdr_unrle.argtypes = [u8p, i64, i64, i64, u8p]
+            lib.nm_hdr_unrle.restype = i64
             lib.nm_packbits.argtypes = [u8p, i64, u8p, i64]
             lib.nm_packbits.restype = i64
             lib.nm_bmp_unrle.argtypes = [u8p, i64, i64, i64, i64,
@@ -68,7 +73,8 @@ def library() -> ctypes.CDLL:
                                          i64]
             lib.nm_jpeg_info.restype = ctypes.c_int
             lib.nm_jpeg_decode.argtypes = [u8p, i64, u8p, i64,
-                                           ctypes.c_char_p, i64]
+                                           ctypes.c_int32, ctypes.c_char_p,
+                                           i64]
             lib.nm_jpeg_decode.restype = ctypes.c_int
             lib.nm_qoi_decode.argtypes = [u8p, i64, i64, ctypes.c_int, u8p]
             lib.nm_qoi_decode.restype = i64
@@ -128,6 +134,11 @@ def jp2_library() -> ctypes.CDLL:
             lib.nm_jp2_decode.argtypes = [u8p, i64, i32, i32, i32, i32, u8p,
                                           i64, ctypes.c_char_p, i64]
             lib.nm_jp2_decode.restype = ctypes.c_int
+            lib.nm_jp2_components.argtypes = [
+                u8p, i64, np.ctypeslib.ndpointer(np.int32,
+                                                 flags="C_CONTIGUOUS"),
+                i64, ctypes.c_char_p, i64]
+            lib.nm_jp2_components.restype = ctypes.c_int
             _jp2 = lib
     return _jp2
 
@@ -261,13 +272,50 @@ def tiff_unlzw(data, cap: int) -> np.ndarray:
     code, or a code that names no entry."""
     src = _bytes(data)
     out = np.empty(cap, np.uint8)
-    n = library().nm_tiff_unlzw(src, src.size, out, cap)
+    n = library().nm_tiff_unlzw(src, src.size, out, cap, 0)
     if n == -1:
         raise ValueError("TIFF: the LZW strip does not start with a clear "
                          "code (old-style LZW is not read)")
     if n < 0:
         raise ValueError("TIFF: a bad LZW code")
     return out[:n]
+
+
+def tiff_unlzw_libtiff(data, cap: int) -> tuple[np.ndarray, bool]:
+    """A TIFF LZW strip or tile as libtiff decodes it: new-style (MSB
+    first, ``LZWDecode``) or, where it starts with a 0 byte and then an odd
+    one, old-style (LSB first, ``LZWDecodeCompat``). Returns (the bytes
+    decoded, at most ``cap``; whether the stream was sound): where libtiff
+    fails (no clear code first, a code that names no entry), the bytes it
+    wrote before the failure."""
+    src = _bytes(data)
+    out = np.empty(cap, np.uint8)
+    if src.size >= 2 and src[0] == 0 and src[1] & 1:
+        n = library().nm_tiff_unlzw_compat(src, src.size, out, cap)
+    else:
+        n = library().nm_tiff_unlzw(src, src.size, out, cap, 1)
+    if n >= 0:
+        return out[:n], True
+    return out[:max(0, -2 - n)], False
+
+
+# nm_hdr_unrle's failures, in the words of OpenCV's RGBE reader
+_HDR_ERRORS = {-1: "RGBE read error (the pixel data ends early)",
+               -2: "RGBE bad file format: wrong scanline width",
+               -3: "RGBE bad file format: bad scanline data"}
+
+
+def hdr_unrle(data, width: int, height: int) -> tuple[np.ndarray, int]:
+    """The ``height`` x ``width`` RGBE pixels of a Radiance HDR file's
+    data (the bytes after its header), as OpenCV's ``RGBE_ReadPixels_RLE``
+    reads them: ((height, width, 4) uint8 R, G, B, E, the bytes read).
+    Raises ``ValueError`` with OpenCV's words where it fails."""
+    src = _bytes(data)
+    out = np.zeros(width * height * 4, np.uint8)
+    n = library().nm_hdr_unrle(src, src.size, width, height, out)
+    if n < 0:
+        raise ValueError("Radiance HDR: " + _HDR_ERRORS[int(n)])
+    return out.reshape(height, width, 4), int(n)
 
 
 def packbits(data, cap: int) -> np.ndarray:
@@ -318,19 +366,21 @@ def jpeg_info(data: bytes) -> dict:
                 channels=int(info[2]), process=JPEG_PROCESSES[info[3]])
 
 
-def jpeg_decode(data: bytes) -> np.ndarray:
+def jpeg_decode(data: bytes, whole: bool = False) -> np.ndarray:
     """A JPEG file's pixels as (H, W, channels) uint8, equal to what
     libjpeg-turbo gives Pillow by default, and so to imageio's array: grey,
     RGB, or the CMYK samples inverted as Pillow's "CMYK;I" reads them.
-    Raises ``ValueError`` with the decoder's message on a corrupt or
-    unsupported file."""
+    ``whole``: libjpeg reads the whole file, as OpenCV's source gives it,
+    not only the 64 KiB blocks Pillow has fed it when an arithmetic-coded
+    scan starts. Raises ``ValueError`` with the decoder's message on a
+    corrupt or unsupported file."""
     info = jpeg_info(data)
     src = np.frombuffer(data, np.uint8)
     out = np.empty((info["height"], info["width"], info["channels"]),
                    np.uint8)
     msg = ctypes.create_string_buffer(256)
-    code = library().nm_jpeg_decode(src, src.size, out, out.size, msg,
-                                    len(msg))
+    code = library().nm_jpeg_decode(src, src.size, out, out.size,
+                                    int(whole), msg, len(msg))
     if code == _NO_ROOM:
         raise MemoryError(msg.value.decode(errors="replace"))
     if code:
@@ -409,6 +459,25 @@ def jp2_decode(data, mode: int, space: int, width: int,
     code = jp2_library().nm_jp2_decode(src, src.size, mode, space, width,
                                        height, out.view(np.uint8).reshape(-1),
                                        out.nbytes, msg, len(msg))
+    if code == _NO_ROOM:
+        raise MemoryError(msg.value.decode(errors="replace"))
+    if code:
+        raise ValueError(msg.value.decode(errors="replace"))
+    return out
+
+
+def jp2_components(data) -> np.ndarray:
+    """The samples of a JPEG 2000 codestream whose components are all
+    whole, as OpenJPEG's ``opj_decode`` leaves them before any JP2 box
+    transform: (components, height, width) int32. Raises ``ValueError``
+    with the decoder's message on a corrupt or unsupported codestream."""
+    info = jp2_info(data)
+    src = _bytes(data)
+    out = np.empty((len(info["components"]), info["y1"] - info["y0"],
+                    info["x1"] - info["x0"]), np.int32)
+    msg = ctypes.create_string_buffer(256)
+    code = jp2_library().nm_jp2_components(src, src.size, out, out.size,
+                                           msg, len(msg))
     if code == _NO_ROOM:
         raise MemoryError(msg.value.decode(errors="replace"))
     if code:

@@ -8,11 +8,15 @@ Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
 * :func:`save_png` / :func:`write_png` — 8-bit RGB, zlib, lossless: the
   decoded pixels equal ``to_uint8(img)``;
 * :func:`read_png` — any PNG, as Pillow (and imageio) reads it;
-* :func:`read_image` / :func:`decode_image` — PNG, JPEG, BMP, TGA, GIF,
-  TIFF (``viz/tiff.py``), WebP, DDS, QOI, PNM
-  (``viz/texture_formats.py``) or JPEG 2000 (``viz/jpeg2000.py``) by the
-  file's magic number (the OBJ textures of ``apps/retarget``), as imageio
-  reads them;
+* :func:`read_image` / :func:`decode_image` — the OBJ textures of
+  ``apps/retarget``, read by the plugin that imageio picks for the file's
+  name and content (:func:`imageio_route`, :func:`opencv_reads`): PNG,
+  JPEG, BMP, TGA, GIF, TIFF (``viz/tiff.py``), WebP, DDS, QOI, PNM
+  (``viz/texture_formats.py``), Sun raster (``viz/sunraster.py``) or JPEG
+  2000 (``viz/jpeg2000.py``) as Pillow or tifffile reads them; or, where
+  imageio hands the file to OpenCV, as OpenCV's decoders read it for
+  ``IMREAD_COLOR`` (``viz/opencv_read.py``, Radiance HDR in
+  ``viz/radiance.py``);
 * :func:`write_gif` — GIF89a with the loop extension, an adaptive palette
   of at most 256 colours per frame (exact when the frame has no more; else
   a count-weighted median cut, each colour mapped to its nearest entry)
@@ -30,6 +34,7 @@ from __future__ import annotations
 import heapq
 import struct
 import zlib
+from pathlib import PurePath
 
 import numpy as np
 import torch
@@ -37,6 +42,7 @@ from scipy.spatial import cKDTree
 
 from ..data import native
 from .jpeg2000 import CODESTREAM, SIGNATURE, decode_jpeg2000
+from .sunraster import SUN_MAGIC, decode_sun_pillow
 from .texture_formats import decode_dds, decode_pnm, decode_qoi
 from .tiff import cmyk_to_rgb, decode_tiff
 
@@ -552,26 +558,35 @@ def _decode_gif(data: bytes, path: str) -> np.ndarray:
 
 
 # ------------------------------------------------------------- any format
+# Radiance HDR's two first lines (OpenCV's HdrDecoder signatures) and
+# OpenEXR's magic
+RADIANCE = (b"#?RADIANCE", b"#?RGBE")
+EXR_MAGIC = b"\x76\x2f\x31\x01"
 _MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
           (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
           (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"),
           (b"DDS ", "DDS"), (b"qoif", "QOI"), (b"8BPS", "PSD"),
-          (SIGNATURE, "JPEG2000"), (CODESTREAM, "JPEG2000"))
+          (SIGNATURE, "JPEG2000"), (CODESTREAM, "JPEG2000"),
+          (SUN_MAGIC, "SUN"), (RADIANCE[0], "HDR"), (RADIANCE[1], "HDR"),
+          (EXR_MAGIC, "EXR"))
 READ_FORMATS = ("PNG", "JPEG", "BMP", "TGA", "GIF", "TIFF", "WebP", "DDS",
-                "QOI", "PNM", "JPEG2000")
+                "QOI", "PNM", "JPEG2000", "SUN", "HDR")
 # the ISO base media brands of Pillow's AVIF plugin
 _AVIF_BRANDS = (b"avif", b"avis")
+AVIF_WAITS = ("an AVIF image; its AV1 decoding waits until the AV1 "
+              "specification's tables (default CDFs, quantizer lookups, "
+              "filter taps) are in the repository")
+_SPACE = (b" ", b"\t", b"\n", b"\x0b", b"\x0c", b"\r")   # C's isspace
 
 
 def image_format(data: bytes, path: str = "") -> str:
-    """The format of an image file's bytes, as Pillow would take it: by
-    its magic number (PNM by ``P1``-``P7``, ``Pf``, ``PF`` or ``PyP`` and
-    a whitespace, or Pillow's ``P0CMYK``, ``PyCMYK`` and ``PyRGBA``; JPEG
-    2000 by the JP2 signature box or a codestream's SOC and SIZ; PSD, and
-    AVIF by an ``ftyp`` box of brand ``avif`` or ``avis``, are named to
-    be refused), else TGA where the header passes
-    Pillow's TGA checks or the extension is ``.tga``; "unknown"
-    otherwise."""
+    """The format of an image file's bytes: by its magic number (PNM by
+    ``P1``-``P7``, ``Pf``, ``PF`` or ``PyP`` and a whitespace, or Pillow's
+    ``P0CMYK``, ``PyCMYK`` and ``PyRGBA``; JPEG 2000 by the JP2 signature
+    box or a codestream's SOC and SIZ; Sun raster, Radiance HDR; PSD,
+    OpenEXR, and AVIF by an ``ftyp`` box of brand ``avif`` or ``avis``,
+    are named to be refused), else TGA where the header passes Pillow's
+    TGA checks or the extension is ``.tga``; "unknown" otherwise."""
     for magic, name in _MAGIC:
         if data.startswith(magic):
             return name
@@ -583,44 +598,139 @@ def image_format(data: bytes, path: str = "") -> str:
         return "AVIF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    space = (b" ", b"\t", b"\n", b"\x0b", b"\x0c", b"\r")
     if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5",
                                          b"6", b"7", b"f", b"F") \
-            and data[2:3] in space or data[:3] == b"PyP" and \
-            data[3:4] in space or data[:6] in (b"P0CMYK", b"PyCMYK",
-                                                b"PyRGBA"):
+            and data[2:3] in _SPACE or data[:3] == b"PyP" and \
+            data[3:4] in _SPACE or data[:6] in (b"P0CMYK", b"PyCMYK",
+                                                 b"PyRGBA"):
         return "PNM"
     if _tga_header(data) is not None or path.lower().endswith(".tga"):
         return "TGA"
     return "unknown"
 
 
+# imageio 2.37.4 picks a plugin by the file's extension first
+# (imageio/core/imopen.py:183-200, the extension being
+# ``Path(name).suffix.lower()``, core/request.py:266), then tries every
+# plugin in turn (imopen.py:232-240, in the order of
+# imageio/config/plugins.py). Of the plugins it names, three can be
+# installed beside it here: pillow (its legacy "-PIL" formats too),
+# tifffile (and its legacy "TIFF") and opencv; FreeImage, ITK, GDAL and
+# pyav are not. From imageio/config/extensions.py, the extensions whose
+# first installed plugin is not Pillow:
+_OPENCV_FIRST = (".dip", ".exr", ".hdr", ".pbm", ".pfm", ".pic", ".pxm",
+                 ".sr")
+_TIFFFILE_FIRST = (".bif", ".btf", ".gel", ".lsm", ".ndpi", ".pcoraw",
+                   ".ptif", ".ptiff", ".qpi", ".qptiff", ".rec", ".stk",
+                   ".svs", ".tf8", ".tif", ".tiff", ".zif")
+# every other extension (and none) tries pillow, then opencv, as does the
+# fallback over all plugins (config/plugins.py: pillow, pyav, opencv,
+# tifffile, ...)
+_FALLBACK = ("pillow", "opencv", "tifffile")
+
+
+def imageio_route(path: str) -> tuple:
+    """The order in which imageio 2.37.4 tries the plugins installed beside
+    it (pillow, tifffile, opencv) on a file named ``path``: the plugins of
+    its extension's formats, then the rest of the fallback over every
+    plugin. The first that opens the file reads it (a plugin that opened it
+    and then fails makes imageio fail; a plugin only opens what it knows,
+    OpenCV what :func:`opencv_reads`)."""
+    ext = PurePath(path).suffix.lower()
+    first = (("opencv",) if ext in _OPENCV_FIRST else
+             ("tifffile",) if ext in _TIFFFILE_FIRST else ())
+    return first + tuple(p for p in _FALLBACK if p not in first)
+
+
+def opencv_reads(data: bytes) -> bool:
+    """``cv2.haveImageReader`` of OpenCV 5.0.0 as imageio's plugin asks it
+    (imageio/plugins/opencv.py:57): whether one of the decoders built into
+    imageio's OpenCV takes the file's first bytes for its own (BMP,
+    Radiance HDR, JPEG, WebP by libwebp's header check, PNG, GIF, PxM
+    P1-P6, PAM, PFM, Sun raster, TIFF and BigTIFF, JP2 and J2K; not
+    OpenEXR, which that build lacks). AVIF is taken by its ``ftyp`` brand,
+    a looser check than libavif's; the port refuses AVIF on either route,
+    so the looser check changes only the words of the refusal."""
+    if data[:2] == b"BM" or data.startswith(RADIANCE) \
+            or data.startswith((b"\xff\xd8\xff", PNG_SIGNATURE, b"GIF87a",
+                                b"GIF89a", SUN_MAGIC, b"II*\x00",
+                                b"MM\x00*", b"II+\x00", b"MM\x00+",
+                                SIGNATURE, CODESTREAM)):
+        return True
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return _webp_features(data[:32])
+    if data[:1] == b"P" and data[1:2] in b"1234567fF" and data[1:2] \
+            and data[2:3] in _SPACE:
+        return True
+    return image_format(data) == "AVIF"
+
+
+def _webp_features(head: bytes) -> bool:
+    """libwebp's WebPGetFeatures on the first 32 bytes, as OpenCV's WebP
+    signature check calls it: a RIFF of at least 12 bytes, then a VP8X
+    chunk of 10 bytes, or a VP8 key frame (a known profile, shown, its
+    first partition within the chunk, the start code, a size) or a VP8L
+    header (its signature, version 0)."""
+    if len(head) < 32 or int.from_bytes(head[4:8], "little") < 12:
+        return False
+    tag, size = head[12:16], int.from_bytes(head[16:20], "little")
+    p = head[20:]
+    if tag == b"VP8X":
+        return size == 10
+    if tag == b"VP8 ":
+        bits = int.from_bytes(p[:3], "little")
+        return size >= 10 and not bits & 1 and (bits >> 1) & 7 <= 3 \
+            and bool((bits >> 4) & 1) and bits >> 5 < size \
+            and p[3:6] == b"\x9d\x01\x2a" \
+            and _le(p, 6, 2) & 0x3FFF > 0 and _le(p, 8, 2) & 0x3FFF > 0
+    if tag == b"VP8L":
+        return size >= 5 and p[0] == 0x2F and p[4] >> 5 == 0
+    return False
+
+
+def _pillow_opens(fmt: str, data: bytes) -> bool:
+    """Whether imageio's Pillow plugin opens the file: Pillow identifies
+    it (``PF`` and ``P7`` are OpenCV's alone; Radiance HDR, OpenEXR and
+    unknown content Pillow does not know)."""
+    if fmt == "PNM":
+        return data[:2] not in (b"PF", b"P7")
+    return fmt not in ("unknown", "HDR", "EXR")
+
+
 def decode_image(data: bytes, path: str = "") -> np.ndarray:
-    """An image file's bytes as (H, W, C) samples, by its format
-    (:func:`image_format`; ``path`` names the file in errors, decides a
-    TGA without a valid header and, as imageio's plugin order does, how a
-    ``.pbm`` or ``.pfm`` file reads), each as imageio reads it for the JAX
-    package's ``_find_texture``: PNG (:func:`read_png`); JPEG (baseline,
-    extended sequential, progressive and lossless; Huffman or arithmetic
-    coding; 8-bit, 1, 3 or 4 components, sampling factors 1-4; decoded by
-    the host library as libjpeg-turbo 3 does, block smoothing included; a
-    CMYK or YCCK file's inverted CMYK made RGB as Pillow's
-    ``convert("RGB")`` does); BMP, TGA and GIF (the first frame; uint8);
-    TIFF (the first plane of the first page, every sample type and
-    photometric interpretation imageio's tifffile reads, with no pixel
-    cap, ``viz/tiff.decode_tiff``: uint8, uint16, int8, int16 or float32,
-    32- and 64-bit integers normalised to float32); WebP (lossless and
-    lossy, the first frame of an animation; RGB, or RGBA where the file
-    has alpha; decoded by the host library as libwebp does); DDS, QOI and
-    PNM (``viz/texture_formats.py``, by name and magic as imageio's
-    Pillow and OpenCV plugins read them: uint8, Pillow's PGM past 8 bits
-    int32, its float map float32, a CMYK extension made RGB); JPEG 2000
-    (a JP2 file or a raw codestream, any progression with POC, layers,
-    precincts and tiles, every code-block style of Part 1, RGN, SOP/EPH,
-    the 5/3 and 9/7 wavelets, RCT and ICT, ``viz/jpeg2000.py``: uint8
-    grey, grey + alpha, RGB, RGBA, a palette's colours, CMYK made RGB;
-    uint16 past 8 bits; decoded by the host library as OpenJPEG does). A
-    PSD file, which imageio does not read, an AVIF file, an unknown file,
+    """An image file's bytes as (H, W, C) samples, each as imageio reads
+    it for the JAX package's ``_find_texture``, by the plugin that imageio
+    picks for its name (``path``, which also names the file in errors and
+    decides a TGA without a valid header) and content: the first of
+    :func:`imageio_route` that opens it.
+
+    OpenCV (``viz/opencv_read.decode_opencv``): what
+    :func:`opencv_reads` recognises, as OpenCV reads it for
+    ``IMREAD_COLOR``: (H, W, 3) uint8 RGB (a grey float map (H, W, 1)),
+    EXIF orientation applied; Radiance HDR (``viz/radiance.py``) reaches
+    it under every name.
+
+    Pillow and tifffile: PNG (:func:`read_png`); JPEG (baseline, extended
+    sequential, progressive and lossless; Huffman or arithmetic coding;
+    8-bit, 1, 3 or 4 components, sampling factors 1-4; decoded by the host
+    library as libjpeg-turbo 3 does, block smoothing included; a CMYK or
+    YCCK file's inverted CMYK made RGB as Pillow's ``convert("RGB")``
+    does); BMP, TGA and GIF (the first frame; uint8); TIFF (the first
+    plane of the first page, every sample type and photometric
+    interpretation imageio's tifffile reads, with no pixel cap,
+    ``viz/tiff.decode_tiff``: uint8, uint16, int8, int16 or float32, 32-
+    and 64-bit integers normalised to float32); WebP (lossless and lossy,
+    the first frame of an animation; RGB, or RGBA where the file has
+    alpha; decoded by the host library as libwebp does); DDS, QOI and PNM
+    (``viz/texture_formats.py``: uint8, Pillow's PGM past 8 bits int32,
+    its float map float32, a CMYK extension made RGB); Sun raster
+    (``viz/sunraster.decode_sun_pillow``); JPEG 2000 (a JP2 file or a raw
+    codestream, any progression with POC, layers, precincts and tiles,
+    every code-block style of Part 1, RGN, SOP/EPH, the 5/3 and 9/7
+    wavelets, RCT and ICT, ``viz/jpeg2000.py``: uint8 grey, grey + alpha,
+    RGB, RGBA, a palette's colours, CMYK made RGB; uint16 past 8 bits;
+    decoded by the host library as OpenJPEG does). A PSD file, which
+    imageio does not read, an AVIF file, an OpenEXR file, an unknown file,
     or one that cannot be decoded, raises ``ValueError`` naming the
     format.
 
@@ -631,11 +741,27 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
     already normalised to [0, 1]). A decoder whose samples span less than
     their type (a TIFF's 1-, 2- and 4-bit samples) widens them first."""
     fmt = image_format(data, path)
+    for plugin in imageio_route(path):
+        if plugin == "opencv" and opencv_reads(data):
+            from .opencv_read import decode_opencv
+            return decode_opencv(data, path)
+        if plugin == "pillow" and _pillow_opens(fmt, data) \
+                or plugin == "tifffile" and fmt == "TIFF":
+            return _decode_pillow(fmt, data, path)
+    if fmt == "EXR":
+        raise ValueError(f"{path}: an OpenEXR image; imageio's OpenCV is "
+                         "built without OpenEXR and no other plugin of "
+                         "imageio's reads it, so the port reads none either")
+    raise ValueError(f"{path}: a {fmt} image; no plugin of imageio's opens "
+                     f"it, and the port reads {', '.join(READ_FORMATS)} "
+                     "images")
+
+
+def _decode_pillow(fmt: str, data: bytes, path: str) -> np.ndarray:
+    """The file as imageio's Pillow plugin reads it (a TIFF as its
+    tifffile plugin does)."""
     if fmt == "AVIF":
-        raise ValueError(f"{path}: an AVIF image; its AV1 decoding waits "
-                         "until the AV1 specification's tables (default "
-                         "CDFs, quantizer lookups, filter taps) are in the "
-                         "repository")
+        raise ValueError(f"{path}: {AVIF_WAITS}")
     if fmt == "PSD":
         raise ValueError(f"{path}: a PSD image; imageio reads no PSD file "
                          "(its Pillow plugin seeks frame 0, and Pillow's "
@@ -655,7 +781,7 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
             else img
     return {"PNG": _decode_png, "BMP": _decode_bmp, "TGA": _decode_tga,
             "GIF": _decode_gif, "TIFF": decode_tiff, "DDS": decode_dds,
-            "QOI": decode_qoi, "PNM": decode_pnm,
+            "QOI": decode_qoi, "PNM": decode_pnm, "SUN": decode_sun_pillow,
             "JPEG2000": decode_jpeg2000}[fmt](data, path)
 
 

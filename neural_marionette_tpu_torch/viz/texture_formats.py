@@ -11,30 +11,31 @@ read.
   does;
 * QOI (Pillow's ``QoiImagePlugin``): every op, 3 or 4 channels, the
   colour space byte ignored; the ops run in ``csrc/nm_host.cpp``;
-* PNM: imageio tries Pillow's ``PpmImagePlugin`` and OpenCV in an order
-  set by the file's name, and each takes the magics it knows:
+* PNM: imageio tries Pillow's ``PpmImagePlugin`` and OpenCV in the order
+  that ``image_files.imageio_route`` gives for the file's name, and each
+  takes the magics it knows (``image_files.opencv_reads``):
 
-  - a ``.pbm`` or ``.pfm`` file goes to OpenCV first, which reads P1-P6
-    (its PxM decoder, ``IMREAD_COLOR``: always (H, W, 3) uint8, grey
-    replicated, raw 8-bit samples unscaled whatever the maxval, 16-bit
-    ones cut to their high byte, plain ones clamped to the maxval and
-    scaled to v * 255 // maxval, a bitmap as 0 and 255) and ``Pf``/``PF``
-    (its PFM decoder: times float32(1 / |scale|), rounded half to even and
+  - OpenCV, first for ``.pbm``, ``.pfm``, ``.hdr`` and the other names of
+    its route, reads P1-P6 (:func:`pxm_opencv`, its PxM decoder,
+    ``IMREAD_COLOR``: always (H, W, 3) uint8, grey replicated, raw 8-bit
+    samples unscaled whatever the maxval, 16-bit ones cut to their high
+    byte, plain ones clamped to the maxval and scaled to v * 255 // maxval,
+    a bitmap as 0 and 255), ``Pf``/``PF`` (:func:`pfm_opencv`, its PFM
+    decoder: times float32(1 / |scale|), rounded half to even and
     saturated to uint8, NaN, infinities and values past the int range as
-    0; grey as one channel);
-  - every other name goes to Pillow first: P1-P6, ASCII or binary, with
-    comments; a bitmap as bool; a maxval other than 255 rescaled to 255
-    (or, for grey past 8 bits, to 65535 as int32, Pillow's mode "I"),
+    0; grey as one channel) and ``P7`` (:func:`pam_opencv`, its PAM
+    decoder: depth 1 grey and depth 3 colour as (H, W, 3) uint8, the
+    colour samples reversed; depths 2 and 4 raise);
+  - Pillow, first for every other name, reads P1-P6, ASCII or binary,
+    with comments; a bitmap as bool; a maxval other than 255 rescaled to
+    255 (or, for grey past 8 bits, to 65535 as int32, Pillow's mode "I"),
     rounded half to even; ``Pf`` as float32, bottom row first;
   - Pillow's extensions ``P0CMYK`` and ``PyCMYK`` (4 bands, made RGB by
     Pillow's formula, the rule of every CMYK texture) and ``PyRGBA``,
     which OpenCV does not know, go to Pillow whatever the name; ``PyP``
     raises (imageio raises ``AttributeError`` on its palette image);
-    ``PF``, which Pillow does not know, goes to OpenCV whatever the name;
-  - ``P7`` (PAM), which only OpenCV knows, goes to OpenCV whatever the
-    name (its PAM decoder, ``IMREAD_COLOR``: depth 1 grey and depth 3
-    colour as (H, W, 3) uint8, the colour samples reversed; depths 2 and 4
-    raise, see :func:`_pam_opencv`).
+    ``PF`` and ``P7``, which Pillow does not know, go to OpenCV whatever
+    the name.
 
 A PSD file raises: imageio's Pillow plugin seeks frame 0 of every image,
 and Pillow's PSD reader numbers its frames from 1, so imageio reads no
@@ -184,7 +185,6 @@ _PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
               b"P6": "RGB", b"Pf": "F", b"P0CMYK": "CMYK",
               b"PyCMYK": "CMYK", b"PyRGBA": "RGBA", b"PyP": "P"}
 _PNM_BANDS = {"L": 1, "RGB": 3, "CMYK": 4, "RGBA": 4}
-_OPENCV_PXM = (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6")
 
 
 class _Header:
@@ -411,7 +411,7 @@ def _atof(token: bytes) -> float:
     return float(m.group(1)) if m else 0.0
 
 
-def _pfm_opencv(data: bytes, path: str) -> np.ndarray:
+def pfm_opencv(data: bytes, path: str) -> np.ndarray:
     """A ``Pf`` or ``PF`` float map as OpenCV's PFM decoder and imageio
     give it: the magic, then a line feed; width, height and scale each up
     to the next whitespace (C's ``atoi`` and ``atof``); the rows bottom
@@ -437,7 +437,7 @@ def _pfm_opencv(data: bytes, path: str) -> np.ndarray:
     return out.astype(np.uint8).reshape(H, W, ch)[::-1].copy()
 
 
-def _pxm_opencv(data: bytes, path: str) -> np.ndarray:
+def pxm_opencv(data: bytes, path: str) -> np.ndarray:
     """P1-P6 as OpenCV's PxM decoder reads them for ``IMREAD_COLOR`` and
     imageio gives them: always (H, W, 3) uint8, grey replicated and RGB as
     stored. Raw 8-bit samples as they are, whatever the maxval; raw 16-bit
@@ -524,7 +524,7 @@ def _pam_number(value: bytes, path: str) -> int:
     return int(m.group(1))
 
 
-def _pam_opencv(data: bytes, path: str) -> np.ndarray:
+def pam_opencv(data: bytes, path: str) -> np.ndarray:
     """A PAM (P7) file as OpenCV's PAM decoder reads it for
     ``IMREAD_COLOR`` and imageio gives it, whatever its name: (H, W, 3)
     uint8. The header: ``P7`` and a line end, then WIDTH, HEIGHT, DEPTH
@@ -591,15 +591,10 @@ def _pam_opencv(data: bytes, path: str) -> np.ndarray:
 
 
 def decode_pnm(data: bytes, path: str = "") -> np.ndarray:
-    """A PBM, PGM, PPM, PFM, PAM or Pillow extension file (see the module
-    docstring) as (H, W, C): uint8, int32 (Pillow's grey past 8 bits) or
-    float32 (Pillow's float map)."""
-    ext = path.lower().rsplit(".", 1)[-1] if "." in path else ""
-    magic = data[:2]
-    if magic == b"P7":
-        return _pam_opencv(data, path)
-    if magic == b"PF" or magic == b"Pf" and ext in ("pbm", "pfm"):
-        return _pfm_opencv(data, path)
-    if ext in ("pbm", "pfm") and magic in _OPENCV_PXM:
-        return _pxm_opencv(data, path)
+    """A PBM, PGM, PPM, float map or Pillow extension file as Pillow reads
+    it (see the module docstring): (H, W, C) uint8, int32 (Pillow's grey
+    past 8 bits) or float32 (its float map). The files that imageio hands
+    to OpenCV (by name, or ``PF`` and ``P7`` whatever the name) are read by
+    :func:`pxm_opencv`, :func:`pfm_opencv` and :func:`pam_opencv` through
+    ``viz/opencv_read.py``."""
     return _pnm_pillow(data, path)

@@ -6,17 +6,21 @@ UndefinedBehaviorSanitizer: every decoder of them, the JPEG processes
 2000, and the expansions of GIF, TIFF, BMP and TGA.
 
     python tests/torch_textures/asan_mutants.py [--per 1000] [--seed 2024]
-        [--formats JPEG2000,...]
+        [--formats JPEG2000,...] [--as .pbm]
 
 Builds the libraries with ``g++ -fsanitize=address,undefined
 -fno-sanitize-recover=undefined`` into a temporary directory, then runs
 itself again with the sanitizer runtimes preloaded. Each small fixture that
-the port reads (``MANIFEST.json``) gives ``--per`` mutants, in turn: 1-4
+the port reads (``MANIFEST.json``: its ``files`` and its Radiance HDR and
+Sun raster ``route_files``; ``--formats`` picks by ``image_format``'s
+names, in any case) gives ``--per`` mutants, in turn: 1-4
 bytes set anywhere; 1-2 bytes set in its first 64; bytes set then the file
 cut; the file cut. Every mutant goes through ``decode_image`` and
-``texture_rgb``: it must raise ``ValueError`` or give a well-formed finite
-texture. A sanitizer report ends the process with a nonzero code. Prints
-one JSON line: mutants run, read and raised per format, and seconds.
+``texture_rgb``, named as its fixture or, with ``--as``, with that
+extension instead (``.pbm``: the OpenCV route of ``viz/opencv_read.py``):
+it must raise ``ValueError`` or give a well-formed finite texture. A
+sanitizer report ends the process with a nonzero code. Prints one JSON
+line: mutants run, read and raised per format, and seconds.
 Needs ``g++`` with its sanitizer runtimes; no imaging library.
 """
 from __future__ import annotations
@@ -50,19 +54,22 @@ def build(out: Path) -> None:
         raise SystemExit("the sanitizer build failed")
 
 
-def run(lib_dir: Path, per: int, seed: int, formats: str = "") -> dict:
+def run(lib_dir: Path, per: int, seed: int, formats: str = "",
+        suffix: str = "") -> dict:
     sys.path.insert(0, str(ROOT))
     from neural_marionette_tpu_torch import kernels
     for name in LIBS:
         kernels._LIBS[name] = ctypes.CDLL(str(lib_dir / f"{name}.so"))
     from neural_marionette_tpu_torch.apps.retarget import texture_rgb
     from neural_marionette_tpu_torch.viz import image_files as F
-    manifest = json.loads((HERE / "MANIFEST.json").read_text())["files"]
-    names = [e["file"] for e in manifest
-             if "raises" not in e and "sha256" not in e]
+    manifest = json.loads((HERE / "MANIFEST.json").read_text())
+    names = [e["file"] for e in manifest["files"] + manifest["route_files"]
+             if "raises" not in e and "sha256" not in e
+             and not e.get("large")]
     if formats:
+        wanted = formats.lower().split(",")
         names = [n for n in names if F.image_format(
-            (HERE / n).read_bytes(), n) in formats.split(",")]
+            (HERE / n).read_bytes(), n).lower() in wanted]
     rng = np.random.default_rng(seed)
     counts: dict = {}
     t0 = time.perf_counter()
@@ -70,6 +77,8 @@ def run(lib_dir: Path, per: int, seed: int, formats: str = "") -> dict:
         base = (HERE / name).read_bytes()
         c = counts.setdefault(F.image_format(base, name),
                               dict(run=0, read=0, raised=0))
+        if suffix:
+            name = name[:name.rindex(".")] + suffix
         for k in range(per):
             d = bytearray(base)
             kind = k % 4
@@ -102,11 +111,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--formats", default="",
                     help="only these formats (image_format's names)")
+    ap.add_argument("--as", dest="suffix", default="",
+                    help="read each fixture under this extension")
     ap.add_argument("--lib-dir", default="")
     args = ap.parse_args()
     if args.lib_dir:       # the second run, under the sanitizers
         print(json.dumps(run(Path(args.lib_dir), args.per, args.seed,
-                             args.formats)))
+                             args.formats, args.suffix)))
         return 0
     with tempfile.TemporaryDirectory() as tmp:
         build(Path(tmp))
@@ -118,7 +129,8 @@ def main() -> int:
                    ASAN_OPTIONS="detect_leaks=0:allocator_may_return_null=1")
         return subprocess.run([sys.executable, __file__, "--per",
                                str(args.per), "--seed", str(args.seed),
-                               "--formats", args.formats, "--lib-dir", tmp],
+                               "--formats", args.formats, "--as",
+                               args.suffix, "--lib-dir", tmp],
                               env=env).returncode
 
 

@@ -34,6 +34,17 @@ array (``imageio_sha256``), and the manifest records the versions of the
 tools that made it. Files the port
 must refuse carry the word its ``ValueError`` names instead, and what
 imageio's own refusal of them says.
+
+imageio picks its plugin by the file's name (``image_files.imageio_route``
+in the port), so every fixture also records in ``opencv_route`` what
+imageio gives for a copy named ``.pbm`` and one named ``.hdr``, which
+OpenCV reads first: the plugin (``opencv`` where ``cv2.haveImageReader``
+takes the bytes, else ``pillow``), and the shape, type and SHA-256 of
+imageio's array, or its refusal. ``route_files`` are the Radiance HDR and
+Sun raster fixtures (``route_cases``: Radiance files written with
+``cv2.imwrite`` and by hand, Sun raster files by hand), each with what
+imageio gives under its own name and under the other names of
+``ROUTE_NAMES``.
 Deterministic: a second run writes the same bytes.
 """
 from __future__ import annotations
@@ -3235,6 +3246,212 @@ def expected(arr, rule=None, path=None):
     return np.ascontiguousarray(rgb), divisor, well
 
 
+# ------------------------------------------------- Radiance and Sun raster
+def rgbe(rgb):
+    """(H, W, 3) float -> (H, W, 4) RGBE bytes, as Walter's float2rgbe:
+    the largest channel's frexp exponent shared, each mantissa truncated."""
+    v = rgb.max(-1)
+    m, e = np.frexp(v)
+    scale = np.where(v < 1e-32, 0.0, m * 256.0 / np.where(v > 0, v, 1))
+    out = np.zeros(rgb.shape[:2] + (4,), np.uint8)
+    out[..., :3] = (rgb * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(v < 1e-32, 0, e + 128)
+    return out
+
+
+def hdr_rle_line(line):
+    """One scanline of RGBE pixels in the new run-length form (Walter's
+    RGBE_WriteBytes_RLE per channel: runs of 4 or more as 128 + n, the
+    rest as literals of at most 128)."""
+    W = len(line)
+    out = bytearray([2, 2, W >> 8, W & 255])
+    for c in range(4):
+        data = line[:, c].tobytes()
+        cur = 0
+        while cur < W:
+            beg, run = cur, 0
+            while run < 4 and beg < W:       # find the next run of 4+
+                beg += run
+                run = 1
+                while beg + run < W and run < 127 and \
+                        data[beg + run] == data[beg]:
+                    run += 1
+            while cur < beg:                 # literals before it
+                n = min(128, beg - cur)
+                out += bytes([n]) + data[cur:cur + n]
+                cur += n
+            if run >= 4:
+                out += bytes([128 + run, data[beg]])
+                cur += run
+    return bytes(out)
+
+
+def radiance_file(px, rle=True, head=None, size=None):
+    """A Radiance HDR file of (H, W, 4) RGBE pixels: flat or new-style
+    run-length scanlines, under ``head`` (the header lines) and ``size``
+    (the resolution line)."""
+    H, W = px.shape[:2]
+    head = head or b"#?RADIANCE\n# made by hand\nFORMAT=32-bit_rle_rgbe\n"
+    size = size or b"-Y %d +X %d\n" % (H, W)
+    body = b"".join(hdr_rle_line(px[y]) for y in range(H)) if rle else \
+        px.tobytes()
+    return head + b"\n" + size + body
+
+
+def sun_file(W, H, depth, rows, kind=1, cmap=b"", map_type=None):
+    """A Sun raster file: the 32-byte header, the colour map, the rows
+    (each padded to 16 bits unless run-length coded)."""
+    map_type = (1 if cmap else 0) if map_type is None else map_type
+    return struct.pack(">8I", 0x59A66A95, W, H, depth, len(rows), kind,
+                       map_type, len(cmap)) + cmap + rows
+
+
+def sun_rows(samples, depth):
+    """(H, W[, C]) samples -> rows of ``depth`` bits a pixel, padded to 16
+    bits."""
+    H = samples.shape[0]
+    if depth == 1 or depth == 4:
+        bits = np.unpackbits(samples.astype(np.uint8)[..., None], axis=-1)[
+            ..., 8 - depth:].reshape(H, -1)
+        rows = np.packbits(bits, axis=1)
+    else:
+        rows = samples.reshape(H, -1)
+    pad = (-rows.shape[1]) % 2
+    return np.pad(rows, ((0, 0), (0, pad))).astype(np.uint8).tobytes()
+
+
+def sun_rle(data):
+    """Pillow's and the format's byte encoding: runs of 3 or more as 0x80
+    n-1 v, a lone 0x80 as 0x80 0x00."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 256 and data[j] == data[i]:
+            j += 1
+        n = j - i
+        if n >= 3 or data[i] == 0x80:
+            out += bytes([0x80, n - 1, data[i]]) if n >= 2 or data[i] != \
+                0x80 else bytes([0x80, 0])
+        else:
+            out += bytes(data[i:j])
+        i = j
+    return bytes(out)
+
+
+# the names each route fixture is also read under: Pillow's (.ras, .png, an
+# unknown one) and OpenCV's (.sr, .pbm, .hdr) routes
+ROUTE_NAMES = (".ras", ".png", ".xyz", ".sr", ".pbm", ".hdr")
+
+
+def route_cases():
+    """(name, bytes, facts) of the Radiance HDR and Sun raster fixtures."""
+    import cv2
+    out = []
+
+    def add(name, data, **facts):
+        out.append((name, data, facts))
+
+    rgb = textured(29, 37, 41).astype(np.float64) / 255
+    rgb[3, 5] = 0                                 # E = 0
+    rgb[:, :4] *= 1.7                             # past 1: saturated
+    ok, enc = cv2.imencode(".hdr", rgb[..., ::-1].astype(np.float32))
+    assert ok
+    add("hdr_rle_opencv.hdr", enc.tobytes(), writer="cv2.imwrite",
+        scanlines="new run-length")
+    px = rgbe(rgb)
+    px[7:9, 10:30] = px[7, 10]                    # runs in every channel
+    add("hdr_rle_runs.hdr", radiance_file(px), scanlines="new run-length",
+        note="runs and literals")
+    add("hdr_header_lines.hdr", radiance_file(px, head=(
+        b"#?RGBE\nEXPOSURE=2.5\nGAMMA=2.2\n# comment\n"
+        b"FORMAT=32-bit_rle_rgbe\nPRIMARIES=0 0 0 0 0 0 0 0\n"),
+        size=b"-Y 29   +X 37 \n"), note="header lines OpenCV skips")
+    add("hdr_flat.hdr", radiance_file(px, rle=False), scanlines="flat")
+    narrow = rgbe(textured(9, 6, 42).astype(np.float64) / 97)
+    add("hdr_narrow_flat.hdr", radiance_file(narrow, rle=False),
+        scanlines="flat (width below 8)")
+    add("hdr_rle_then_flat.hdr", b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+        b"-Y 29 +X 37\n" + hdr_rle_line(px[0]) + hdr_rle_line(px[1])
+        + px[2:].tobytes(),
+        scanlines="run-length, then flat from the third scanline")
+    old = radiance_file(px, rle=False)
+    old = old[:old.index(b"+X 37\n") + 6] + px[0, 0].tobytes() + \
+        bytes([1, 1, 1, 200]) + px.tobytes()[8:]
+    add("hdr_old_rle.hdr", old, scanlines="old run-length form",
+        note="OpenCV reads its repeat marker as a flat pixel")
+    add("hdr_old_rle_short.hdr", old[:-800], raises="RGBE read error",
+        note="old run-length form read flat: the data ends early")
+    add("hdr_xyze.hdr", radiance_file(px, head=(
+        b"#?RADIANCE\nFORMAT=32-bit_rle_xyze\n")),
+        raises="missing FORMAT specifier")
+    add("hdr_plus_y.hdr", radiance_file(px, size=b"+Y 29 +X 37\n"),
+        raises="missing image size specifier")
+    add("hdr_truncated.hdr", radiance_file(px)[:-100],
+        raises="RGBE read error")
+    add("hdr_bad_run.hdr", radiance_file(px).replace(
+        bytes([2, 2, 0, 37]), bytes([2, 2, 0, 36]), 1),
+        raises="wrong scanline width")
+    n = 1024
+    blocky = big(n)[:, ::16].repeat(16, 1).astype(np.float64) / 200
+    add("hdr_1024_rle.hdr", radiance_file(rgbe(blocky)), large=True,
+        scanlines="new run-length", note="runs of 16")
+    # Sun raster
+    img = textured(29, 37, 43)
+    grey = img[..., 1]
+    add("sun_24bit_bgr.ras", sun_file(37, 29, 24, sun_rows(img[..., ::-1],
+                                                           24)), depth=24)
+    add("sun_24bit_rgb_type3.ras", sun_file(37, 29, 24, sun_rows(img, 24),
+                                            kind=3), depth=24,
+        note="OpenCV refuses type 3")
+    xbgr = np.concatenate([np.full((29, 37, 1), 7, np.uint8),
+                           img[..., ::-1]], -1)
+    add("sun_32bit.ras", sun_file(37, 29, 32, sun_rows(xbgr, 32)), depth=32,
+        note="Pillow reads BGRX, OpenCV XBGR")
+    add("sun_8bit_grey.ras", sun_file(37, 29, 8, sun_rows(grey, 8)),
+        depth=8)
+    cmap = np.stack([np.arange(200) * 7 % 256, np.arange(200) * 3 % 256,
+                     255 - np.arange(200)]).astype(np.uint8).tobytes()
+    add("sun_8bit_cmap.ras", sun_file(37, 29, 8, sun_rows(grey, 8),
+                                      cmap=cmap), depth=8,
+        note="200 colours: the higher indices black")
+    bitmap = (grey > 128).astype(np.uint8)
+    add("sun_1bit.ras", sun_file(37, 29, 1, sun_rows(bitmap, 1)), depth=1)
+    add("sun_4bit.ras", sun_file(37, 29, 4, sun_rows(grey >> 4, 4)),
+        depth=4, note="Pillow alone")
+    add("sun_rle_8bit.ras", sun_file(37, 29, 8, sun_rle(
+        np.repeat(grey[:, ::4], 4, 1)[:, :37].tobytes()), kind=2), depth=8,
+        note="run-length: Pillow alone")
+    add("sun_truncated.ras", sun_file(37, 29, 24, sun_rows(
+        img[..., ::-1], 24)[:-300]), raises="Sun raster")
+    return out
+
+
+def route_reads(data, names):
+    """What imageio gives for ``data`` under each suffix of ``names``: the
+    plugin OpenCV's check leaves it to and imageio's array (shape, type,
+    SHA-256) or its refusal."""
+    import tempfile
+
+    import cv2
+    import imageio.v2 as imageio
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext in names:
+            path = Path(tmp) / ("texture" + ext)
+            path.write_bytes(data)
+            read = {"opencv_reads": bool(cv2.haveImageReader(str(path)))}
+            try:
+                arr = np.asarray(imageio.imread(path))
+            except Exception as e:
+                read["raises"] = f"{type(e).__name__}: {e}".replace(
+                    f"{tmp}/", "")
+            else:
+                read.update(shape=list(arr.shape), dtype=str(arr.dtype),
+                            sha256=hashlib.sha256(arr.tobytes()).hexdigest())
+            out[ext] = read
+    return out
+
+
 def versions() -> dict:
     import cv2
     import imageio
@@ -3258,7 +3475,8 @@ def main() -> int:
         if name.endswith(".png"):   # the facts as the header states them
             assert (facts["depth"], facts["ctype"]) == (data[24], data[25]), \
                 (name, data[24], data[25])
-        entry = dict(file=name, facts=facts)
+        entry = dict(file=name, facts=facts,
+                     opencv_route=route_reads(data, (".pbm", ".hdr")))
         if "raises" in facts:
             entry["raises"] = facts.pop("raises")
             try:
@@ -3284,11 +3502,22 @@ def main() -> int:
             entry["key"] = name.replace(".", "_")
             arrays[entry["key"]] = rgb
         manifest.append(entry)
+    route = []
+    for name, data, facts in route_cases():
+        (HERE / name).write_bytes(data)
+        entry = dict(file=name, facts=facts,
+                     reads=route_reads(data, (name[name.rindex("."):],)
+                                       + ROUTE_NAMES))
+        if "raises" in facts:
+            entry["raises"] = facts.pop("raises")
+        if facts.pop("large", False):
+            entry["large"] = True
+        route.append(entry)
     np.savez_compressed(HERE / "expected.npz", **arrays)
     (HERE / "MANIFEST.json").write_text(json.dumps(
         {"generator": dict(script="tests/torch_textures/make_textures.py",
                            **versions()),
-         "files": manifest}, indent=1) + "\n")
+         "files": manifest, "route_files": route}, indent=1) + "\n")
     total = sum(p.stat().st_size for p in HERE.iterdir() if p.is_file())
     print(f"{len(manifest)} fixtures, {total} bytes", file=sys.stderr)
     return 0
