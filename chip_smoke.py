@@ -159,10 +159,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
     under ``.ras``, ``.png``, an unknown name and ``.sr``) in a temporary
     directory and read by ``read_image``, each equal to the manifest's
     digest of imageio's array or refused where imageio refuses it (the
-    CCITT and SGILog TIFFs refused by name, their decoders queued; content
-    OpenCV does not take read as under its own name), and the host ms of a
-    1024 x 1024 run-length Radiance HDR and a 1024 x 1024 16-bit RGB PNG
-    under ``.pbm``;
+    CCITT and SGILog TIFFs read through libtiff's codecs; content OpenCV
+    does not take read as under its own name), and the host ms of a 1024
+    x 1024 run-length Radiance HDR, a 1024 x 1024 16-bit RGB PNG, a 1024 x
+    1024 Group 4 TIFF and a 1024 x 1024 LogLuv32 TIFF under ``.pbm``;
     then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
@@ -4295,12 +4295,10 @@ TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
                  "jp2_1024_53.jp2", "jp2_1024_97_mct.jp2",
                  "tiff_1024_uint32_deflate_predictor.tif",
                  "tiff_1024_cielab_lzw.tif")
-# timed on imageio's OpenCV route: a fixture, and a 16-bit PNG this script
+# timed on imageio's OpenCV route: fixtures, and a 16-bit PNG this script
 # writes (_png16), each read under a .pbm name
-ROUTE_TIMED = ("hdr_1024_rle.hdr", "png_1024_rgb16")
-# OpenCV's libtiff decodes these; the port refuses them by name, its
-# decoders for them queued
-ROUTE_QUEUED = ("tiff_ccitt_g4.tif", "tiff_logluv_sgilog.tif")
+ROUTE_TIMED = ("hdr_1024_rle.hdr", "png_1024_rgb16", "tiff_1024_ccitt_g4.tif",
+               "tiff_1024_logluv32.tif")
 RENDER_GEN_SAMPLES = 1     # generated samples rendered of the apps' 3
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
@@ -4332,10 +4330,10 @@ def _png16(n=1024):
 
 def _route_check(manifest, decode_image, read_image):
     """imageio's OpenCV route on every fixture (see ``phase_textures``):
-    (reads equal to the manifest, refusals, queued refusals, reads of
-    content OpenCV does not take equal to the fixture's own)."""
+    (reads equal to the manifest, refusals, reads of content OpenCV does
+    not take equal to the fixture's own)."""
     import hashlib
-    equal = refused = queued = own = 0
+    equal = refused = own = 0
     for e in manifest["files"] + manifest["route_files"]:
         data = (TEXTURES / e["file"]).read_bytes()
         for ext, want in (e.get("opencv_route") or e["reads"]).items():
@@ -4343,9 +4341,6 @@ def _route_check(manifest, decode_image, read_image):
             try:
                 got = decode_image(data, name)
             except ValueError as err:
-                if e["file"] in ROUTE_QUEUED and "queued" in str(err):
-                    queued += 1
-                    continue
                 if "raises" not in want:
                     raise AssertionError(f"textures route {e['file']} as "
                                          f"{ext}: {err}") from None
@@ -4371,7 +4366,7 @@ def _route_check(manifest, decode_image, read_image):
                 raise AssertionError(f"textures route {e['file']} as {ext}: "
                                      "differs from the manifest")
             equal += 1
-    return equal, refused, queued, own
+    return equal, refused, own
 
 
 def _texture_expected(entry, arrays):
@@ -4395,7 +4390,7 @@ def phase_textures(card, reps=11):
     under ``.pbm`` and ``.hdr`` and the Radiance HDR and Sun raster
     fixtures under the names of ``MANIFEST.json``'s ``route_files``, read
     by ``decode_image``: equal to the digest of imageio's array, or
-    refused where imageio refuses (``ROUTE_QUEUED`` refused by name), or,
+    refused where imageio refuses, or,
     where OpenCV does not take the content, equal to the file's reading
     under its own name.
     Then each 1024 x 1024 file's decode time on the host (p50 and min of
@@ -4445,7 +4440,7 @@ def phase_textures(card, reps=11):
         per_format[fmt]["checked"] += 1
     check_s = time.perf_counter() - t_phase
     t_route = time.perf_counter()
-    route = dict(zip(("equal", "refused", "queued", "own"),
+    route = dict(zip(("equal", "refused", "own"),
                      _route_check(full, decode_image, read_image)))
     route["check_s"] = time.perf_counter() - t_route
     png16, samples16 = _png16()
@@ -4494,7 +4489,7 @@ def phase_textures(card, reps=11):
         + ", ".join(f"{n} {t['decode_ms_p50']:.2f} ({t['decode_ms_min']:.2f})"
                     " ms" for n, t in times.items())
         + f"; OpenCV route {route['equal']} equal, {route['refused']} "
-        f"refused, {route['queued']} queued, {route['own']} as their own; "
+        f"refused, {route['own']} as their own; "
         + ", ".join(f"{n} as .pbm {t['decode_ms_p50']:.2f} ms"
                     for n, t in timed_route.items())
         + f" ({card}); phase {out['phase_s']:.1f} s")

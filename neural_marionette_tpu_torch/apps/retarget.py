@@ -99,9 +99,10 @@ def _find_texture(mtl_path: str):
     BMP, TGA, GIF, TIFF, WebP, DDS, QOI, PNM, Sun raster, Radiance HDR,
     JPEG 2000), by the plugin imageio picks for the file's name and
     content: under ``.pbm``, ``.hdr`` and OpenCV's other names, and for
-    Radiance HDR under any name, as OpenCV reads it, which gives (H, W, 3)
-    uint8 RGB and so a texture equal to the JAX one. A file that is present
-    but cannot be read (a PSD, which imageio does not read either, an
+    Radiance HDR under any name, as OpenCV reads it (a TIFF through
+    libtiff's codecs, CCITT fax and SGILog among them), which gives (H, W,
+    3) uint8 RGB and so a texture equal to the JAX one. A file that is
+    present but cannot be read (a PSD, which imageio does not read either, an
     AVIF, an OpenEXR) raises ``ValueError``."""
     if not os.path.exists(mtl_path):
         return None

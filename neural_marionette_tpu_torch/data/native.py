@@ -2,8 +2,9 @@
 data layer's loops, the GIF and PNG coders of ``viz/image_files.py``, its
 JPEG and QOI decoders, and the LZW, PackBits and run-length expansions of
 its GIF, TIFF, BMP and TGA readers), ``csrc/nm_webp.cpp`` (its WebP
-decoder), ``csrc/nm_dds.cpp`` (the BC1-BC7 blocks of its DDS reader) and
-``csrc/nm_jp2.cpp`` (its JPEG 2000 decoder).
+decoder), ``csrc/nm_dds.cpp`` (the BC1-BC7 blocks of its DDS reader),
+``csrc/nm_jp2.cpp`` (its JPEG 2000 decoder) and ``csrc/nm_tiffcodec.cpp``
+(libtiff's CCITT fax and SGILog codecs of its OpenCV route).
 
 Counterpart of ``neural_marionette_tpu/data/native.py``. The library is
 built by ``kernels.py`` with ``g++`` into ``_build/`` at first use. Where
@@ -25,6 +26,7 @@ _lib: Optional[ctypes.CDLL] = None
 _webp: Optional[ctypes.CDLL] = None
 _dds: Optional[ctypes.CDLL] = None
 _jp2: Optional[ctypes.CDLL] = None
+_tiffcodec: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()   # the loader's threads may ask for it at once
 
 
@@ -141,6 +143,78 @@ def jp2_library() -> ctypes.CDLL:
             lib.nm_jp2_components.restype = ctypes.c_int
             _jp2 = lib
     return _jp2
+
+
+def tiffcodec_library() -> ctypes.CDLL:
+    """The loaded CCITT fax and SGILog decoders (``csrc/nm_tiffcodec.cpp``);
+    built on first use, raises if it cannot be built."""
+    global _tiffcodec
+    with _lock:
+        if _tiffcodec is None:
+            lib = kernels.library("nm_tiffcodec")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+            i32, i64 = ctypes.c_int32, ctypes.c_int64
+            lib.nm_fax_decode.argtypes = [u8p, i64, i64p, i64p, i64p, i32,
+                                          i32, i64, i32, ctypes.c_uint32,
+                                          i32, u8p]
+            lib.nm_fax_decode.restype = ctypes.c_int
+            lib.nm_sgilog_decode.argtypes = [u8p, i64, i64p, i64p, i64p, i32,
+                                             i64, i32, i32, u8p]
+            lib.nm_sgilog_decode.restype = ctypes.c_int
+            _tiffcodec = lib
+    return _tiffcodec
+
+
+def _blocks(offsets, counts, rows):
+    return tuple(np.ascontiguousarray(v, np.int64).reshape(-1)
+                 for v in (offsets, counts, rows))
+
+
+def fax_decode(data, offsets, counts, rows, rowpixels: int, rowbytes: int,
+               compression: int, options: int = 0,
+               fillorder: int = 1) -> np.ndarray:
+    """The CCITT strips or tiles of one TIFF (block i: ``counts[i]`` bytes
+    at ``offsets[i]`` of the file ``data``, ``rows[i]`` rows of
+    ``rowpixels`` pixels) as libtiff's fax codec decodes them, in the order
+    given (its run arrays pass from one block to the next): compression 2,
+    3 (``options`` its Group3Options, bit 0 for 2-D coding), 4 or 32771;
+    ``fillorder`` 2 reads bits least significant first. Returns the
+    blocks' packed rows, ``rowbytes`` bytes each, one block after the
+    other, 1 for black. Where a block goes wrong, the rows libtiff fills
+    are kept and the rest are zero, as OpenCV reads them."""
+    src = _bytes(data)
+    offs, cnts, rws = _blocks(offsets, counts, rows)
+    out = np.zeros(int(rws.sum()) * rowbytes, np.uint8)
+    if tiffcodec_library().nm_fax_decode(
+            src, src.size, offs, cnts, rws, offs.size, rowpixels, rowbytes,
+            compression, options, fillorder, out):
+        raise ValueError("CCITT: a strip or tile outside the file, or rows "
+                         f"of {rowpixels} pixels in {rowbytes} bytes")
+    return out
+
+
+# nm_sgilog_decode's kinds: the photometric and compression -> kind
+SGILOG_KINDS = {(32844, 34676): 0, (32845, 34676): 1, (32845, 34677): 2}
+
+
+def sgilog_decode(data, offsets, counts, rows, width: int, kind: int,
+                  fillorder: int = 1) -> np.ndarray:
+    """The SGILog strips or tiles of one TIFF (blocks as for
+    ``fax_decode``, rows of ``width`` pixels) as libtiff decodes them for
+    its RGBA reader (``SGILOGDATAFMT_8BIT``): ``kind`` 0 LogL16 (one grey
+    byte a pixel), 1 LogLuv32 and 2 LogLuv24 (three, RGB). Returns the
+    blocks' samples one after the other; a block ends at the first row its
+    data cannot complete, the rest zero."""
+    src = _bytes(data)
+    offs, cnts, rws = _blocks(offsets, counts, rows)
+    channels = 1 if kind == 0 else 3
+    out = np.zeros(int(rws.sum()) * width * channels, np.uint8)
+    if tiffcodec_library().nm_sgilog_decode(src, src.size, offs, cnts, rws,
+                                            offs.size, width, kind,
+                                            fillorder, out):
+        raise ValueError("SGILog: a strip or tile outside the file")
+    return out
 
 
 def _frames(points: np.ndarray) -> np.ndarray:

@@ -4,7 +4,8 @@ data library.
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on first use into its own
 shared library with a plain C interface, loaded through ``ctypes``; the
 host libraries ``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
-``csrc/nm_dds.cpp`` and ``csrc/nm_jp2.cpp`` (``data/native.py``) are
+``csrc/nm_dds.cpp``, ``csrc/nm_jp2.cpp`` and ``csrc/nm_tiffcodec.cpp``
+(``data/native.py``) are
 compiled the same way by ``g++``. The libraries land in ``_build/`` beside this file (git-ignored),
 under a name that carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale one is never loaded. All sources build in
@@ -29,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("voxelize", "chamfer", "conv3d", "groupnorm")
-HOST_SOURCES = ("nm_host", "nm_webp", "nm_dds", "nm_jp2")  # .cpp, g++
+HOST_SOURCES = ("nm_host", "nm_webp", "nm_dds", "nm_jp2",
+                "nm_tiffcodec")  # .cpp, g++
 
 # No --use_fast_math: the voxelizer depends on true IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -67,6 +69,7 @@ _SIGNATURES = {
     "nm_webp": {},
     "nm_dds": {},
     "nm_jp2": {},
+    "nm_tiffcodec": {},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -707,8 +707,9 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
     OpenCV (``viz/opencv_read.decode_opencv``): what
     :func:`opencv_reads` recognises, as OpenCV reads it for
     ``IMREAD_COLOR``: (H, W, 3) uint8 RGB (a grey float map (H, W, 1)),
-    EXIF orientation applied; Radiance HDR (``viz/radiance.py``) reaches
-    it under every name.
+    EXIF orientation applied (a TIFF through libtiff's RGBA reader and
+    codecs, CCITT fax and SGILog among them); Radiance HDR
+    (``viz/radiance.py``) reaches it under every name.
 
     Pillow and tifffile: PNG (:func:`read_png`); JPEG (baseline, extended
     sequential, progressive and lossless; Huffman or arithmetic coding;

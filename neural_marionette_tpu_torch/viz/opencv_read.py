@@ -25,7 +25,10 @@ which name OpenCV's reasons.
   JP2 palette and channel definitions applied, then OpenCV's converters.
 * TIFF (:func:`_tiff`): OpenCV's TiffDecoder header checks, then libtiff's
   RGBA interface (TIFFReadRGBAStrip / Tile), which OpenCV uses for 8-bit
-  output.
+  output, with libtiff's codecs: among them CCITT fax (T.4 1-D and 2-D,
+  T.6, modified Huffman byte- and word-aligned) and SGILog (LogL16,
+  LogLuv32, LogLuv24), decoded by the host library
+  (``native.fax_decode``, ``native.sgilog_decode``).
 * BMP (:func:`_bmp`) and GIF (:func:`_gif`): OpenCV's own decoders.
 * PxM, PAM and PFM: ``texture_formats.pxm_opencv``, ``pam_opencv`` and
   ``pfm_opencv``; Radiance HDR: ``radiance.decode_radiance``; Sun raster:
@@ -732,10 +735,11 @@ _ORIENTATION, _WHITE_POINT, _JPEG_TABLES = 274, 318, 347
 # libtiff's _TIFFGetMaxColorChannels
 _COLOUR_CHANNELS = {0: 1, 1: 1, 3: 1, 4: 1, 32844: 1, 2: 3, 8: 3, 32845: 3,
                     9: 3, 10: 3, 6: 3, 5: 4}
-# compressions of libtiff's codecs that the port does not decode yet
-_QUEUED = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
-           32771: "CCITT RLEW", 34676: "SGI LogLuv", 34677: "SGI LogLuv 24"}
-_OPENCV_COMPRESSION = (1, 5, 7, 8, 32773, 32946)
+# libtiff's CCITT fax compressions (tif_fax3.c), its SGILog ones (tif_luv.c)
+_FAX = (2, 3, 4, 32771)
+_SGILOG = (34676, 34677)
+_OPENCV_COMPRESSION = (1, 5, 7, 8, 32773, 32946) + _FAX + _SGILOG
+_T4_OPTIONS = 292
 
 
 def _tfail(path: str, what: str):
@@ -786,12 +790,23 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
     16 bits (1-bit and other depths fail libtiff's PredictorSetup), the
     floating point predictor only on float samples. A strip or tile that
     decodes to fewer bytes than it should fails. Separate planes are found
-    as libtiff counts strips, which ignores ImageDepth. CCITT and SGILog
-    compressions, which OpenCV's libtiff decodes, are refused by name: the
-    port's decoders for them are queued. The Orientation tag is applied as
-    an EXIF orientation."""
+    as libtiff counts strips, which ignores ImageDepth.
+
+    CCITT fax data (compression 2, 3 under Group3Options 1-D or 2-D, 4 and
+    32771) is decoded by libtiff's fax codec (``native.fax_decode``, its
+    own fill order, 1-bit samples only), which reads on past a bad row as
+    libtiff does. SGILog data (34676, 34677) is read as
+    TIFFRGBAImageBegin reads it, with the codec's 8-bit output: LogL
+    (photometric 32844, compression 34676, one sample) as grey through
+    L16toGry, LogLuv (32845, three contiguous samples) as RGB through
+    LogLuv32toXYZ or LogLuv24toXYZ and XYZtoRGB24; a three-sample LogLuv
+    image passes none of OpenCV's header checks of depth and sample format
+    (it takes them as its float path's), libtiff's still apply. LogL and
+    LogLuv data under another compression are refused as libtiff refuses
+    them. The Orientation tag is applied as an EXIF orientation."""
     r = T._Reader(data, path)
     tags = r.tags
+    _directory_checks(tags, path)
     W, H = T._one(tags, T._WIDTH, 0), T._one(tags, T._LENGTH, 0)
     spp = T._one(tags, T._SAMPLES, 1)
     bits_all = tags.get(T._BITS) or (1,)
@@ -827,19 +842,17 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
     bpp = bits
     if bpp > 8 and (photometric > 2 or spp not in (1, 3, 4)):
         bpp = 8
-    if bpp == 4 and photometric != 3:
+    if photometric == 32845 and spp == 3:
+        pass        # OpenCV's float (HDR) path, which checks no depth here
+    elif bpp == 4 and photometric != 3:
         _tfail(path, "bitsperpixel value is 4 should be palette")
-    if bpp not in (1, 4, 8, 10, 12, 14, 16, 32, 64):
+    elif bpp not in (1, 4, 8, 10, 12, 14, 16, 32, 64):
         _tfail(path, f"Invalid bitsperpixel value {bits} (OpenCV reads 1, "
                      "8, 10, 12, 14, 16, 32 or 64)")
-    if fmt not in ((1, 2, 3) if bpp in (32, 64) else (1, 2)):
+    elif fmt not in ((1, 2, 3) if bpp in (32, 64) else (1, 2)):
         _tfail(path, f"sample format {fmt} at {bits} bits (OpenCV's "
                      "sample_format check)")
     # libtiff's TIFFRGBAImageOK and TIFFRGBAImageBegin
-    if compression in _QUEUED:
-        _tfail(path, f"compression {compression} ({_QUEUED[compression]}),"
-                     " which OpenCV's libtiff decodes; the port's decoder "
-                     "for it is queued (ROADMAP.md Queue 1)")
     if compression not in _OPENCV_COMPRESSION:
         name = T._COMPRESSION_NAMES.get(compression, "unknown")
         _tfail(path, f"compression {compression} ({name}) is not read "
@@ -872,13 +885,37 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
             _tfail(path, "TIFFRGBAImageOK: Sorry, can not handle image with "
                          f"Samples/pixel={spp}, colorchannels={channels} "
                          f"and Bits/sample={bits}")
-    elif photometric in (32844, 32845):
-        kind = "LogL" if photometric == 32844 else "LogLuv"
-        _tfail(path, f"TIFFRGBAImageOK: Sorry, {kind} data must have "
-                     "Compression=34676")
+    elif photometric == 32844:
+        if compression != 34676:
+            _tfail(path, "TIFFRGBAImageOK: Sorry, LogL data must have "
+                         "Compression=34676")
+    elif photometric == 32845:
+        if compression not in _SGILOG:
+            _tfail(path, "TIFFRGBAImageOK: Sorry, LogLuv data must have "
+                         "Compression=34676 or 34677")
+        if planar != 1:
+            _tfail(path, "TIFFRGBAImageOK: Sorry, can not handle LogLuv "
+                         f"images with Planarconfiguration={planar}")
+        if spp != 3 or channels != 3:
+            _tfail(path, "TIFFRGBAImageOK: Sorry, can not handle image with "
+                         f"Samples/pixel={spp}, colorchannels={channels}")
     elif photometric != 6:
         _tfail(path, "TIFFRGBAImageOK: Sorry, can not handle image with "
                      f"PhotometricInterpretation={photometric}")
+    if compression in _SGILOG:
+        img = _sgilog_samples(r, tags, W, H, photometric, compression, spp,
+                              path)
+        # "the little white lie": 8-bit grey or RGB to the put routines
+        rgb = _tiff_rgba(img, tags, 1 if img.shape[-1] == 1 else 2, 8,
+                         img.shape[-1], [], path)
+        return orient(rgb, T._one(tags, _ORIENTATION, 1))
+    if compression in _FAX:
+        if bits != 1:
+            _tfail(path, "libtiff: Bits/sample must be 1 for Group 3/4 "
+                         "encoding/decoding")
+        if spp != 1 and planar == 1:
+            _tfail(path, "libtiff: Samples/pixel shall be 1 in planarconfig "
+                         "contiguous decoding")
     jpeg_rgb = photometric == 6 and compression == 7 and planar == 1
     kind = 2 if jpeg_rgb else photometric
     if kind == 3 and bits == 16 or kind == 5 and bits != 8 \
@@ -897,6 +934,35 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
                             jpeg_rgb, path)
     rgb = _tiff_rgba(samples, tags, kind, bits, spp, extra, path)
     return orient(rgb, T._one(tags, _ORIENTATION, 1))
+
+
+def _directory_checks(tags, path: str) -> None:
+    """What makes libtiff's TIFFReadDirectory fail before OpenCV sees the
+    image: a SamplesPerPixel of 0 or past 16 bits, a RowsPerStrip of 0 or
+    past 32 bits, a PlanarConfiguration of another count than 1 or another
+    value than 1 or 2, no strip (or tile) offsets, and no byte counts for
+    more than one strip (one strip's libtiff estimates: ``_extent``)."""
+    for tag, name, top in ((T._SAMPLES, "SamplesPerPixel", 0xFFFF),
+                           (T._ROWS_PER_STRIP, "RowsPerStrip", 0xFFFFFFFF)):
+        value = T._one(tags, tag, 1)
+        if not 1 <= value <= top:
+            _tfail(path, f"libtiff: Bad value {value} for \"{name}\"")
+    planar = tags.get(T._PLANAR)
+    if planar is not None and len(planar) != 1:
+        _tfail(path, "libtiff: Incorrect count for \"PlanarConfiguration\"")
+    if planar is not None and planar[0] not in (1, 2):
+        _tfail(path, f"libtiff: Bad value {planar[0]} for "
+                     "\"PlanarConfiguration\" tag")
+    tiled = T._TILE_WIDTH in tags
+    offsets = tags.get(T._TILE_OFFSETS if tiled else T._STRIP_OFFSETS)
+    if offsets is None:
+        field = "TileOffsets" if tiled else "StripOffsets"
+        _tfail(path, f"libtiff: TIFF directory is missing required "
+                     f"\"{field}\" field")
+    if (T._TILE_COUNTS if tiled else T._STRIP_COUNTS) not in tags and \
+            len(offsets) > 1:
+        _tfail(path, "libtiff: TIFF directory is missing required "
+                     "\"StripByteCounts\" field")
 
 
 def _strip_bytes(r, i: int, tags, compression: int, need: int,
@@ -945,10 +1011,8 @@ def _jpeg_strip(r, i: int, tags, path: str) -> np.ndarray:
     """A JPEG-compressed strip or tile: the JPEGTables stream's tables,
     then the strip's own stream, decoded by libjpeg with no colour
     conversion but YCbCr to RGB."""
-    tiled = T._TILE_WIDTH in tags
-    offsets = tags.get(T._TILE_OFFSETS if tiled else T._STRIP_OFFSETS)
-    counts = tags.get(T._TILE_COUNTS if tiled else T._STRIP_COUNTS)
-    raw = r.data[offsets[i]:offsets[i] + counts[i]]
+    off, cnt = _extent(r, tags, i, path)
+    raw = r.data[off:off + cnt]
     tables = tags.get(_JPEG_TABLES)
     if tables is not None:
         tables = bytes(tables)
@@ -965,7 +1029,6 @@ def _tiff_samples(r, tags, W, H, spp, bits, compression, planar, fmt,
     """The first image's samples as libtiff's RGBA reader gets them:
     (H, W, spp) uint8 or native uint16 (1-, 2- and 4-bit levels unpacked),
     or, for sub-sampled YCbCr, (H, W, 3) with chroma replicated."""
-    tiled = T._TILE_WIDTH in tags
     order = r.order
     predictor = T._one(tags, T._PREDICTOR, 1) \
         if compression in (5, 8, 32946) else 1
@@ -980,31 +1043,15 @@ def _tiff_samples(r, tags, W, H, spp, bits, compression, planar, fmt,
                      "supported")
     planes = spp if planar == 2 else 1
     contig = 1 if planar == 2 else spp
-    item = 2 if bits == 16 else 1
     dtype = np.dtype(order + "u2") if bits == 16 else np.dtype(np.uint8)
-    if tiled:
-        tw, tl = T._one(tags, T._TILE_WIDTH, 0), T._one(tags, T._TILE_LENGTH,
-                                                        0)
-        td = max(1, T._one(tags, T._TILE_DEPTH, 1))
-        D = max(1, T._one(tags, T._IMAGE_DEPTH, 1))
-        if not tw or not tl:
-            _tfail(path, f"tiles of {tw} x {tl} pixels")
-        across, down = -(-W // tw), -(-H // tl)
-        per_plane = across * down * -(-D // td)
-        blocks = [(p * per_plane + ty * across + tx, p, ty * tl, tx * tw,
-                   tl, tw, td) for p in range(planes) for ty in range(down)
-                  for tx in range(across)]
-    else:
-        rps = T._one(tags, T._ROWS_PER_STRIP, H) or H
-        rps = min(rps, H)
-        per_plane = -(-H // rps)
-        blocks = [(p * per_plane + y // rps, p, y, 0, min(rps, H - y), W, 1)
-                  for p in range(planes) for y in range(0, H, rps)]
+    blocks = _blocks(tags, W, H, planes, path)
     if sub is not None and sub != (1, 1):
         return _ycbcr_blocks(r, tags, blocks, W, H, sub, compression, path)
+    fax = _fax_blocks(r, tags, blocks, compression, path) \
+        if compression in _FAX else None
     out = np.zeros((planes, H, W, contig), np.uint16 if bits == 16 else
                    np.uint8)
-    for i, p, y, x, rows, run, depth in blocks:
+    for k, (i, p, y, x, rows, run, depth) in enumerate(blocks):
         if jpeg_rgb or compression == 7:
             block = _jpeg_strip(r, i, tags, path)
             block = block[:rows, :run].reshape(-1)
@@ -1013,8 +1060,8 @@ def _tiff_samples(r, tags, W, H, spp, bits, compression, planar, fmt,
                                                              contig)
         else:
             row_bytes = (run * contig * bits + 7) // 8
-            buf = _strip_bytes(r, i, tags, compression,
-                               depth * rows * row_bytes, path)
+            buf = fax[k] if fax is not None else _strip_bytes(
+                r, i, tags, compression, depth * rows * row_bytes, path)
             buf = buf[:rows * row_bytes]
             if bits < 8:
                 block = T._unpack_bits(buf, rows, run * contig, bits).reshape(
@@ -1027,6 +1074,97 @@ def _tiff_samples(r, tags, W, H, spp, bits, compression, planar, fmt,
         h, w = min(block.shape[0], H - y), min(block.shape[1], W - x)
         out[p, y:y + h, x:x + w] = block[:h, :w]
     return out[0] if planar == 1 else out[..., 0].transpose(1, 2, 0)
+
+
+def _blocks(tags, W, H, planes, path):
+    """The strips or tiles of the first image in the order OpenCV's RGBA
+    reads take them: (index, plane, y, x, rows, row pixels, depth)."""
+    if T._TILE_WIDTH in tags:
+        tw, tl = T._one(tags, T._TILE_WIDTH, 0), T._one(tags, T._TILE_LENGTH,
+                                                        0)
+        td = max(1, T._one(tags, T._TILE_DEPTH, 1))
+        D = max(1, T._one(tags, T._IMAGE_DEPTH, 1))
+        if not tw or not tl:
+            _tfail(path, f"tiles of {tw} x {tl} pixels")
+        across, down = -(-W // tw), -(-H // tl)
+        per_plane = across * down * -(-D // td)
+        return [(p * per_plane + ty * across + tx, p, ty * tl, tx * tw, tl,
+                 tw, td) for p in range(planes) for ty in range(down)
+                for tx in range(across)]
+    rps = T._one(tags, T._ROWS_PER_STRIP, H) or H
+    rps = min(rps, H)
+    per_plane = -(-H // rps)
+    return [(p * per_plane + y // rps, p, y, 0, min(rps, H - y), W, 1)
+            for p in range(planes) for y in range(0, H, rps)]
+
+
+def _extent(r, tags, i: int, path: str) -> tuple[int, int]:
+    """Block ``i``'s (offset, byte count) in the file. A lone strip without
+    a byte count runs to the end of the file (libtiff estimates it from
+    the file's size); a block that is empty or runs past the end of the
+    file fails the read, as libtiff's TIFFFillStrip fails it."""
+    tiled = T._TILE_WIDTH in tags
+    offsets = tags[T._TILE_OFFSETS if tiled else T._STRIP_OFFSETS]
+    counts = tags.get(T._TILE_COUNTS if tiled else T._STRIP_COUNTS)
+    if i >= len(offsets):
+        _tfail(path, f"no strip or tile {i}")
+    if counts is None:
+        counts = (max(0, len(r.data) - offsets[0]),)
+    if i >= len(counts):
+        _tfail(path, f"no byte count of strip or tile {i}")
+    if counts[i] == 0:
+        _tfail(path, f"libtiff: Invalid strip byte count 0, strip {i}")
+    if offsets[i] + counts[i] > len(r.data):
+        _tfail(path, f"strip or tile {i} runs past the end of the file "
+                     "(libtiff: Read error on strip)")
+    return offsets[i], counts[i]
+
+
+def _fax_blocks(r, tags, blocks, compression, path):
+    """Each block's packed 1-bit rows (1 black), decoded by libtiff's fax
+    codec in OpenCV's order, the codec's run arrays passed from block to
+    block."""
+    ext = [_extent(r, tags, i, path) for i, *_ in blocks]
+    rows = [b[4] * b[6] for b in blocks]
+    run = blocks[0][5]
+    options = T._one(tags, _T4_OPTIONS, 0) if compression == 3 else 0
+    rowbytes = (run + 7) // 8
+    out = native.fax_decode(r.data, [e[0] for e in ext],
+                            [e[1] for e in ext], rows, run, rowbytes,
+                            compression, options,
+                            T._one(tags, T._FILLORDER, 1))
+    ends = np.cumsum([0] + rows) * rowbytes
+    return [out[a:b] for a, b in zip(ends[:-1], ends[1:])]
+
+
+def _sgilog_samples(r, tags, W, H, photometric, compression, spp, path):
+    """An SGILog image's (H, W, 1) grey or (H, W, 3) RGB samples as the
+    codec gives them to libtiff's RGBA reader (SGILOGDATAFMT_8BIT)."""
+    if photometric == 32844 and spp != 1:
+        _tfail(path, "libtiff: Sorry, can not handle LogL image with "
+                     f"Samples/pixel={spp}")
+    kind = native.SGILOG_KINDS.get((photometric, compression))
+    if kind is None:
+        _tfail(path, f"libtiff: Inappropriate photometric interpretation "
+                     f"{photometric} for SGILog compression; must be either "
+                     "LogLUV or LogL")
+    channels = 1 if kind == 0 else 3
+    blocks = _blocks(tags, W, H, 1, path)
+    ext = [_extent(r, tags, i, path) for i, *_ in blocks]
+    rows = [b[4] * b[6] for b in blocks]
+    run = blocks[0][5]
+    flat = native.sgilog_decode(r.data, [e[0] for e in ext],
+                                [e[1] for e in ext], rows, run, kind,
+                                T._one(tags, T._FILLORDER, 1))
+    out = np.zeros((H, W, channels), np.uint8)
+    at = 0
+    for (_, _, y, x, rows_here, run_here, _), n in zip(blocks, rows):
+        block = flat[at:at + n * run_here * channels].reshape(
+            n, run_here, channels)
+        at += n * run_here * channels
+        h, w = min(rows_here, H - y), min(run_here, W - x)
+        out[y:y + h, x:x + w] = block[:h, :w]
+    return out
 
 
 def _ycbcr_blocks(r, tags, blocks, W, H, sub, compression, path):

@@ -7,8 +7,8 @@ imageio's choice of plugin (``image_files.imageio_route``,
   the content check against ``cv2.haveImageReader``;
 * every fixture of ``tests/torch_textures/`` copied under ``.pbm`` and
   ``.hdr``: the port's ``load_obj_mesh`` against the JAX package's on every
-  key, to the bit, or both refusing (CCITT and SGILog TIFFs, whose
-  decoders are queued, refused by name); one fixture of each format under
+  key, to the bit (CCITT and SGILog TIFFs among them, read through
+  libtiff's codecs), or both refusing; one fixture of each format under
   ``.pfm``, ``.pic``, ``.sr``, ``.pxm`` and ``.exr``; the Radiance HDR and
   Sun raster fixtures under their own names and under ``.png``, ``.ras``,
   an unknown name, ``.sr``, ``.pbm`` and ``.hdr``; the manifest's
@@ -49,8 +49,6 @@ _spec = importlib.util.spec_from_file_location("make_textures",
                                                TEX / "make_textures.py")
 MAKE = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(MAKE)
-# OpenCV's libtiff decodes these; the port's decoders for them are queued
-QUEUED = {"tiff_ccitt_g4.tif": "CCITT", "tiff_logluv_sgilog.tif": "SGI"}
 
 
 def _imageio(data: bytes, tmp_path: Path, name: str):
@@ -194,18 +192,14 @@ def _texture_under(tmp_path, entry, ext):
 @pytest.mark.parametrize("entry", FILES, ids=[e["file"] for e in FILES])
 def test_fixture_under_opencv_name_reads_like_jax(tmp_path, entry, ext):
     """Every fixture copied under ``.pbm`` and ``.hdr``: where OpenCV reads
-    it (imageio's array is RGB uint8), the port's mesh is the JAX mesh on
-    every key, to the bit; where imageio refuses it, so does the port;
+    it (imageio's array is RGB uint8; the CCITT and SGILog TIFFs among
+    them), the port's mesh is the JAX mesh on every key, to the bit; where
+    imageio refuses it, so does the port;
     where Pillow reads it (content OpenCV does not take), the port's
     texture is the one it reads under the fixture's own name, under the
     rules of ``texture_rgb``."""
     read = entry["opencv_route"][ext]
     p, j = _texture_under(tmp_path, entry, ext)
-    if entry["file"] in QUEUED:
-        assert isinstance(p, ValueError) and QUEUED[entry["file"]] in \
-            str(p) and "queued" in str(p)
-        assert j is not None, "imageio reads it through OpenCV's libtiff"
-        return
     if "raises" in read:
         assert isinstance(p, ValueError), "imageio refuses it"
         assert j is None
@@ -724,6 +718,9 @@ def test_refusals_name_opencv_reasons(tmp_path):
                "tiff_float32_grey.tif": "32-bit samples",
                "tiff_rgb_lzma_strips.tif": "not configured",
                "tiff_separated_five_inks.tif": "number of channels",
+               "tiff_logluv_raw.tif": "LogLuv data must have Compression="
+                                      "34676 or 34677",
+               "tiff_logl16.tif": "LogL data must have Compression=34676",
                "bmp_rle4.bmp": "BMP", "gif_frame_past_screen.gif":
                "left + width", "gif_index_past_table.gif": "code2pixel"}
     for name, words in reasons.items():

@@ -1,9 +1,10 @@
 """Mutated and truncated texture fixtures through the port's readers, with
-the four host libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
-``csrc/nm_dds.cpp``, ``csrc/nm_jp2.cpp``) built under AddressSanitizer and
-UndefinedBehaviorSanitizer: every decoder of them, the JPEG processes
-(Huffman, arithmetic, lossless, block smoothing), WebP, BCn, QOI and JPEG
-2000, and the expansions of GIF, TIFF, BMP and TGA.
+the five host libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
+``csrc/nm_dds.cpp``, ``csrc/nm_jp2.cpp``, ``csrc/nm_tiffcodec.cpp``) built
+under AddressSanitizer and UndefinedBehaviorSanitizer: every decoder of
+them, the JPEG processes (Huffman, arithmetic, lossless, block smoothing),
+WebP, BCn, QOI and JPEG 2000, the expansions of GIF, TIFF, BMP and TGA,
+and TIFF's CCITT fax and SGILog codecs.
 
     python tests/torch_textures/asan_mutants.py [--per 1000] [--seed 2024]
         [--formats JPEG2000,...] [--as .pbm]
@@ -12,7 +13,9 @@ Builds the libraries with ``g++ -fsanitize=address,undefined
 -fno-sanitize-recover=undefined`` into a temporary directory, then runs
 itself again with the sanitizer runtimes preloaded. Each small fixture that
 the port reads (``MANIFEST.json``: its ``files`` and its Radiance HDR and
-Sun raster ``route_files``; ``--formats`` picks by ``image_format``'s
+Sun raster ``route_files``; with ``--as``, also the fixtures the port
+refuses under their own names and reads under that one, the CCITT and
+SGILog TIFFs among them; ``--formats`` picks by ``image_format``'s
 names, in any case) gives ``--per`` mutants, in turn: 1-4
 bytes set anywhere; 1-2 bytes set in its first 64; bytes set then the file
 cut; the file cut. Every mutant goes through ``decode_image`` and
@@ -39,7 +42,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent.parent
-LIBS = ("nm_host", "nm_webp", "nm_dds", "nm_jp2")
+LIBS = ("nm_host", "nm_webp", "nm_dds", "nm_jp2", "nm_tiffcodec")
 FLAGS = ("-O1", "-g", "-std=c++17", "-shared", "-fPIC", "-pthread",
          "-fsanitize=address,undefined", "-fno-sanitize-recover=undefined",
          "-fno-omit-frame-pointer")
@@ -64,8 +67,10 @@ def run(lib_dir: Path, per: int, seed: int, formats: str = "",
     from neural_marionette_tpu_torch.viz import image_files as F
     manifest = json.loads((HERE / "MANIFEST.json").read_text())
     names = [e["file"] for e in manifest["files"] + manifest["route_files"]
-             if "raises" not in e and "sha256" not in e
-             and not e.get("large")]
+             if ("raises" not in e or "sha256" in e.get(
+                 "opencv_route", {}).get(suffix, {}))
+             and "sha256" not in e and not e.get("large")
+             and not e["facts"].get("large")]
     if formats:
         wanted = formats.lower().split(",")
         names = [n for n in names if F.image_format(

@@ -515,6 +515,164 @@ def packbits(data):
     return bytes(out)
 
 
+# T.4's code words (first bit first): terminating codes of runs 0-63,
+# make-up codes of 64-1728, the make-up codes of 1792-2560 both colours share
+FAX_WHITE = """00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111
+01000 001000 000011 110100 110101 101010 101011 0100111 0001100 0001000
+0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 00000010
+00000011 00011010 00011011 00010010 00010011 00010100 00010101 00010110
+00010111 00101000 00101001 00101010 00101011 00101100 00101101 00000100
+00000101 00001010 00001011 01010010 01010011 01010100 01010101 00100100
+00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010
+00110011 00110100""".split()
+FAX_WHITE_MAKEUP = """11011 10010 010111 0110111 00110110 00110111 01100100
+01100101 01101000 01100111 011001100 011001101 011010010 011010011
+011010100 011010101 011010110 011010111 011011000 011011001 011011010
+011011011 010011000 010011001 010011010 011000 010011011""".split()
+FAX_BLACK = """0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100
+0000101 0000111 00000100 00000111 000011000 0000010111 0000011000
+0000001000 00001100111 00001101000 00001101100 00000110111 00000101000
+00000010111 00000011000 000011001010 000011001011 000011001100
+000011001101 000001101000 000001101001 000001101010 000001101011
+000011010010 000011010011 000011010100 000011010101 000011010110
+000011010111 000001101100 000001101101 000011011010 000011011011
+000001010100 000001010101 000001010110 000001010111 000001100100
+000001100101 000001010010 000001010011 000000100100 000000110111
+000000111000 000000100111 000000101000 000001011000 000001011001
+000000101011 000000101100 000001011010 000001100110 000001100111""".split()
+FAX_BLACK_MAKEUP = """0000001111 000011001000 000011001001 000001011011
+000000110011 000000110100 000000110101 0000001101100 0000001101101
+0000001001010 0000001001011 0000001001100 0000001001101 0000001110010
+0000001110011 0000001110100 0000001110101 0000001110110 0000001110111
+0000001010010 0000001010011 0000001010100 0000001010101 0000001011010
+0000001011011 0000001100100 0000001100101""".split()
+FAX_EXT_MAKEUP = """00000001000 00000001100 00000001101 000000010010
+000000010011 000000010100 000000010101 000000010110 000000010111
+000000011100 000000011101 000000011110 000000011111""".split()
+FAX_EOL = "000000000001"
+FAX_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010",
+                -2: "000010", -3: "0000010"}
+
+
+def fax_run(n, black):
+    """The code words of a run of ``n`` pixels of one colour."""
+    out = []
+    while n >= 2560 + 64 or n == 2560:
+        out.append(FAX_EXT_MAKEUP[-1])
+        n -= 2560
+    if n >= 64:
+        m = n // 64
+        out.append((FAX_BLACK_MAKEUP if black else FAX_WHITE_MAKEUP)[m - 1]
+                   if m <= 27 else FAX_EXT_MAKEUP[m - 28])
+        n -= 64 * m
+    out.append((FAX_BLACK if black else FAX_WHITE)[n])
+    return "".join(out)
+
+
+def fax_changes(row):
+    """The changing elements of a row of 0/1 (1 black, white before it)."""
+    return list(np.nonzero(np.diff(np.concatenate(
+        [[0], np.asarray(row, np.int8)])))[0]) + [len(row)]
+
+
+def fax_1d(row):
+    """A row in modified Huffman (T.4 one-dimensional) coding."""
+    out, pos, black = [], 0, False
+    for c in fax_changes(row):
+        out.append(fax_run(c - pos, black))
+        pos, black = c, not black
+    return "".join(out)
+
+
+def fax_2d(row, ref):
+    """A row in modified READ (T.4 two-dimensional, T.6) coding against
+    the reference row ``ref``."""
+    W = len(row)
+    cur, refc = fax_changes(row)[:-1], fax_changes(ref)[:-1]
+    out, a0, black = [], -1, False
+
+    def after(changes, x, colour=None):
+        for i, c in enumerate(changes):
+            # even changes turn to black, odd ones to white
+            if c > x and (colour is None or (i % 2 == 0) == colour):
+                return c, (changes[i + 1] if i + 1 < len(changes) else W)
+        return W, W
+
+    while a0 < W:
+        b1, b2 = after(refc, a0, not black)
+        a1, _ = after(cur, a0)
+        if b2 < a1:                                   # pass
+            out.append("0001")
+            a0 = b2
+        elif abs(a1 - b1) <= 3:                       # vertical
+            out.append(FAX_VERTICAL[a1 - b1])
+            a0, black = a1, not black
+        else:                                         # horizontal
+            a2, _ = after(cur, a1)
+            out.append("001" + fax_run(a1 - max(a0, 0), black)
+                       + fax_run(a2 - a1, not black))
+            a0 = a2
+    return "".join(out)
+
+
+def fax_encode(rows, compression, t4=0, eol=True, lsb_first=False):
+    """(h, w) 0/1 rows (1 black) as CCITT data: compression 2 (rows
+    byte-aligned), 3 (an EOL before each row; ``t4`` bit 0: 2-D coding,
+    every other row 1-D, each row tagged; bit 2: fill bits aligning each
+    EOL's end to a byte; ``eol`` False leaves the EOLs out), 4 (T.6, ended
+    by an EOFB) or 32771 (rows aligned to 16 bits). ``lsb_first``: the
+    bits of each byte reversed (FillOrder 2)."""
+    bits, ref = "", np.zeros(rows.shape[1], np.uint8)
+    for y, row in enumerate(rows):
+        if compression == 4:
+            bits += fax_2d(row, ref)
+        elif compression in (2, 32771):
+            bits += fax_1d(row)
+            bits += "0" * (-len(bits) % (8 if compression == 2 else 16))
+        else:
+            if t4 & 4:
+                bits += "0" * (-(len(bits) + 12) % 8)
+            bits += FAX_EOL if eol else ""
+            if t4 & 1:
+                bits += "1" + fax_1d(row) if y % 2 == 0 else \
+                    "0" + fax_2d(row, ref)
+            else:
+                bits += fax_1d(row)
+        ref = row
+    if compression == 4:
+        bits += FAX_EOL * 2
+    bits += "0" * (-len(bits) % 8)
+    data = bytes(int(bits[i:i + 8][::-1] if lsb_first else bits[i:i + 8],
+                     2) for i in range(0, len(bits), 8))
+    return data
+
+
+def sgilog_planes(words, nbytes):
+    """One row of LogL16 (``nbytes`` 2) or LogLuv32 (4) words in SGILog's
+    run-length coding: each byte plane, the most significant first, as
+    runs (128 + n - 2, the byte: 2-129 of it) and literals (n, then n
+    bytes: 1-127)."""
+    out = bytearray()
+    for k in range(nbytes - 1, -1, -1):
+        plane = [(int(w) >> (8 * k)) & 255 for w in words]
+        i = 0
+        while i < len(plane):
+            j = i
+            while j < len(plane) and plane[j] == plane[i] and j - i < 129:
+                j += 1
+            if j - i >= 2:
+                out += bytes([128 + j - i - 2, plane[i]])
+                i = j
+                continue
+            j = i + 1
+            while j < len(plane) and j - i < 127 and not (
+                    j + 1 < len(plane) and plane[j] == plane[j + 1]):
+                j += 1
+            out += bytes([j - i]) + bytes(plane[i:j])
+            i = j
+    return bytes(out)
+
+
 TIFF_COMPRESS = {1: lambda b: b, 5: lzw_tiff, 8: lambda b: zlib.compress(b, 9),
                  32773: packbits, 34925: lambda b: __import__("lzma").compress(
                      b, format=__import__("lzma").FORMAT_XZ)}
@@ -523,13 +681,17 @@ TIFF_COMPRESS = {1: lambda b: b, 5: lzw_tiff, 8: lambda b: zlib.compress(b, 9),
 def tiff_file(samples, photometric, order="<", big=False, compression=1,
               planar=1, predictor=1, rows_per_strip=None, tile=None,
               colormap=None, bits=None, sample_format=1, extra=(),
-              fillorder=1, extra_tags=(), depth=1):
+              fillorder=1, extra_tags=(), depth=1, fax=None, sgilog=None):
     """A TIFF of (H, W, S) samples: classic or BigTIFF, either byte order,
     strips or tiles, either planar configuration, predictor 1, 2 or 3, a
     colour map, samples of any width (``bits``, packed per row, the most
     significant bit first) or packed RGB (``bits`` a tuple such as (5, 6,
     5), one integer a pixel), an SGI ``ImageDepth`` (``depth`` planes of
-    H / depth rows, one after the other)."""
+    H / depth rows, one after the other). ``fax``: 1-bit samples coded by
+    ``fax_encode`` (its keywords; compression 2, 3, 4 or 32771, the
+    Group3Options tag from ``t4``). ``sgilog``: the samples are LogL16
+    (``"l16"``) or LogLuv32 (``"luv32"``) words, coded by
+    ``sgilog_planes``, or LogLuv24 words (``"luv24"``, three bytes each)."""
     H, W, S = samples.shape
     dt = samples.dtype
     bits = bits or dt.itemsize * 8
@@ -537,11 +699,21 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
 
     def encode_block(block):          # (h, w, c) -> bytes
         h, w, c = block.shape
+        if fax is not None:         # the codec's own bit order
+            return fax_encode(block[..., 0], compression,
+                              lsb_first=fillorder == 2, **fax)
         if predictor == 2:
             d = block.astype(dt)
             d[:, 1:] = block[:, 1:] - block[:, :-1]
             block = d
-        if predictor == 3:
+        if sgilog == "luv24":
+            v = block[..., 0].astype(np.uint32)
+            raw = np.stack([v >> 16, v >> 8, v], -1).astype(
+                np.uint8).tobytes()
+        elif sgilog is not None:
+            raw = b"".join(sgilog_planes(r[:, 0], 2 if sgilog == "l16" else
+                                         4) for r in block)
+        elif predictor == 3:
             raw = np.ascontiguousarray(block).astype("<" + dt.str[1:])
             by = raw.view(np.uint8).reshape(h, w, c, item)[..., ::-1]
             by = by.transpose(0, 3, 1, 2).reshape(h, item * w * c)
@@ -598,6 +770,8 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
             (277, 3, [S]), (284, 3, [planar])]
     if fillorder != 1:
         tags.append((266, 3, [fillorder]))
+    if fax and fax.get("t4"):
+        tags.append((292, 4, [fax["t4"]]))
     if depth != 1:
         tags.append((32997, 4, [depth]))
     if predictor != 1:
@@ -2737,6 +2911,7 @@ def cases():
         large=True)
     tiff_sample_cases(add)
     pnm_cases(add)
+    tiff_codec_cases(add)
     return out
 
 
@@ -3115,6 +3290,111 @@ def pnm_cases(add):
                                     "number")
     add("pfm_without_line_feed.pfm", b"Pf 37 29 -1.0\n" + fmap[..., 0]
         .astype("<f4").tobytes(), raises="line feed")
+
+
+def tiff_codec_cases(add):
+    """CCITT fax and SGILog TIFFs, which tifffile (and so imageio under a
+    TIFF name) refuses and OpenCV's libtiff decodes: written by Pillow's
+    libtiff (every CCITT coding it writes, Group3Options, fill order 2,
+    strips), by OpenCV's libtiff (LogLuv32 and LogLuv24 from float
+    images) and by the writers above (2-D Group 3, tiles, min-is-white,
+    rows without EOLs, LogL16, LogLuv in tiles and in fill order 2); and
+    the 1024 x 1024 Group 4 and LogLuv32 files of the decode times."""
+    import cv2
+    from PIL import Image, TiffImagePlugin
+    g = np.random.default_rng(2020)
+    smooth1 = smooth(29, 37, 50)[..., 0] > 127
+    bitmap = smooth1 ^ (g.random(smooth1.shape) < 0.06)   # runs and specks
+    mode1 = Image.fromarray(bitmap.astype(np.uint8) * 255).convert("1")
+
+    def pil(compression, **tags):
+        info = TiffImagePlugin.ImageFileDirectory_v2()
+        for tag, value in tags.items():
+            info[int(tag[1:])] = value
+        return pil_bytes(mode1, "TIFF", compression=compression,
+                         tiffinfo=info)
+
+    ccitt = dict(raises="CCITT")
+    add("tiff_ccitt_g3_1d.tif", pil("group3"), writer="Pillow",
+        coding="T.4 1-D", **ccitt)
+    add("tiff_ccitt_g3_2d.tif", pil("group3", t292=1), writer="Pillow",
+        coding="T.4 2-D", **ccitt)
+    add("tiff_ccitt_g3_2d_fill_bits.tif", pil("group3", t292=5),
+        writer="Pillow", coding="T.4 2-D, EOLs byte-aligned", **ccitt)
+    add("tiff_ccitt_g3_fill_bits_lsb.tif", pil("group3", t292=4, t266=2),
+        writer="Pillow", coding="T.4 1-D, EOLs byte-aligned, fill order 2",
+        **ccitt)
+    add("tiff_ccitt_g4_strips_lsb.tif", pil("group4", t278=7, t266=2),
+        writer="Pillow", coding="T.6 in 5 strips, fill order 2", **ccitt)
+    add("tiff_ccitt_rle.tif", pil("tiff_ccitt"), writer="Pillow",
+        coding="modified Huffman, rows byte-aligned", **ccitt)
+    add("tiff_ccitt_rlew_pillow.tif", pil("tiff_raw_16"), writer="Pillow",
+        coding="modified Huffman, rows word-aligned",
+        note="libtiff reads its rows with line length mismatches", **ccitt)
+    bits1 = bitmap[..., None].astype(np.uint8)
+    add("tiff_ccitt_g3_2d_min_is_white.tif", tiff_file(
+        bits1, 0, compression=3, bits=1, rows_per_strip=7,
+        fax=dict(t4=1)), coding="T.4 2-D (K = 2) in 5 strips", **ccitt)
+    add("tiff_ccitt_g4_tiles.tif", tiff_file(
+        bits1, 0, compression=4, bits=1, tile=(16, 16), fax={}),
+        coding="T.6 in 16 x 16 tiles", **ccitt)
+    add("tiff_ccitt_rlew_strips.tif", tiff_file(
+        bits1, 1, compression=32771, bits=1, rows_per_strip=10, fax={}),
+        coding="modified Huffman, rows word-aligned, 3 strips", **ccitt)
+    add("tiff_ccitt_g3_without_eol.tif", tiff_file(
+        bits1, 1, compression=3, bits=1, fax=dict(eol=False)),
+        coding="T.4 1-D rows without EOLs",
+        note="libtiff finds no EOL and reads the strip again without",
+        **ccitt)
+    # SGILog: OpenCV writes LogLuv from a float image (its XYZ); the rest
+    # are words of the codec's own layout
+    hdr = (textured(29, 37, 51).astype(np.float32) / 160) ** 1.6
+    hdr[:, :5] *= 0
+    for compression, name in ((34676, "32"), (34677, "24")):
+        ok, enc = cv2.imencode(".tif", hdr[..., ::-1], [
+            cv2.IMWRITE_TIFF_COMPRESSION, compression])
+        assert ok
+        add(f"tiff_logluv{name}_opencv.tif", enc.tobytes(),
+            writer="cv2.imencode", coding=f"LogLuv{name}",
+            raises="SGI LogLuv")
+    l16 = (smooth(29, 37, 52)[..., 0].astype(np.int64) * 40 + 12000
+           + g.integers(0, 40, (29, 37))).astype(np.uint16)
+    l16[3, :9] |= 0x8000                    # negative luminance: black
+    l16[5, 2:30] = 0x4000                   # runs
+    add("tiff_logl16_sgilog.tif", tiff_file(
+        l16[..., None], 32844, compression=34676, bits=16, sample_format=2,
+        rows_per_strip=8, sgilog="l16"), coding="LogL16", raises="SGI LogLuv")
+    le = smooth(29, 37, 53)[..., 0].astype(np.uint32) * 60 + 10000
+    uv = g.integers(60, 180, (29, 37, 2)).astype(np.uint32)
+    luv32 = le << 16 | uv[..., 0] << 8 | uv[..., 1]
+    luv32[:, 20:28] = luv32[:, 20:21]       # runs in every plane
+    add("tiff_logluv32_tiles.tif", tiff_file(
+        np.repeat(luv32[..., None], 3, -1), 32845, compression=34676,
+        bits=16, sample_format=2, tile=(16, 16), sgilog="luv32"),
+        coding="LogLuv32 in 16 x 16 tiles", raises="SGI LogLuv")
+    luv24 = (smooth(29, 37, 54)[..., 0].astype(np.uint32) + 500) << 14 | \
+        g.integers(0, 1 << 14, (29, 37)).astype(np.uint32)
+    add("tiff_logluv24_strips_lsb.tif", tiff_file(
+        np.repeat(luv24[..., None], 3, -1), 32845, compression=34677,
+        bits=16, sample_format=2, rows_per_strip=6, fillorder=2,
+        sgilog="luv24"), coding="LogLuv24 in 5 strips, fill order 2",
+        note="chroma codes past the grid read as the neutral point",
+        raises="SGI LogLuv")
+    # the decode-time fixtures of this slice
+    n = 1024
+    page = big(n)[..., 0] > 127
+    page[::64] ^= True                                  # ruled lines
+    page ^= np.random.default_rng(2021).random((n, n)) < 0.01
+    add("tiff_1024_ccitt_g4.tif", pil_bytes(Image.fromarray(
+        page.astype(np.uint8) * 255).convert("1"), "TIFF",
+        compression="group4"), writer="Pillow", coding="T.6",
+        large=True, raises="CCITT")
+    blocky = (big(n)[:, ::16].repeat(16, 1).astype(np.float32) / 180) ** 2
+    ok, enc = cv2.imencode(".tif", blocky[..., ::-1], [
+        cv2.IMWRITE_TIFF_COMPRESSION, 34676])
+    assert ok
+    add("tiff_1024_logluv32.tif", enc.tobytes(), writer="cv2.imencode",
+        coding="LogLuv32", large=True, raises="SGI LogLuv")
 
 
 def tiff_page(path):
