@@ -163,6 +163,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
     does not take read as under its own name), and the host ms of a 1024
     x 1024 run-length Radiance HDR, a 1024 x 1024 16-bit RGB PNG, a 1024 x
     1024 Group 4 TIFF and a 1024 x 1024 LogLuv32 TIFF under ``.pbm``;
+    then imageio's Pillow route: every TIFF fixture copied under ``.png``
+    and read by ``decode_image`` as Pillow's TIFF plugin reads it
+    (``viz/tiff_pillow.py``), or as OpenCV does where that plugin declines
+    it, each equal to the manifest's ``pillow_route`` digest or refused
+    where imageio refuses it (a CMYK file's Pillow array equal, the port's
+    samples its own rule), and the host ms of a 1024 x 1024 Group 4 TIFF
+    and a 1024 x 1024 16-bit RGB LZW TIFF under ``.png``;
     then the renders on the card (``viz/``): the raster's ``splat`` (px 1 and
     2, onto a given frame), the surfels of a 64^3 clip's 10 frames, the
     skeleton meshes of 10 frames and a mesh of ~1e5 faces at the reference
@@ -4299,6 +4306,8 @@ TEXTURE_TIMED = ("jpeg_1024_baseline_420.jpg", "jpeg_1024_progressive_420.jpg",
 # writes (_png16), each read under a .pbm name
 ROUTE_TIMED = ("hdr_1024_rle.hdr", "png_1024_rgb16", "tiff_1024_ccitt_g4.tif",
                "tiff_1024_logluv32.tif")
+# timed on imageio's Pillow route: TIFF fixtures read under a .png name
+PILLOW_TIMED = ("tiff_1024_ccitt_g4.tif", "tiff_1024_rgb16_lzw_predictor.tif")
 RENDER_GEN_SAMPLES = 1     # generated samples rendered of the apps' 3
 RENDER_JPEG = "jpeg_progressive_420.jpg"   # the JPEG-textured retarget set
 JPEG_SET_RES = 40                           # its sphere: 4 * 40^2 faces
@@ -4369,6 +4378,53 @@ def _route_check(manifest, decode_image, read_image):
     return equal, refused, own
 
 
+def _pillow_check(manifest, decode_image):
+    """imageio's Pillow route on every TIFF fixture (see
+    ``phase_textures``): (reads equal to the manifest, refusals, reads
+    under the port's own rule: a CMYK image, whose Pillow array equals the
+    manifest and whose samples are its inks made RGB)."""
+    import hashlib
+
+    from neural_marionette_tpu_torch.viz.tiff import cmyk_to_rgb
+    from neural_marionette_tpu_torch.viz.tiff_pillow import open_tiff
+    equal = refused = own = 0
+    for e in manifest["files"]:
+        want = e.get("pillow_route")
+        if want is None:
+            continue
+        data = (TEXTURES / e["file"]).read_bytes()
+        try:
+            got = decode_image(data, "texture.png")
+        except ValueError as err:
+            if "raises" not in want:
+                raise AssertionError(f"textures Pillow route {e['file']}: "
+                                     f"{err}") from None
+            refused += 1
+            continue
+        if "raises" in want:
+            raise AssertionError(f"textures Pillow route {e['file']}: read; "
+                                 "imageio refuses it")
+        tif = open_tiff(data, "texture.png")
+        if (tif is not None) != (want["plugin"] == "pillow"):
+            raise AssertionError(f"textures Pillow route {e['file']}: not "
+                                 f"opened by {want['plugin']}")
+        arr = tif.read() if tif is not None and tif.mode == "CMYK" else got
+        digest = hashlib.sha256(arr.tobytes()).hexdigest()
+        if arr.size != int(np.prod(want["shape"])) or digest != \
+                want["sha256"] or str(arr.dtype) != want["dtype"].replace(
+                    "bool", "uint8"):
+            raise AssertionError(f"textures Pillow route {e['file']}: "
+                                 "differs from the manifest")
+        if arr is got:
+            equal += 1
+        elif np.array_equal(got, cmyk_to_rgb(arr)):
+            own += 1
+        else:
+            raise AssertionError(f"textures Pillow route {e['file']}: CMYK "
+                                 "not made RGB")
+    return equal, refused, own
+
+
 def _texture_expected(entry, arrays):
     """A manifest entry's expected (H, W, 3) float32 texture: the samples
     and the divisor rounded to float64, divided there, the quotient
@@ -4396,7 +4452,12 @@ def phase_textures(card, reps=11):
     Then each 1024 x 1024 file's decode time on the host (p50 and min of
     ``reps`` calls of ``image_files.decode_image`` on the file's bytes, and
     of ``read_image`` with the file read), and those of ``ROUTE_TIMED``
-    under a ``.pbm`` name (the PNG checked: its samples' high bytes)."""
+    under a ``.pbm`` name (the PNG checked: its samples' high bytes).
+    Then imageio's Pillow route (``_pillow_check``): every TIFF fixture
+    copied under ``.png``, equal to the digest of imageio's array in the
+    manifest's ``pillow_route``, refused where imageio refuses it, CMYK
+    under the port's rule; and the decode times of ``PILLOW_TIMED`` under
+    ``.png`` (the 16-bit file checked: its samples' high bytes)."""
     import hashlib
     from neural_marionette_tpu_torch.apps.retarget import texture_rgb
     from neural_marionette_tpu_torch.viz.image_files import (
@@ -4463,6 +4524,30 @@ def phase_textures(card, reps=11):
             "decode_ms_p50": float(np.median(decode)),
             "decode_ms_min": float(np.min(decode)), "reps": reps}
     route["decode"] = timed_route
+    t_pillow = time.perf_counter()
+    pillow = dict(zip(("equal", "refused", "own"),
+                      _pillow_check(full, decode_image)))
+    pillow["check_s"] = time.perf_counter() - t_pillow
+    timed_pillow = {}
+    for name in PILLOW_TIMED:
+        data = (TEXTURES / name).read_bytes()
+        decode = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            img = decode_image(data, name.rsplit(".", 1)[0] + ".png")
+            decode.append((time.perf_counter() - t0) * 1e3)
+        if "rgb16" in name and not np.array_equal(
+                img, (decode_image(data, name).astype(np.uint16) >> 8)
+                .astype(np.uint8)):
+            raise AssertionError(f"textures Pillow route: {name} under .png "
+                                 "is not its samples' high bytes")
+        timed_pillow[name] = {
+            "format": image_format(data, name), "bytes": len(data),
+            "pixels": int(img.shape[0] * img.shape[1]), "as": ".png",
+            "decode_ms_p50": float(np.median(decode)),
+            "decode_ms_min": float(np.min(decode)), "reps": reps}
+    pillow["decode"] = timed_pillow
+    pillow["phase_s"] = time.perf_counter() - t_pillow
     times = {}
     for name in TEXTURE_TIMED:
         data = (TEXTURES / name).read_bytes()
@@ -4483,7 +4568,14 @@ def phase_textures(card, reps=11):
     out = {"card": card, "checked": checked, "refused": refused,
            "fixtures": len(manifest), "per_format": per_format,
            "decode": times, "check_s": check_s, "opencv_route": route,
-           "phase_s": time.perf_counter() - t_phase}
+           "pillow_route": pillow, "phase_s": time.perf_counter() - t_phase}
+    log(f"[textures] Pillow route (.png): {pillow['equal']} equal to "
+        f"imageio, {pillow['refused']} refused, {pillow['own']} under the "
+        f"port's own rule (CMYK), {pillow['check_s']:.1f} s; "
+        + ", ".join(f"{n} as .png {t['decode_ms_p50']:.2f} "
+                    f"({t['decode_ms_min']:.2f}) ms"
+                    for n, t in timed_pillow.items())
+        + f" ({card}); {pillow['phase_s']:.1f} s")
     log(f"[textures] {checked} fixtures equal to the manifest, {refused} "
         "refused as it names; 1024 x 1024 decode p50 (min) on the host: "
         + ", ".join(f"{n} {t['decode_ms_p50']:.2f} ({t['decode_ms_min']:.2f})"

@@ -101,7 +101,10 @@ def _find_texture(mtl_path: str):
     content: under ``.pbm``, ``.hdr`` and OpenCV's other names, and for
     Radiance HDR under any name, as OpenCV reads it (a TIFF through
     libtiff's codecs, CCITT fax and SGILog among them), which gives (H, W,
-    3) uint8 RGB and so a texture equal to the JAX one. A file that is
+    3) uint8 RGB and so a texture equal to the JAX one; a TIFF under
+    ``.png``, ``.jpg`` or another of Pillow's names as Pillow's TIFF
+    plugin reads it, or, where that plugin declines it, as OpenCV does. A
+    file that is
     present but cannot be read (a PSD, which imageio does not read either, an
     AVIF, an OpenEXR) raises ``ValueError``."""
     if not os.path.exists(mtl_path):
@@ -136,9 +139,10 @@ def texture_rgb(img: np.ndarray) -> np.ndarray:
       value and 2^d - 1 rounded to float64, divided there, the quotient
       rounded to float32 (for 8- and 16-bit samples that is float32's own
       division, to the bit). A d-bit unsigned sample is divided by
-      2^d - 1: uint8 by 255, uint16 by 65535 (the JAX function divides
-      16-bit samples by 255); int32 is Pillow's mode "I" of a PGM past 8
-      bits, 0-65535, divided by 65535;
+      2^d - 1: uint8 by 255, uint16 by 65535 in either byte order (the
+      JAX function divides 16-bit samples by 255); int32 is Pillow's mode
+      "I", 0-65535 (a PGM past 8 bits; a TIFF's signed or 32-bit samples
+      under Pillow's names, clipped to that range), divided by 65535;
     * a signed d-bit sample (TIFF's int8, int16) is offset by 2^(d-1),
       then divided by 2^d - 1 (the JAX texture is negative);
     * float samples are clipped to [0, 1], NaN read as 0 (the JAX function
@@ -165,13 +169,21 @@ def texture_rgb(img: np.ndarray) -> np.ndarray:
     YCCK JPEG, a CMYK JPEG 2000 and a Pillow ``P0CMYK`` or ``PyCMYK`` file,
     Pillow's CMYK made RGB as for TIFF (the JAX texture is C, M, Y); a
     bitmap's bool as 0 and 255; an OpenCV PNM's 8-bit samples as OpenCV
-    gives them (16-bit ones cut to their high byte, grey as RGB)."""
+    gives them (16-bit ones cut to their high byte, grey as RGB). A TIFF
+    under Pillow's names (``viz/tiff_pillow.py``) is imageio's array of
+    Pillow's mode, so the rules above apply to it as they stand: a palette
+    and 16-bit colour come as 8-bit RGB (equal to the JAX texture), as do
+    LAB's L, a, b codes (Pillow converts none; the JAX texture is the
+    codes, and so is the port's); "1" (CCITT fax among them) as 0 and 255;
+    "L" and "LA" grey; "PA" its indices and alpha as grey and alpha
+    (imageio does not apply that palette); "I;16" over 65535; "I" clipped
+    as above; "F" by the float rule; CMYK made RGB."""
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3,
                                                            axis=-1)
     if img.dtype.kind == "f":
         return np.clip(np.nan_to_num(rgb, nan=0.0), 0, 1).astype(np.float32)
-    if img.dtype == np.int32:   # a PGM past 8 bits, Pillow's 0-65535
-        return unit_interval(rgb, 16)
+    if img.dtype == np.int32:   # Pillow's mode "I": 0-65535
+        return unit_interval(np.clip(rgb, 0, 65535), 16)
     return unit_interval(offset_binary(rgb), 8 * img.dtype.itemsize)
 
 

@@ -1,8 +1,11 @@
-// TIFF codecs of the PyTorch/CUDA port that OpenCV's libtiff (4.7.1)
-// decodes and tifffile does not: CCITT fax (tif_fax3.c) and SGI LogLuv
-// (tif_luv.c), as TIFFReadRGBAStrip / TIFFReadRGBATile drive them for
-// viz/opencv_read.py. Built by kernels.py (g++ -O3 -std=c++17 -shared
-// -fPIC -pthread) into _build/ at first use and bound in data/native.py.
+// TIFF codecs of the PyTorch/CUDA port that libtiff (4.7.1) decodes and
+// tifffile does not: CCITT fax (tif_fax3.c), SGI LogLuv (tif_luv.c),
+// ThunderScan (tif_thunder.c) and Zstandard (tif_zstd.c over libzstd
+// 1.5.7), as TIFFReadRGBAStrip / TIFFReadRGBATile drive the first two for
+// OpenCV (viz/opencv_read.py) and as TIFFReadEncodedStrip / TIFFReadTile
+// drive fax, ThunderScan and Zstandard for Pillow (viz/tiff_pillow.py).
+// Built by kernels.py (g++ -O3 -std=c++17 -shared -fPIC -pthread) into
+// _build/ at first use and bound in data/native.py.
 //
 //   * nm_fax_decode    — the strips or tiles of one CCITT image, in the
 //                        order OpenCV reads them, into packed 1-bit rows
@@ -14,9 +17,16 @@
 //                        8-bit samples TIFFRGBAImageBegin asks for
 //                        (SGILOGDATAFMT_8BIT): LogL16 as grey, LogLuv32
 //                        (compression 34676) and LogLuv24 (34677) as RGB
+//   * nm_thunder_decode — one ThunderScan strip (compression 32809) into
+//                        packed 4-bit rows
+//   * nm_zstd_decode   — one Zstandard strip or tile (compression 50000):
+//                        RFC 8878 frames, with libzstd's checks and its
+//                        streaming decoder's stop at the strip's end
 //
-// Both follow libtiff where the data is bad, since OpenCV reads on past a
-// codec's error: the fax decoder keeps its state machine, its run arrays
+// Each follows libtiff where the data is bad, since OpenCV reads on past a
+// codec's error (Pillow does not: the fax, ThunderScan and Zstandard
+// decoders report how each strip ended, as libtiff's decoder returns it):
+// the fax decoder keeps its state machine, its run arrays
 // (which outlive a strip) and its recovery (a short, long or undecodable
 // row is cleaned up and filled, a premature end fills the row decoded so
 // far and ends the strip, a run array that would overflow ends the strip
@@ -25,9 +35,11 @@
 // libtiff's freshly cleared strip buffer does. Exposed with C linkage for
 // ctypes; nothing throws across that boundary.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <new>
 #include <vector>
 
 namespace {
@@ -205,6 +217,8 @@ void fill_runs(uint8_t* buf, uint32_t* runs, uint32_t* erun,
 enum { kCompRLE = 2, kCompG3 = 3, kCompG4 = 4, kCompRLEW = 32771 };
 // how a row's decoding ended (the label tif_fax3.h jumps to)
 enum Expand { kRowDone, kRowEOF, kOverflow };
+// how a strip's decoding ended (FaxDecoder::decode)
+enum { kStripOK, kStripFailed, kStripShort };
 
 // One image's decoder: Fax3SetupState's run arrays (they keep their values
 // from strip to strip) and, per strip, Fax3PreDecode's reset and the state
@@ -513,8 +527,13 @@ struct FaxDecoder {
   }
 
   // Fax3Decode1D, Fax3Decode2D, Fax4Decode or Fax3DecodeRLE over one
-  // strip's rows
-  void decode(uint8_t* buf, int64_t rows) {
+  // strip's rows. Returns what libtiff's decoder returns for the strip:
+  // kStripOK where every row was decoded or the strip ended as libtiff
+  // accepts; kStripFailed where it returns -1 (a premature end of the
+  // data, a run array that would overflow); kStripShort where a Group 4
+  // strip ended at its EOFB or its data's end after its first row, which
+  // libtiff accepts with the rows after it unwritten
+  int decode(uint8_t* buf, int64_t rows) {
     for (int64_t row = 0; row < rows; ++row, buf += rowbytes) {
       a0 = 0;
       RunLength = 0;
@@ -524,15 +543,17 @@ struct FaxDecoder {
         pb = refruns;
         b1 = static_cast<int>(*pb++);
         e = expand2d();
-        if (e == kOverflow) return;
+        if (e == kOverflow) return kStripFailed;
         if (e == kRowEOF || EOLcnt) {
           // EOFG4: the EOFB (or whatever is there) is skipped, the row
-          // filled, the strip ended
+          // filled, the strip ended ("don't error on badly-terminated
+          // strips" once a row is done)
           fill_runs(buf, thisrun, pa, rowpixels);
-          return;
+          if (row == 0) return kStripFailed;
+          return row + 1 < rows ? kStripShort : kStripOK;
         }
         fill_runs(buf, thisrun, pa, rowpixels);
-        if (!setvalue(0)) return;  // imaginary change for reference
+        if (!setvalue(0)) return kStripFailed;  // imaginary change
         uint32_t* t = curruns;
         curruns = refruns;
         refruns = t;
@@ -540,9 +561,9 @@ struct FaxDecoder {
       }
       if (compression == kCompRLE || compression == kCompRLEW) {
         e = expand1d();
-        if (e == kOverflow) return;
+        if (e == kOverflow) return kStripFailed;
         fill_runs(buf, thisrun, pa, rowpixels);
-        if (e == kRowEOF) return;
+        if (e == kRowEOF) return kStripFailed;
         if (compression == kCompRLE) {
           clr(BitsAvail - (BitsAvail & ~7));
         } else {
@@ -556,9 +577,8 @@ struct FaxDecoder {
       bool is1d = true;
       if (two_d) {
         if (!need8(1)) {
-          if (!cleanup()) return;
-          fill_runs(buf, thisrun, pa, rowpixels);
-          return;
+          if (cleanup()) fill_runs(buf, thisrun, pa, rowpixels);
+          return kStripFailed;
         }
         is1d = get(1);
         clr(1);
@@ -566,9 +586,9 @@ struct FaxDecoder {
         b1 = static_cast<int>(*pb++);
       }
       e = is1d ? expand1d() : expand2d();
-      if (e == kOverflow) return;
+      if (e == kOverflow) return kStripFailed;
       fill_runs(buf, thisrun, pa, rowpixels);
-      if (e == kRowEOF) return;
+      if (e == kRowEOF) return kStripFailed;
       if (two_d) {
         if (pa < thisrun + nruns) setvalue(0);
         uint32_t* t = curruns;
@@ -576,6 +596,7 @@ struct FaxDecoder {
         refruns = t;
       }
     }
+    return kStripOK;
   }
 };
 
@@ -759,6 +780,785 @@ bool decode_planes(const uint8_t*& bp, int64_t& cc, T* tp, int64_t npixels,
   return true;
 }
 
+// ------------------------------------------------------------ ThunderScan
+// tif_thunder.c's codes: the top two bits of each byte
+constexpr int kThunderRun = 0x00, kThunder2Bit = 0x40, kThunder3Bit = 0x80;
+constexpr int kDelta2Skip = 2, kDelta3Skip = 4;
+constexpr int kTwoBitDeltas[4] = {0, 1, 0, -1};
+constexpr int kThreeBitDeltas[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+
+// ThunderDecode: one row of ``width`` 4-bit pixels into ``op0`` (the high
+// nibble first) from the codes at ``bp`` (``cc`` left, both advanced).
+// False where the row gets fewer or more pixels than ``width`` (libtiff's
+// "Not enough" / "Too much data at scanline"), the rest of the row
+// cleared. As libtiff, a run that would reach past the row writes
+// nothing, and deltas past the row's end are dropped.
+bool thunder_row(const uint8_t*& bp, int64_t& cc, uint8_t* op0,
+                 int64_t width) {
+  uint8_t* op = op0;
+  unsigned lastpixel = 0;
+  int64_t npixels = 0;
+  auto set = [&](unsigned v) {
+    lastpixel = v & 0xf;
+    if (npixels < width) {
+      if (npixels++ & 1)
+        *op++ |= static_cast<uint8_t>(lastpixel);
+      else
+        op[0] = static_cast<uint8_t>(lastpixel << 4);
+    }
+  };
+  while (cc > 0 && npixels < width) {
+    int n = *bp++, delta;
+    --cc;
+    switch (n & 0xc0) {
+      case kThunderRun:  // the last pixel n (the low 6 bits) times more
+        if (npixels & 1) {
+          op[0] |= static_cast<uint8_t>(lastpixel);
+          lastpixel = *op++;
+          ++npixels;
+          --n;
+        } else {
+          lastpixel |= lastpixel << 4;
+        }
+        npixels += n;
+        if (npixels <= width)
+          for (; n > 0; n -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+        if (n == -1) *--op &= 0xf0;
+        lastpixel &= 0xf;
+        break;
+      case kThunder2Bit:  // three pixels by 2-bit deltas
+        if ((delta = n >> 4 & 3) != kDelta2Skip)
+          set(lastpixel + kTwoBitDeltas[delta]);
+        if ((delta = n >> 2 & 3) != kDelta2Skip)
+          set(lastpixel + kTwoBitDeltas[delta]);
+        if ((delta = n & 3) != kDelta2Skip)
+          set(lastpixel + kTwoBitDeltas[delta]);
+        break;
+      case kThunder3Bit:  // two pixels by 3-bit deltas
+        if ((delta = n >> 3 & 7) != kDelta3Skip)
+          set(lastpixel + kThreeBitDeltas[delta]);
+        if ((delta = n & 7) != kDelta3Skip)
+          set(lastpixel + kThreeBitDeltas[delta]);
+        break;
+      default:  // one raw pixel
+        set(static_cast<unsigned>(n));
+        break;
+    }
+  }
+  if (npixels != width) {
+    std::memset(op, 0, op0 + (width + 1) / 2 - op);
+    return false;
+  }
+  return true;
+}
+
+
+// ------------------------------------------------------------- Zstandard
+// RFC 8878 as libzstd (1.5) decodes it for libtiff's tif_zstd.c, which
+// feeds one strip to ZSTD_decompressStream until the strip's bytes are
+// out, the input ends or the frame ends. Errors throw ZstdError, caught in
+// nm_zstd_decode.
+struct ZstdError {};
+
+[[noreturn]] void zfail() { throw ZstdError{}; }
+
+inline int highbit(uint32_t v) { return 31 - __builtin_clz(v); }
+
+// a little-endian bit stream read forwards (FSE table descriptions);
+// bits past the end read as zero
+struct ForwardBits {
+  const uint8_t* p;
+  int64_t size, pos = 0;  // pos in bits
+  uint32_t peek(int n) const {
+    uint64_t v = 0;
+    int64_t byte = pos >> 3;
+    for (int k = 0; k < 8 && byte + k < size; ++k)
+      v |= uint64_t{p[byte + k]} << (8 * k);
+    return static_cast<uint32_t>((v >> (pos & 7)) & ((1ull << n) - 1));
+  }
+  uint32_t read(int n) {
+    uint32_t v = peek(n);
+    pos += n;
+    return v;
+  }
+};
+
+// a bit stream read backwards from its last byte's highest set bit (the
+// Huffman and sequence streams); bits before the start read as zero
+struct BackBits {
+  const uint8_t* p = nullptr;
+  int64_t size = 0, left = 0;  // bits not yet read
+  void init(const uint8_t* data, int64_t n) {
+    if (n < 1 || data[n - 1] == 0) zfail();
+    p = data;
+    size = n;
+    left = 8 * (n - 1) + highbit(data[n - 1]);
+  }
+  uint64_t peek(int n) const {  // n <= 32
+    if (n == 0) return 0;
+    int64_t lo = left - n;
+    uint64_t v = 0;
+    if (lo >= 0) {
+      int64_t byte = lo >> 3;
+      for (int k = 0; k < 8 && byte + k < size; ++k)
+        v |= uint64_t{p[byte + k]} << (8 * k);
+      v >>= lo & 7;
+    } else if (left > 0) {
+      for (int k = 0; k < 8 && k < size; ++k)
+        v |= uint64_t{p[k]} << (8 * k);
+      v = (v & ((1ull << left) - 1)) << -lo;
+    }
+    return v & ((1ull << n) - 1);
+  }
+  uint64_t read(int n) {
+    uint64_t v = peek(n);
+    left -= n;
+    return v;
+  }
+  bool overflowed() const { return left < 0; }
+  bool done() const { return left == 0; }
+};
+
+struct FseEntry {
+  uint16_t symbol;
+  uint8_t bits;
+  uint16_t base;
+};
+
+struct FseTable {
+  int log = 0;
+  std::vector<FseEntry> cells;
+};
+
+// FSE_readNCount: a table description at p (``size`` bytes); returns its
+// bytes, the normalised counts in ``norm``
+int64_t fse_counts(const uint8_t* p, int64_t size, int max_log, int max_symbol,
+                   std::vector<int>& norm, int& log) {
+  ForwardBits bits{p, size};
+  log = static_cast<int>(bits.read(4)) + 5;
+  if (log > max_log) zfail();
+  int remaining = (1 << log) + 1, threshold = 1 << log, nbits = log + 1;
+  int symbol = 0;
+  bool previous0 = false;
+  norm.assign(max_symbol + 1, 0);
+  for (;;) {
+    if (previous0) {
+      int repeat;
+      do {
+        repeat = static_cast<int>(bits.read(2));
+        symbol += repeat;
+      } while (repeat == 3);
+      if (symbol > max_symbol) break;
+    }
+    int max = 2 * threshold - 1 - remaining, count;
+    uint32_t low = bits.peek(nbits - 1);
+    if (static_cast<int>(low) < max) {
+      count = static_cast<int>(low);
+      bits.pos += nbits - 1;
+    } else {
+      count = static_cast<int>(bits.peek(nbits));
+      if (count >= threshold) count -= max;
+      bits.pos += nbits;
+    }
+    --count;  // -1: a probability below one
+    remaining -= count < 0 ? -count : count;
+    norm[symbol++] = count;
+    previous0 = count == 0;
+    if (remaining < threshold) {
+      if (remaining <= 1) break;
+      nbits = highbit(static_cast<uint32_t>(remaining)) + 1;
+      threshold = 1 << (nbits - 1);
+    }
+    if (symbol > max_symbol) break;
+  }
+  if (remaining != 1 || symbol > max_symbol + 1) zfail();
+  norm.resize(symbol);
+  int64_t used = (bits.pos + 7) >> 3;
+  if (used > size) zfail();
+  return used;
+}
+
+void fse_build(const std::vector<int>& norm, int log, FseTable& t) {
+  const int size = 1 << log;
+  t.log = log;
+  t.cells.assign(size, FseEntry{0, 0, 0});
+  std::vector<int> next(norm.size());
+  int high = size - 1;
+  for (size_t s = 0; s < norm.size(); ++s) {
+    if (norm[s] == -1) {
+      t.cells[high--].symbol = static_cast<uint16_t>(s);
+      next[s] = 1;
+    } else {
+      next[s] = norm[s];
+    }
+  }
+  const int step = (size >> 1) + (size >> 3) + 3, mask = size - 1;
+  int pos = 0;
+  for (size_t s = 0; s < norm.size(); ++s)
+    for (int i = 0; i < norm[s]; ++i) {
+      t.cells[pos].symbol = static_cast<uint16_t>(s);
+      do pos = (pos + step) & mask;
+      while (pos > high);
+    }
+  if (pos != 0) zfail();
+  for (int u = 0; u < size; ++u) {
+    FseEntry& e = t.cells[u];
+    int x = next[e.symbol]++;
+    e.bits = static_cast<uint8_t>(log - highbit(static_cast<uint32_t>(x)));
+    e.base = static_cast<uint16_t>((x << e.bits) - size);
+  }
+}
+
+void fse_rle(int symbol, FseTable& t) {
+  t.log = 0;
+  t.cells.assign(1, FseEntry{static_cast<uint16_t>(symbol), 0, 0});
+}
+
+struct Huffman {
+  int bits = 0;  // the longest code
+  std::vector<uint16_t> cells;  // symbol << 8 | code length
+};
+
+// HUF_readStats and the decoding table: the tree description at p
+// (``size`` bytes of the literals); returns its bytes
+int64_t huffman_table(const uint8_t* p, int64_t size, Huffman& h) {
+  if (size < 1) zfail();
+  int header = p[0];
+  uint8_t weight[256] = {0};
+  int n;
+  int64_t used;
+  if (header >= 128) {  // 4-bit weights
+    n = header - 127;
+    used = 1 + (n + 1) / 2;
+    if (used > size) zfail();
+    for (int k = 0; k < n; ++k)
+      weight[k] = k & 1 ? p[1 + k / 2] & 15 : p[1 + k / 2] >> 4;
+  } else {  // FSE-coded weights, two interleaved states
+    used = 1 + header;
+    if (used > size) zfail();
+    std::vector<int> norm;
+    int log;
+    int64_t head = fse_counts(p + 1, header, 6, 255, norm, log);
+    FseTable t;
+    fse_build(norm, log, t);
+    BackBits bits;
+    bits.init(p + 1 + head, header - head);
+    uint32_t s1 = static_cast<uint32_t>(bits.read(log));
+    uint32_t s2 = static_cast<uint32_t>(bits.read(log));
+    n = 0;
+    for (;;) {
+      if (n > 253) zfail();
+      const FseEntry& a = t.cells[s1];
+      weight[n++] = static_cast<uint8_t>(a.symbol);
+      s1 = a.base + static_cast<uint32_t>(bits.read(a.bits));
+      if (bits.overflowed()) {
+        weight[n++] = static_cast<uint8_t>(t.cells[s2].symbol);
+        break;
+      }
+      if (n > 253) zfail();
+      const FseEntry& b = t.cells[s2];
+      weight[n++] = static_cast<uint8_t>(b.symbol);
+      s2 = b.base + static_cast<uint32_t>(bits.read(b.bits));
+      if (bits.overflowed()) {
+        weight[n++] = static_cast<uint8_t>(t.cells[s1].symbol);
+        break;
+      }
+    }
+  }
+  if (n >= 256) zfail();
+  uint32_t total = 0, rank[13] = {0};
+  for (int k = 0; k < n; ++k) {
+    if (weight[k] > 12) zfail();
+    ++rank[weight[k]];
+    total += (1u << weight[k]) >> 1;
+  }
+  if (total == 0) zfail();
+  const int log = highbit(total) + 1;
+  if (log > 12) zfail();
+  const uint32_t rest = (1u << log) - total;
+  if (rest != (1u << highbit(rest))) zfail();
+  weight[n] = static_cast<uint8_t>(highbit(rest) + 1);
+  ++rank[weight[n]];
+  ++n;
+  if (rank[1] < 2 || rank[1] & 1) zfail();
+  h.bits = log;
+  h.cells.assign(size_t{1} << log, 0);
+  uint32_t start[14] = {0};
+  for (int w = 1; w <= log; ++w)
+    start[w + 1] = start[w] + rank[w] * (1u << (w - 1));
+  for (int s = 0; s < n; ++s) {
+    int w = weight[s];
+    if (!w) continue;
+    uint32_t len = 1u << (w - 1);
+    uint16_t cell = static_cast<uint16_t>(s << 8 | (log + 1 - w));
+    for (uint32_t k = 0; k < len; ++k) h.cells[start[w] + k] = cell;
+    start[w] += len;
+  }
+  return used;
+}
+
+inline void huffman_symbols(const Huffman& h, BackBits& bits, uint8_t* out,
+                            int64_t n) {
+  for (int64_t k = 0; k < n; ++k) {
+    uint16_t cell = h.cells[bits.peek(h.bits)];
+    out[k] = static_cast<uint8_t>(cell >> 8);
+    bits.left -= cell & 0xff;
+  }
+}
+
+// one Huffman stream (HUF_decompress1X, and the 4-stream fallback): its
+// last byte holds the end mark and it is read to its first bit
+void huffman_stream(const Huffman& h, const uint8_t* p, int64_t size,
+                    uint8_t* out, int64_t n) {
+  BackBits bits;
+  bits.init(p, size);
+  huffman_symbols(h, bits, out, n);
+  if (!bits.done()) zfail();
+}
+
+// four Huffman streams through libzstd's fast loop
+// (HUF_decompress4X1_usingDTable_internal_fast): stream k is the bytes
+// [start[k], end[k]) of ``p`` and gives n[k] symbols at out + k * seg.
+// A missing end mark is no error (a zero last byte is all data), a stream
+// reads on into the bytes before it down to ``p``, and no end is checked;
+// rounds of five symbols a stream run while stream 0 keeps 7 bytes a round
+// above ``p`` and the streams' positions keep their order, and after them
+// a stream whose position lies a byte or more before its start fails
+void huffman_fast(const Huffman& h, const uint8_t* p, const int64_t* start,
+                  const int64_t* end, uint8_t* out, int64_t seg,
+                  const int64_t* n) {
+  BackBits bits[4];
+  int64_t T0[4];
+  for (int k = 0; k < 4; ++k) {
+    uint8_t last = p[end[k] - 1];
+    bits[k].p = p;
+    bits[k].size = end[k];
+    bits[k].left = last ? 8 * (end[k] - 1) + highbit(last) : 8 * end[k];
+    T0[k] = 8 * end[k] - bits[k].left;
+  }
+  int64_t done = 0;
+  auto position = [&](int k) {  // the byte its 8-byte window starts at
+    int64_t used = 8 * end[k] - bits[k].left;
+    return end[k] - 8 - (done ? used >> 3 : (used - T0[k]) >> 3);
+  };
+  for (;;) {
+    int64_t iters = std::min((n[3] - done) / 5, position(0) / 7);
+    if (iters <= 0 || position(1) < position(0) ||
+        position(2) < position(1) || position(3) < position(2))
+      break;
+    for (int k = 0; k < 4; ++k)
+      huffman_symbols(h, bits[k], out + k * seg + done, 5 * iters);
+    done += 5 * iters;
+  }
+  for (int k = 0; k < 4; ++k) {
+    if (position(k) < start[k] - 8) zfail();
+    huffman_symbols(h, bits[k], out + k * seg + done, n[k] - done);
+  }
+}
+
+constexpr int kLLDefault[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+constexpr int kMLDefault[53] = {
+    1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+constexpr int kOFDefault[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+constexpr uint32_t kLLBase[36] = {
+    0,  1,  2,  3,  4,  5,  6,  7,  8,    9,    10,   11,
+    12, 13, 14, 15, 16, 18, 20, 22, 24,   28,   32,   40,
+    48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
+constexpr uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3,
+                                 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+constexpr uint32_t kMLBase[53] = {
+    3,  4,  5,  6,  7,  8,  9,  10, 11,  12,  13,  14,   15,   16,
+    17, 18, 19, 20, 21, 22, 23, 24, 25,  26,  27,  28,   29,   30,
+    31, 32, 33, 34, 35, 37, 39, 41, 43,  47,  51,  59,   67,   83,
+    99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+constexpr uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  0,
+                                 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  0,
+                                 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3,  3,  4,  4,
+                                 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+
+struct ZstdFrame {
+  std::vector<uint8_t> out;  // everything the frame decoded
+  Huffman huffman;
+  bool have_huffman = false;
+  FseTable ll, of, ml;
+  bool have[3] = {false, false, false};
+  uint32_t rep[3] = {1, 4, 8};
+  int64_t block_max = 0;
+};
+
+// one of the three sequence tables by its mode (predefined, RLE, FSE
+// coded, repeated); returns the bytes read
+int64_t seq_table(int mode, const uint8_t* p, int64_t size, FseTable& t,
+                  bool& have, const int* def, int ndef, int def_log,
+                  int max_log, int max_symbol) {
+  switch (mode) {
+    case 0: {
+      std::vector<int> norm(def, def + ndef);
+      fse_build(norm, def_log, t);
+      have = true;
+      return 0;
+    }
+    case 1:
+      if (size < 1 || p[0] > max_symbol) zfail();
+      fse_rle(p[0], t);
+      have = true;
+      return 1;
+    case 2: {
+      std::vector<int> norm;
+      int log;
+      int64_t used = fse_counts(p, size, max_log, max_symbol, norm, log);
+      fse_build(norm, log, t);
+      have = true;
+      return used;
+    }
+    default:
+      if (!have) zfail();
+      return 0;
+  }
+}
+
+// ZSTD_decompressBlock_internal: a compressed block appended to f.out
+void zstd_block(ZstdFrame& f, const uint8_t* p, int64_t size) {
+  if (size > f.block_max || size < 3) zfail();  // MIN_CBLOCK_SIZE
+  // literals
+  int type = p[0] & 3, format = p[0] >> 2 & 3;
+  int64_t header, regen, csize = 0;
+  std::vector<uint8_t> lit;
+  if (type < 2) {  // raw, RLE
+    if (format == 1) {
+      header = 2;
+      regen = (p[0] >> 4) + (p[1] << 4);
+    } else if (format == 3) {
+      header = 3;
+      if (size < 3) zfail();
+      regen = (p[0] >> 4) + (p[1] << 4) + (int64_t{p[2]} << 12);
+    } else {
+      header = 1;
+      regen = p[0] >> 3;
+    }
+    if (regen > f.block_max) zfail();
+    if (type == 0) {
+      if (header + regen > size) zfail();
+      lit.assign(p + header, p + header + regen);
+      csize = regen;
+    } else {
+      if (header + 1 > size || (header == 3 && size < 4)) zfail();
+      lit.assign(regen, p[header]);
+      csize = 1;
+    }
+  } else {  // Huffman coded, or with the last block's tree
+    if (size < 5) zfail();
+    bool single = format == 0;
+    uint64_t h = p[0] | uint64_t{p[1]} << 8 | uint64_t{p[2]} << 16 |
+                 uint64_t{p[3]} << 24 | uint64_t{p[4]} << 32;
+    if (format < 2) {
+      header = 3;
+      regen = h >> 4 & 0x3ff;
+      csize = h >> 14 & 0x3ff;
+    } else if (format == 2) {
+      header = 4;
+      regen = h >> 4 & 0x3fff;
+      csize = h >> 18 & 0x3fff;
+    } else {
+      header = 5;
+      regen = h >> 4 & 0x3ffff;
+      csize = h >> 22 & 0x3ffff;
+    }
+    if (regen > f.block_max || header + csize > size) zfail();
+    if (!single && regen < 6) zfail();
+    const uint8_t* q = p + header;
+    int64_t left = csize;
+    if (type == 2) {
+      int64_t used = huffman_table(q, left, f.huffman);
+      f.have_huffman = true;
+      q += used;
+      left -= used;
+    } else if (!f.have_huffman) {
+      zfail();
+    }
+    lit.assign(regen, 0);
+    if (single) {
+      huffman_stream(f.huffman, q, left, lit.data(), regen);
+    } else {
+      if (left < 10) zfail();
+      int64_t s1 = q[0] | q[1] << 8, s2 = q[2] | q[3] << 8,
+              s3 = q[4] | q[5] << 8, s4 = left - 6 - s1 - s2 - s3;
+      if (s4 < 0) zfail();
+      int64_t seg = (regen + 3) / 4;
+      if (3 * seg > regen) zfail();
+      // HUF_DecompressFastArgs_init: the fast loop takes streams of 8
+      // bytes or more, a non-empty fourth segment, tables up to 11 bits
+      const bool fast = s1 >= 8 && s2 >= 8 && s3 >= 8 && s4 >= 8 &&
+                        3 * seg < regen && f.huffman.bits <= 11;
+      int64_t start[4], end[4], n[4] = {seg, seg, seg, regen - 3 * seg};
+      int64_t at = 6, sizes[4] = {s1, s2, s3, s4};
+      for (int k = 0; k < 4; ++k) {
+        start[k] = at;
+        end[k] = at += sizes[k];
+      }
+      if (fast) {
+        huffman_fast(f.huffman, q, start, end, lit.data(), seg, n);
+      } else {
+        for (int k = 0; k < 4; ++k)
+          huffman_stream(f.huffman, q + start[k], sizes[k],
+                         lit.data() + k * seg, n[k]);
+      }
+    }
+  }
+  const uint8_t* q = p + header + csize;
+  const uint8_t* end = p + size;
+  if (q >= end) zfail();
+  // sequences
+  int64_t nseq = q[0];
+  if (nseq < 128) {
+    q += 1;
+  } else if (nseq < 255) {
+    if (end - q < 2) zfail();
+    nseq = ((nseq - 128) << 8) + q[1];
+    q += 2;
+  } else {
+    if (end - q < 3) zfail();
+    nseq = q[1] + (q[2] << 8) + 0x7f00;
+    q += 3;
+  }
+  const int64_t block_start = static_cast<int64_t>(f.out.size());
+  if (nseq == 0) {
+    if (q != end) zfail();
+    f.out.insert(f.out.end(), lit.begin(), lit.end());
+    return;
+  }
+  if (q >= end) zfail();
+  int modes = *q++;
+  if (modes & 3) zfail();
+  q += seq_table(modes >> 6, q, end - q, f.ll, f.have[0], kLLDefault, 36, 6,
+                 9, 35);
+  q += seq_table(modes >> 4 & 3, q, end - q, f.of, f.have[1], kOFDefault, 29,
+                 5, 8, 31);
+  q += seq_table(modes >> 2 & 3, q, end - q, f.ml, f.have[2], kMLDefault, 53,
+                 6, 9, 52);
+  if (q > end) zfail();
+  BackBits bits;
+  bits.init(q, end - q);
+  uint32_t sll = static_cast<uint32_t>(bits.read(f.ll.log));
+  uint32_t sof = static_cast<uint32_t>(bits.read(f.of.log));
+  uint32_t sml = static_cast<uint32_t>(bits.read(f.ml.log));
+  size_t lit_at = 0;
+  for (int64_t k = 0; k < nseq; ++k) {
+    const FseEntry &ell = f.ll.cells[sll], &eof = f.of.cells[sof],
+                   &eml = f.ml.cells[sml];
+    int ofcode = eof.symbol;
+    uint64_t ofvalue = (uint64_t{1} << ofcode) + bits.read(ofcode);
+    uint64_t ml = kMLBase[eml.symbol] + bits.read(kMLBits[eml.symbol]);
+    uint64_t ll = kLLBase[ell.symbol] + bits.read(kLLBits[ell.symbol]);
+    uint64_t offset;
+    if (ofvalue > 3) {
+      offset = ofvalue - 3;
+      f.rep[2] = f.rep[1];
+      f.rep[1] = f.rep[0];
+      f.rep[0] = static_cast<uint32_t>(offset);
+    } else {
+      int idx = static_cast<int>(ofvalue) - 1 + (ll == 0);
+      offset = idx == 3 ? uint64_t{f.rep[0]} - 1 : f.rep[idx];
+      if (offset == 0) zfail();
+      if (idx == 1) {
+        f.rep[1] = f.rep[0];
+        f.rep[0] = static_cast<uint32_t>(offset);
+      } else if (idx >= 2) {
+        f.rep[2] = f.rep[1];
+        f.rep[1] = f.rep[0];
+        f.rep[0] = static_cast<uint32_t>(offset);
+      }
+    }
+    if (k + 1 < nseq) {
+      sll = ell.base + static_cast<uint32_t>(bits.read(ell.bits));
+      sml = eml.base + static_cast<uint32_t>(bits.read(eml.bits));
+      sof = eof.base + static_cast<uint32_t>(bits.read(eof.bits));
+    }
+    if (ll > lit.size() - lit_at) zfail();
+    int64_t now = static_cast<int64_t>(f.out.size());
+    if (now - block_start + static_cast<int64_t>(ll + ml) > f.block_max)
+      zfail();
+    f.out.insert(f.out.end(), lit.begin() + lit_at, lit.begin() + lit_at + ll);
+    lit_at += ll;
+    now += static_cast<int64_t>(ll);
+    if (offset > static_cast<uint64_t>(now)) zfail();
+    f.out.resize(now + ml);
+    uint8_t* o = f.out.data();
+    for (uint64_t i = 0; i < ml; ++i) o[now + i] = o[now + i - offset];
+  }
+  if (!bits.done()) zfail();
+  if (static_cast<int64_t>(f.out.size() + (lit.size() - lit_at)) - block_start
+      > f.block_max)
+    zfail();
+  f.out.insert(f.out.end(), lit.begin() + lit_at, lit.end());
+}
+
+// XXH64 of the frame's output (seed 0), for the content checksum
+uint64_t xxh64(const uint8_t* p, int64_t n) {
+  constexpr uint64_t P1 = 11400714785074694791ull, P2 = 14029467366897019727ull,
+                     P3 = 1609587929392839161ull, P4 = 9650029242287828579ull,
+                     P5 = 2870177450012600261ull;
+  auto rotl = [](uint64_t x, int r) { return x << r | x >> (64 - r); };
+  auto rd64 = [](const uint8_t* q) {
+    uint64_t v;
+    std::memcpy(&v, q, 8);
+    return v;
+  };
+  auto round = [&](uint64_t acc, uint64_t in) {
+    return rotl(acc + in * P2, 31) * P1;
+  };
+  const uint8_t* end = p + n;
+  uint64_t h;
+  if (n >= 32) {
+    uint64_t v1 = P1 + P2, v2 = P2, v3 = 0, v4 = 0 - P1;
+    for (; end - p >= 32; p += 32) {
+      v1 = round(v1, rd64(p));
+      v2 = round(v2, rd64(p + 8));
+      v3 = round(v3, rd64(p + 16));
+      v4 = round(v4, rd64(p + 24));
+    }
+    h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+    for (uint64_t v : {v1, v2, v3, v4}) h = (h ^ round(0, v)) * P1 + P4;
+  } else {
+    h = P5;
+  }
+  h += static_cast<uint64_t>(n);
+  for (; end - p >= 8; p += 8) h = rotl(h ^ round(0, rd64(p)), 27) * P1 + P4;
+  if (end - p >= 4) {
+    uint32_t v;
+    std::memcpy(&v, p, 4);
+    h = rotl(h ^ (uint64_t{v} * P1), 23) * P2 + P3;
+    p += 4;
+  }
+  for (; p < end; ++p) h = rotl(h ^ (*p * P5), 11) * P1;
+  h ^= h >> 33;
+  h *= P2;
+  h ^= h >> 29;
+  h *= P3;
+  h ^= h >> 32;
+  return h;
+}
+
+constexpr uint32_t kZstdMagic = 0xFD2FB528u;
+
+inline uint32_t le32(const uint8_t* p) {
+  return p[0] | p[1] << 8 | p[2] << 16 | uint32_t{p[3]} << 24;
+}
+
+// libtiff's ZSTDDecode of one strip: true where ``occ`` bytes came out
+bool zstd_strip(const uint8_t* p, int64_t n, int64_t occ, uint8_t* out) {
+  int64_t at = 0;
+  for (;;) {  // skippable frames
+    if (n - at < 4) return false;
+    uint32_t magic = le32(p + at);
+    if ((magic & 0xFFFFFFF0u) != 0x184D2A50u) break;
+    if (n - at < 8) return false;
+    at += 8 + int64_t{le32(p + at + 4)};
+    if (at > n) return false;
+  }
+  const bool first = at == 0;
+  if (le32(p + at) != kZstdMagic) zfail();
+  at += 4;
+  if (at >= n) return false;
+  const int fhd = p[at];
+  const int fcs_flag = fhd >> 6, single = fhd >> 5 & 1, checksum = fhd >> 2 & 1,
+            did_flag = fhd & 3;
+  if (fhd & 8) zfail();
+  const int did_size[4] = {0, 1, 2, 4};
+  const int fcs_size = fcs_flag == 0 ? single : 1 << fcs_flag;
+  const int64_t header = 1 + !single + did_size[did_flag] + fcs_size;
+  if (n - at < header) return false;
+  const uint8_t* h = p + at + 1;
+  uint64_t window = 0;
+  if (!single) {
+    int exponent = *h >> 3, mantissa = *h & 7;
+    uint64_t base = uint64_t{1} << (10 + exponent);
+    window = base + (base >> 3) * mantissa;
+    ++h;
+  }
+  uint32_t did = 0;
+  for (int k = 0; k < did_size[did_flag]; ++k) did |= uint32_t{h[k]} << (8 * k);
+  h += did_size[did_flag];
+  if (did != 0) zfail();  // no dictionary is loaded
+  bool known = fcs_size > 0;
+  uint64_t fcs = 0;
+  for (int k = 0; k < fcs_size; ++k) fcs |= uint64_t{h[k]} << (8 * k);
+  if (fcs_size == 2) fcs += 256;
+  if (single) window = fcs;
+  if (!single && (*(p + at + 1) >> 3) > 21) zfail();  // a window past 2^31
+  at += header;
+  ZstdFrame f;
+  f.block_max = static_cast<int64_t>(std::min<uint64_t>(window, 1 << 17));
+  // libzstd decodes the whole frame at once where its size is known, fits
+  // the strip and the frame lies in the data; otherwise block by block
+  // (ZSTD_decompressStream), stopping once a block's bytes pass the
+  // strip's end, and refusing a window past ZSTD_WINDOWLOG_LIMIT_DEFAULT
+  bool whole = false;
+  if (first && known && fcs <= static_cast<uint64_t>(occ)) {
+    int64_t q = at;
+    for (;;) {
+      if (n - q < 3) break;
+      uint32_t bh = p[q] | p[q + 1] << 8 | p[q + 2] << 16;
+      int type = bh >> 1 & 3;
+      if (type == 3) break;
+      q += 3 + (type == 1 ? 1 : int64_t{bh >> 3});
+      if (q > n) break;
+      if (bh & 1) {
+        whole = q + 4 * checksum <= n;
+        break;
+      }
+    }
+  }
+  if (!whole && std::max<uint64_t>(window, 1024) > (uint64_t{1} << 27))
+    zfail();
+  for (;;) {
+    if (n - at < 3) return false;
+    uint32_t bh = p[at] | p[at + 1] << 8 | p[at + 2] << 16;
+    const bool last = bh & 1;
+    const int type = bh >> 1 & 3;
+    const int64_t bsize = bh >> 3;
+    if (type == 3) zfail();
+    at += 3;
+    if (bsize > f.block_max) zfail();
+    const int64_t body = type == 1 ? 1 : bsize;
+    if (n - at < body) {
+      // the stream copies a raw block's bytes as they come
+      if (type != 0 || whole) return false;
+      f.out.insert(f.out.end(), p + at, p + n);
+      break;
+    }
+    if (type == 0)
+      f.out.insert(f.out.end(), p + at, p + at + bsize);
+    else if (type == 1)
+      f.out.insert(f.out.end(), static_cast<size_t>(bsize), p[at]);
+    else
+      zstd_block(f, p + at, bsize);
+    at += body;
+    const int64_t now = static_cast<int64_t>(f.out.size());
+    if (whole && now > occ) zfail();
+    if (last && known && static_cast<uint64_t>(now) != fcs) zfail();
+    // a block that passes the strip's end is not flushed whole: the
+    // stream stops there, before the checksum or the next block
+    if (!whole && now > occ) break;
+    if (last) {
+      if (checksum && n - at >= 4 &&
+          le32(p + at) != static_cast<uint32_t>(xxh64(f.out.data(), now)))
+        zfail();
+      if (whole && checksum && n - at < 4) zfail();
+      break;
+    }
+  }
+  if (static_cast<int64_t>(f.out.size()) < occ) return false;
+  std::memcpy(out, f.out.data(), occ);
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -770,11 +1570,14 @@ extern "C" {
 // caller clears it). ``options`` is Group3Options (bit 0: 2-D coding);
 // ``fillorder`` 2 reads each byte least significant bit first. Returns 0,
 // or -1 where a block lies outside the file or the width overflows
-// libtiff's arrays.
+// libtiff's arrays. ``status`` (nblocks entries, or null) receives how
+// each block ended: 0 decoded, 1 failed (libtiff's decoder returns -1),
+// 2 a Group 4 block ended early with rows left unwritten.
 int nm_fax_decode(const uint8_t* data, int64_t size, const int64_t* offsets,
                   const int64_t* counts, const int64_t* rows, int32_t nblocks,
                   int32_t rowpixels, int64_t rowbytes, int32_t compression,
-                  uint32_t options, int32_t fillorder, uint8_t* out) {
+                  uint32_t options, int32_t fillorder, uint8_t* out,
+                  int32_t* status) {
   if (rowpixels <= 0 || rowbytes < (int64_t{rowpixels} + 7) / 8) return -1;
   const FaxTables& tabs = fax_tables();
   FaxDecoder d{};
@@ -803,7 +1606,8 @@ int nm_fax_decode(const uint8_t* data, int64_t size, const int64_t* offsets,
   }
   for (int32_t i = 0; i < nblocks; ++i) {
     d.start_strip(data + offsets[i], counts[i]);
-    d.decode(out, rows[i]);
+    const int ended = d.decode(out, rows[i]);
+    if (status) status[i] = ended;
     out += rows[i] * rowbytes;
   }
   return 0;
@@ -867,6 +1671,40 @@ int nm_sgilog_decode(const uint8_t* data, int64_t size, const int64_t* offsets,
     out += rows[i] * width * channels;
   }
   return 0;
+}
+
+// One ThunderScan strip or tile (``cc`` bytes at ``data``) as libtiff's
+// ThunderDecodeRow decodes it into ``occ`` bytes of ``out``: rows of
+// ``scanline`` bytes, each the image's ``width`` pixels, the codes running
+// on from row to row. Returns 0; 1 where ``occ`` is not a whole number of
+// rows ("Fractional scanlines cannot be read"); 2 where a row's pixels do
+// not come out to ``width`` (the rows after it unwritten); -1 where the
+// rows would not fit their bytes.
+int nm_thunder_decode(const uint8_t* data, int64_t cc, int64_t occ,
+                      int64_t scanline, int64_t width, uint8_t* out) {
+  if (cc < 0 || occ < 0 || width < 1 || scanline < (width + 1) / 2)
+    return -1;
+  if (occ % scanline) return 1;
+  const uint8_t* bp = data;
+  for (int64_t at = 0; at < occ; at += scanline)
+    if (!thunder_row(bp, cc, out + at, width)) return 2;
+  return 0;
+}
+
+// One Zstandard strip or tile (compression 50000; ``cc`` bytes at
+// ``data``) as libtiff's ZSTDDecode decodes it into ``occ`` bytes of
+// ``out``. Returns 0; 1 where libzstd reports an error; 2 where the data
+// or its frame ends before ``occ`` bytes ("Not enough data").
+int nm_zstd_decode(const uint8_t* data, int64_t cc, int64_t occ,
+                   uint8_t* out) {
+  if (cc < 0 || occ < 0) return 1;
+  try {
+    return zstd_strip(data, cc, occ, out) ? 0 : 2;
+  } catch (const ZstdError&) {
+    return 1;
+  } catch (const std::bad_alloc&) {
+    return 1;
+  }
 }
 
 }  // extern "C"

@@ -155,13 +155,18 @@ def tiffcodec_library() -> ctypes.CDLL:
             u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
             i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
             i32, i64 = ctypes.c_int32, ctypes.c_int64
-            lib.nm_fax_decode.argtypes = [u8p, i64, i64p, i64p, i64p, i32,
-                                          i32, i64, i32, ctypes.c_uint32,
-                                          i32, u8p]
+            lib.nm_fax_decode.argtypes = [
+                u8p, i64, i64p, i64p, i64p, i32, i32, i64, i32,
+                ctypes.c_uint32, i32, u8p,
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
             lib.nm_fax_decode.restype = ctypes.c_int
             lib.nm_sgilog_decode.argtypes = [u8p, i64, i64p, i64p, i64p, i32,
                                              i64, i32, i32, u8p]
             lib.nm_sgilog_decode.restype = ctypes.c_int
+            lib.nm_thunder_decode.argtypes = [u8p, i64, i64, i64, i64, u8p]
+            lib.nm_thunder_decode.restype = ctypes.c_int
+            lib.nm_zstd_decode.argtypes = [u8p, i64, i64, u8p]
+            lib.nm_zstd_decode.restype = ctypes.c_int
             _tiffcodec = lib
     return _tiffcodec
 
@@ -171,27 +176,36 @@ def _blocks(offsets, counts, rows):
                  for v in (offsets, counts, rows))
 
 
+# how nm_fax_decode says a block ended
+FAX_DECODED, FAX_FAILED, FAX_SHORT = 0, 1, 2
+
+
 def fax_decode(data, offsets, counts, rows, rowpixels: int, rowbytes: int,
-               compression: int, options: int = 0,
-               fillorder: int = 1) -> np.ndarray:
+               compression: int, options: int = 0, fillorder: int = 1):
     """The CCITT strips or tiles of one TIFF (block i: ``counts[i]`` bytes
     at ``offsets[i]`` of the file ``data``, ``rows[i]`` rows of
     ``rowpixels`` pixels) as libtiff's fax codec decodes them, in the order
     given (its run arrays pass from one block to the next): compression 2,
     3 (``options`` its Group3Options, bit 0 for 2-D coding), 4 or 32771;
-    ``fillorder`` 2 reads bits least significant first. Returns the
-    blocks' packed rows, ``rowbytes`` bytes each, one block after the
-    other, 1 for black. Where a block goes wrong, the rows libtiff fills
-    are kept and the rest are zero, as OpenCV reads them."""
+    ``fillorder`` 2 reads bits least significant first. Returns (rows,
+    ends): the blocks' packed rows, ``rowbytes`` bytes each, one block
+    after the other, 1 for black (where a block goes wrong, the rows
+    libtiff fills are kept and the rest are zero, as OpenCV reads them),
+    and ``ends[i]``, how block i ended as libtiff's decoder returns it:
+    ``FAX_DECODED``, ``FAX_FAILED`` (-1: the data ends before the block's
+    rows, a run array would overflow) or ``FAX_SHORT`` (a Group 4 block
+    ended early after its first row, which libtiff accepts, the rows after
+    it unwritten)."""
     src = _bytes(data)
     offs, cnts, rws = _blocks(offsets, counts, rows)
     out = np.zeros(int(rws.sum()) * rowbytes, np.uint8)
+    ends = np.zeros(offs.size, np.int32)
     if tiffcodec_library().nm_fax_decode(
             src, src.size, offs, cnts, rws, offs.size, rowpixels, rowbytes,
-            compression, options, fillorder, out):
+            compression, options, fillorder, out, ends):
         raise ValueError("CCITT: a strip or tile outside the file, or rows "
                          f"of {rowpixels} pixels in {rowbytes} bytes")
-    return out
+    return out, ends
 
 
 # nm_sgilog_decode's kinds: the photometric and compression -> kind
@@ -215,6 +229,45 @@ def sgilog_decode(data, offsets, counts, rows, width: int, kind: int,
                                             fillorder, out):
         raise ValueError("SGILog: a strip or tile outside the file")
     return out
+
+
+# how nm_thunder_decode says a strip or tile ended
+THUNDER_DECODED, THUNDER_FRACTIONAL, THUNDER_BAD_ROW = 0, 1, 2
+
+
+def thunder_decode(data, occ: int, scanline: int, width: int):
+    """One ThunderScan strip or tile (compression 32809, its stored bytes
+    ``data``) as libtiff's codec decodes it into ``occ`` bytes: rows of
+    ``scanline`` bytes, each ``width`` 4-bit pixels, the most significant
+    nibble first. Returns (bytes, status): ``THUNDER_DECODED``,
+    ``THUNDER_FRACTIONAL`` (``occ`` is not a whole number of rows:
+    "Fractional scanlines cannot be read") or ``THUNDER_BAD_ROW`` (a row
+    decodes to fewer or more pixels than ``width``: "Not enough" / "Too
+    much data at scanline"), either of which fails libtiff's read."""
+    src = _bytes(data)
+    out = np.zeros(occ, np.uint8)
+    status = tiffcodec_library().nm_thunder_decode(src, src.size, occ,
+                                                   scanline, width, out)
+    if status < 0:
+        raise ValueError(f"ThunderScan: rows of {width} pixels in "
+                         f"{scanline} bytes")
+    return out, status
+
+
+# how nm_zstd_decode says a strip or tile ended
+ZSTD_DECODED, ZSTD_ERROR, ZSTD_SHORT = 0, 1, 2
+
+
+def zstd_decode(data, occ: int):
+    """One Zstandard strip or tile (compression 50000) as libtiff's codec
+    decodes it with libzstd into ``occ`` bytes. Returns (bytes, status):
+    ``ZSTD_DECODED``, ``ZSTD_ERROR`` (libzstd reports the data corrupt, a
+    dictionary, a window past its limit or a checksum that differs) or
+    ``ZSTD_SHORT`` (the data or its frame ends before ``occ`` bytes:
+    "Not enough data"); either of the last two fails libtiff's read."""
+    src = _bytes(data)
+    out = np.zeros(occ, np.uint8)
+    return out, tiffcodec_library().nm_zstd_decode(src, src.size, occ, out)
 
 
 def _frames(points: np.ndarray) -> np.ndarray:
@@ -355,16 +408,18 @@ def tiff_unlzw(data, cap: int) -> np.ndarray:
     return out[:n]
 
 
-def tiff_unlzw_libtiff(data, cap: int) -> tuple[np.ndarray, bool]:
+def tiff_unlzw_libtiff(data, cap: int,
+                       compat: bool = True) -> tuple[np.ndarray, bool]:
     """A TIFF LZW strip or tile as libtiff decodes it: new-style (MSB
     first, ``LZWDecode``) or, where it starts with a 0 byte and then an odd
-    one, old-style (LSB first, ``LZWDecodeCompat``). Returns (the bytes
-    decoded, at most ``cap``; whether the stream was sound): where libtiff
-    fails (no clear code first, a code that names no entry), the bytes it
-    wrote before the failure."""
+    one and libtiff is built with ``LZW_COMPAT`` (``compat``), old-style
+    (LSB first, ``LZWDecodeCompat``). Returns (the bytes decoded, at most
+    ``cap``; whether the stream was sound): where libtiff fails (no clear
+    code first, a code that names no entry), the bytes it wrote before the
+    failure."""
     src = _bytes(data)
     out = np.empty(cap, np.uint8)
-    if src.size >= 2 and src[0] == 0 and src[1] & 1:
+    if compat and src.size >= 2 and src[0] == 0 and src[1] & 1:
         n = library().nm_tiff_unlzw_compat(src, src.size, out, cap)
     else:
         n = library().nm_tiff_unlzw(src, src.size, out, cap, 1)

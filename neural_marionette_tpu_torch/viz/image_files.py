@@ -11,9 +11,10 @@ Counterpart of the JAX package's ``viz/raster.save_png`` / ``save_gif``
 * :func:`read_image` / :func:`decode_image` — the OBJ textures of
   ``apps/retarget``, read by the plugin that imageio picks for the file's
   name and content (:func:`imageio_route`, :func:`opencv_reads`): PNG,
-  JPEG, BMP, TGA, GIF, TIFF (``viz/tiff.py``), WebP, DDS, QOI, PNM
+  JPEG, BMP, TGA, GIF, TIFF (``viz/tiff_pillow.py``), WebP, DDS, QOI, PNM
   (``viz/texture_formats.py``), Sun raster (``viz/sunraster.py``) or JPEG
-  2000 (``viz/jpeg2000.py``) as Pillow or tifffile reads them; or, where
+  2000 (``viz/jpeg2000.py``) as Pillow reads them; a TIFF under
+  tifffile's names as tifffile reads it (``viz/tiff.py``); or, where
   imageio hands the file to OpenCV, as OpenCV's decoders read it for
   ``IMREAD_COLOR`` (``viz/opencv_read.py``, Radiance HDR in
   ``viz/radiance.py``);
@@ -42,9 +43,11 @@ from scipy.spatial import cKDTree
 
 from ..data import native
 from .jpeg2000 import CODESTREAM, SIGNATURE, decode_jpeg2000
+from .pixels import MAX_PIXELS, check_pixels
 from .sunraster import SUN_MAGIC, decode_sun_pillow
 from .texture_formats import decode_dds, decode_pnm, decode_qoi
 from .tiff import cmyk_to_rgb, decode_tiff
+from .tiff_pillow import open_tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -226,21 +229,6 @@ def read_png(path: str) -> np.ndarray:
 # --------------------------------------------------------------------- BMP
 def _le(data: bytes, pos: int, n: int, signed: bool = False) -> int:
     return int.from_bytes(data[pos:pos + n], "little", signed=signed)
-
-
-# Pillow refuses an image of more pixels (twice its MAX_IMAGE_PIXELS)
-MAX_PIXELS = 178956970
-
-
-def check_pixels(width: int, height: int, path: str, fmt: str) -> None:
-    """Raise ``ValueError`` for an image past Pillow's decompression-bomb
-    limit, which the port holds every format that imageio reads through
-    Pillow to. A TIFF has no cap (imageio reads it with its own tifffile,
-    which has none; ``viz/tiff.py`` bounds each strip by the data the file
-    holds instead), and OpenCV's PNM files have OpenCV's limits."""
-    if width * height > MAX_PIXELS:
-        raise ValueError(f"{path}: a {fmt} image of {width} x {height} "
-                         f"pixels, past the limit of {MAX_PIXELS}")
 
 
 # Pillow's BI_BITFIELDS layouts at 32 bits: (R, G, B, A) masks -> the byte
@@ -562,9 +550,12 @@ def _decode_gif(data: bytes, path: str) -> np.ndarray:
 # OpenEXR's magic
 RADIANCE = (b"#?RADIANCE", b"#?RGBE")
 EXR_MAGIC = b"\x76\x2f\x31\x01"
+# TIFF's magic numbers: classic and BigTIFF, as tifffile and OpenCV take
+# them; Pillow also takes the two byte orders' numbers swapped
+TIFF_MAGIC = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 _MAGIC = ((PNG_SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"),
-          (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
-          (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"),
+          (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+          *((m, "TIFF") for m in TIFF_MAGIC + (b"MM*\x00", b"II\x00*")),
           (b"DDS ", "DDS"), (b"qoif", "QOI"), (b"8BPS", "PSD"),
           (SIGNATURE, "JPEG2000"), (CODESTREAM, "JPEG2000"),
           (SUN_MAGIC, "SUN"), (RADIANCE[0], "HDR"), (RADIANCE[1], "HDR"),
@@ -653,8 +644,7 @@ def opencv_reads(data: bytes) -> bool:
     so the looser check changes only the words of the refusal."""
     if data[:2] == b"BM" or data.startswith(RADIANCE) \
             or data.startswith((b"\xff\xd8\xff", PNG_SIGNATURE, b"GIF87a",
-                                b"GIF89a", SUN_MAGIC, b"II*\x00",
-                                b"MM\x00*", b"II+\x00", b"MM\x00+",
+                                b"GIF89a", SUN_MAGIC, *TIFF_MAGIC,
                                 SIGNATURE, CODESTREAM)):
         return True
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
@@ -689,9 +679,10 @@ def _webp_features(head: bytes) -> bool:
 
 
 def _pillow_opens(fmt: str, data: bytes) -> bool:
-    """Whether imageio's Pillow plugin opens the file: Pillow identifies
-    it (``PF`` and ``P7`` are OpenCV's alone; Radiance HDR, OpenEXR and
-    unknown content Pillow does not know)."""
+    """Whether Pillow identifies a file that is not a TIFF (``PF`` and
+    ``P7`` are OpenCV's alone; Radiance HDR, OpenEXR and unknown content
+    Pillow does not know). A TIFF is opened by ``tiff_pillow.open_tiff``
+    in :func:`decode_image`."""
     if fmt == "PNM":
         return data[:2] not in (b"PF", b"P7")
     return fmt not in ("unknown", "HDR", "EXR")
@@ -702,7 +693,8 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
     it for the JAX package's ``_find_texture``, by the plugin that imageio
     picks for its name (``path``, which also names the file in errors and
     decides a TGA without a valid header) and content: the first of
-    :func:`imageio_route` that opens it.
+    :func:`imageio_route` that opens it. A plugin that opens the file and
+    then fails makes imageio fail, and the port raises.
 
     OpenCV (``viz/opencv_read.decode_opencv``): what
     :func:`opencv_reads` recognises, as OpenCV reads it for
@@ -711,20 +703,28 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
     codecs, CCITT fax and SGILog among them); Radiance HDR
     (``viz/radiance.py``) reaches it under every name.
 
-    Pillow and tifffile: PNG (:func:`read_png`); JPEG (baseline, extended
+    tifffile, first under its names (``.tif``, ``.tiff`` and 15 more): a
+    TIFF as tifffile reads it (the first plane of the first page, every
+    sample type and photometric interpretation it reads, with no pixel
+    cap, ``viz/tiff.decode_tiff``: uint8, uint16, int8, int16 or float32,
+    32- and 64-bit integers normalised to float32, under the port's rules
+    for palettes, CMYK, YCbCr and Lab).
+
+    Pillow: PNG (:func:`read_png`); JPEG (baseline, extended
     sequential, progressive and lossless; Huffman or arithmetic coding;
     8-bit, 1, 3 or 4 components, sampling factors 1-4; decoded by the host
     library as libjpeg-turbo 3 does, block smoothing included; a CMYK or
     YCCK file's inverted CMYK made RGB as Pillow's ``convert("RGB")``
-    does); BMP, TGA and GIF (the first frame; uint8); TIFF (the first
-    plane of the first page, every sample type and photometric
-    interpretation imageio's tifffile reads, with no pixel cap,
-    ``viz/tiff.decode_tiff``: uint8, uint16, int8, int16 or float32, 32-
-    and 64-bit integers normalised to float32); WebP (lossless and lossy,
-    the first frame of an animation; RGB, or RGBA where the file has
-    alpha; decoded by the host library as libwebp does); DDS, QOI and PNM
-    (``viz/texture_formats.py``: uint8, Pillow's PGM past 8 bits int32,
-    its float map float32, a CMYK extension made RGB); Sun raster
+    does); BMP, TGA and GIF (the first frame; uint8); TIFF as Pillow's
+    TIFF plugin reads it (``viz/tiff_pillow.py``: the modes of its
+    ``OPEN_INFO`` table, through its own raw decoder or libtiff's
+    codecs, imageio's array of that mode: a palette as RGB, 16-bit colour
+    as its high bytes, "I;16" uint16, "I" int32, "F" float32, "1" as 0
+    and 255; a TIFF it declines goes on to OpenCV); WebP (lossless and
+    lossy, the first frame of an animation; RGB, or RGBA where the file
+    has alpha; decoded by the host library as libwebp does); DDS, QOI and
+    PNM (``viz/texture_formats.py``: uint8, Pillow's PGM past 8 bits
+    int32, its float map float32, a CMYK extension made RGB); Sun raster
     (``viz/sunraster.decode_sun_pillow``); JPEG 2000 (a JP2 file or a raw
     codestream, any progression with POC, layers, precincts and tiles,
     every code-block style of Part 1, RGN, SOP/EPH, the 5/3 and 9/7
@@ -736,18 +736,27 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
     format.
 
     Each sample's type states its scale, which ``apps.retarget.texture_rgb``
-    reads from it: uint8 0-255, uint16 0-65535, int8 and int16 two's
-    complement of 8 and 16 bits, int32 only Pillow's mode "I" (0-65535),
-    float32 the samples themselves (a TIFF's 32- and 64-bit integers are
-    already normalised to [0, 1]). A decoder whose samples span less than
-    their type (a TIFF's 1-, 2- and 4-bit samples) widens them first."""
+    reads from it: uint8 0-255, uint16 0-65535 (either byte order), int8
+    and int16 two's complement of 8 and 16 bits, int32 Pillow's mode "I"
+    (0-65535; a TIFF's samples past that range are clipped to it),
+    float32 the samples themselves (a TIFF's 32- and 64-bit integers
+    under tifffile's names are already normalised to [0, 1]). A decoder
+    whose samples span less than their type (a TIFF's 1-, 2- and 4-bit
+    samples) widens them first."""
     fmt = image_format(data, path)
     for plugin in imageio_route(path):
         if plugin == "opencv" and opencv_reads(data):
             from .opencv_read import decode_opencv
             return decode_opencv(data, path)
-        if plugin == "pillow" and _pillow_opens(fmt, data) \
-                or plugin == "tifffile" and fmt == "TIFF":
+        if plugin == "tifffile" and data.startswith(TIFF_MAGIC):
+            return decode_tiff(data, path)
+        if plugin == "pillow" and fmt == "TIFF":
+            # Pillow's TIFF plugin declines (None: the next plugin) or
+            # opens it, and what it opens it reads or fails on
+            tif = open_tiff(data, path)
+            if tif is not None:
+                return tif.decode()
+        elif plugin == "pillow" and _pillow_opens(fmt, data):
             return _decode_pillow(fmt, data, path)
     if fmt == "EXR":
         raise ValueError(f"{path}: an OpenEXR image; imageio's OpenCV is "
@@ -759,8 +768,7 @@ def decode_image(data: bytes, path: str = "") -> np.ndarray:
 
 
 def _decode_pillow(fmt: str, data: bytes, path: str) -> np.ndarray:
-    """The file as imageio's Pillow plugin reads it (a TIFF as its
-    tifffile plugin does)."""
+    """The file as imageio's Pillow plugin reads it."""
     if fmt == "AVIF":
         raise ValueError(f"{path}: {AVIF_WAITS}")
     if fmt == "PSD":
@@ -781,8 +789,9 @@ def _decode_pillow(fmt: str, data: bytes, path: str) -> np.ndarray:
         return cmyk_to_rgb(img) if img.shape[-1] == 4 and fmt == "JPEG" \
             else img
     return {"PNG": _decode_png, "BMP": _decode_bmp, "TGA": _decode_tga,
-            "GIF": _decode_gif, "TIFF": decode_tiff, "DDS": decode_dds,
-            "QOI": decode_qoi, "PNM": decode_pnm, "SUN": decode_sun_pillow,
+            "GIF": _decode_gif,
+            "DDS": decode_dds, "QOI": decode_qoi, "PNM": decode_pnm,
+            "SUN": decode_sun_pillow,
             "JPEG2000": decode_jpeg2000}[fmt](data, path)
 
 

@@ -39,6 +39,7 @@ import struct
 import numpy as np
 
 from ..data import native
+from .pixels import check_pixels
 
 SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 CODESTREAM = b"\xff\x4f\xff\x51"
@@ -316,7 +317,6 @@ def decode_jpeg2000(data: bytes, path: str = "") -> np.ndarray:
     (H, W, C) uint8 (C = 1 L, 2 LA or PA, 3 RGB, P and CMYK made RGB, 4
     RGBA) or (H, W, 1) uint16 (I;16). Raises ``ValueError`` naming what it
     cannot read."""
-    from .image_files import check_pixels   # image_files imports this
     from .tiff import cmyk_to_rgb
     palette = None
     if data.startswith(SIGNATURE):

@@ -25,9 +25,9 @@ which name OpenCV's reasons.
   JP2 palette and channel definitions applied, then OpenCV's converters.
 * TIFF (:func:`_tiff`): OpenCV's TiffDecoder header checks, then libtiff's
   RGBA interface (TIFFReadRGBAStrip / Tile), which OpenCV uses for 8-bit
-  output, with libtiff's codecs: among them CCITT fax (T.4 1-D and 2-D,
-  T.6, modified Huffman byte- and word-aligned) and SGILog (LogL16,
-  LogLuv32, LogLuv24), decoded by the host library
+  output, with libtiff's codecs (``viz/libtiff.py``): among them CCITT fax
+  (T.4 1-D and 2-D, T.6, modified Huffman byte- and word-aligned) and
+  SGILog (LogL16, LogLuv32, LogLuv24), decoded by the host library
   (``native.fax_decode``, ``native.sgilog_decode``).
 * BMP (:func:`_bmp`) and GIF (:func:`_gif`): OpenCV's own decoders.
 * PxM, PAM and PFM: ``texture_formats.pxm_opencv``, ``pam_opencv`` and
@@ -39,13 +39,14 @@ which name OpenCV's reasons.
 from __future__ import annotations
 
 import struct
-import zlib
 
 import numpy as np
 
 from ..data import native
+from . import libtiff as L
 from . import tiff as T
 from .jpeg2000 import CODESTREAM, SIGNATURE, _box, _openjpeg_header
+from .pixels import orient
 from .radiance import decode_radiance
 from .sunraster import SUN_MAGIC, decode_sun_opencv
 from .texture_formats import pam_opencv, pfm_opencv, pxm_opencv
@@ -80,18 +81,6 @@ def exif_orientation(exif: bytes) -> int:
         if struct.unpack_from(o + "H", exif, at)[0] == 0x0112:
             return struct.unpack_from(o + "H", exif, at + 8)[0]
     return 1
-
-
-def orient(img: np.ndarray, orientation: int) -> np.ndarray:
-    """OpenCV's ApplyExifOrientation: 2 mirrored, 3 turned half way, 4
-    flipped, 5 transposed, 6 turned clockwise, 7 transposed the other way,
-    8 turned anticlockwise; any other value changes nothing."""
-    t = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
-         4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
-         6: lambda a: a.transpose(1, 0, 2)[:, ::-1],
-         7: lambda a: a.transpose(1, 0, 2)[::-1, ::-1],
-         8: lambda a: a.transpose(1, 0, 2)[::-1]}.get(orientation)
-    return img if t is None else np.ascontiguousarray(t(img))
 
 
 def _png_exif(data: bytes) -> bytes:
@@ -730,16 +719,7 @@ def _yuv_to_rgb(yuv: np.ndarray) -> np.ndarray:
 
 # -------------------------------------------------------------------- TIFF
 T_MAX_SIDE, T_MAX_PIXELS = 1 << 20, 1 << 30
-# TIFF tags read here besides viz/tiff.py's
-_ORIENTATION, _WHITE_POINT, _JPEG_TABLES = 274, 318, 347
-# libtiff's _TIFFGetMaxColorChannels
-_COLOUR_CHANNELS = {0: 1, 1: 1, 3: 1, 4: 1, 32844: 1, 2: 3, 8: 3, 32845: 3,
-                    9: 3, 10: 3, 6: 3, 5: 4}
-# libtiff's CCITT fax compressions (tif_fax3.c), its SGILog ones (tif_luv.c)
-_FAX = (2, 3, 4, 32771)
-_SGILOG = (34676, 34677)
-_OPENCV_COMPRESSION = (1, 5, 7, 8, 32773, 32946) + _FAX + _SGILOG
-_T4_OPTIONS = 292
+_OPENCV_COMPRESSION = (1, 5, 7, 8, 32773, 32946) + L.FAX + L.SGILOG
 
 
 def _tfail(path: str, what: str):
@@ -782,15 +762,19 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
     * CIELab: libtiff's TIFFCIELabToXYZ and TIFFXYZToRGB (its sRGB display
       tables) under the file's white point (D50 by default).
 
-    Strips and tiles are decoded as libtiff decodes them: fill order 2
-    reverses the bits of uncompressed, LZW and PackBits data; LZW new-style
-    or old-style (LSB first, as LZWDecodeCompat, chosen by the first two
-    bytes); Deflate; PackBits; JPEG with the JPEGTables tag. The predictor
-    applies only under LZW and Deflate, horizontal differencing at 8 and
-    16 bits (1-bit and other depths fail libtiff's PredictorSetup), the
-    floating point predictor only on float samples. A strip or tile that
-    decodes to fewer bytes than it should fails. Separate planes are found
-    as libtiff counts strips, which ignores ImageDepth.
+    Strips and tiles are decoded as libtiff decodes them
+    (``viz/libtiff.py``, shared with Pillow's route): fill order 2
+    reverses the bits of the stored bytes of every codec but fax and JPEG;
+    LZW new-style or old-style (LSB first, as LZWDecodeCompat, chosen by
+    the first two bytes); Deflate; PackBits; JPEG with the JPEGTables tag.
+    The predictor applies only under LZW and Deflate, horizontal
+    differencing at 8 and 16 bits (1-bit and other depths fail libtiff's
+    PredictorSetup), the floating point predictor only on float samples;
+    a strip whose codec fails keeps the bytes it decoded, with no
+    predictor and no byte swap. Separate planes are found as libtiff
+    counts strips, which ignores ImageDepth; byte counts a directory lacks
+    are libtiff's estimate. A TIFF without a PhotometricInterpretation
+    fails (OpenCV's TIFFGetField).
 
     CCITT fax data (compression 2, 3 under Group3Options 1-D or 2-D, 4 and
     32771) is decoded by libtiff's fax codec (``native.fax_decode``, its
@@ -804,9 +788,9 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
     (it takes them as its float path's), libtiff's still apply. LogL and
     LogLuv data under another compression are refused as libtiff refuses
     them. The Orientation tag is applied as an EXIF orientation."""
-    r = T._Reader(data, path)
+    r = T._Reader(data, path, libtiff=True)
     tags = r.tags
-    _directory_checks(tags, path)
+    L.directory_checks(r, tags, path, "OpenCV")
     W, H = T._one(tags, T._WIDTH, 0), T._one(tags, T._LENGTH, 0)
     spp = T._one(tags, T._SAMPLES, 1)
     bits_all = tags.get(T._BITS) or (1,)
@@ -821,14 +805,15 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
     compression = T._one(tags, T._COMPRESSION, 1)
     photometric = T._one(tags, T._PHOTOMETRIC, None)
     if photometric is None:
-        photometric = 2 if spp - len(tags.get(T._EXTRA, ())) >= 3 else 1
+        _tfail(path, "failed TIFFGetField(tif, TIFFTAG_PHOTOMETRIC, "
+                     "&photometric): no PhotometricInterpretation tag")
     if photometric == 3 and T._COLORMAP not in tags:
         if bits < 8:
             _tfail(path, "libtiff: missing required Colormap")
         photometric = 2 if spp == 3 else 1     # libtiff's guess
     planar = T._one(tags, T._PLANAR, 1)
     extra = list(tags.get(T._EXTRA, ()))
-    colour = _COLOUR_CHANNELS.get(photometric)
+    colour = L.COLOUR_CHANNELS.get(photometric)
     if colour and spp - len(extra) > colour:
         extra += [0] * (spp - colour - len(extra))
     if not W or not H:
@@ -890,7 +875,7 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
             _tfail(path, "TIFFRGBAImageOK: Sorry, LogL data must have "
                          "Compression=34676")
     elif photometric == 32845:
-        if compression not in _SGILOG:
+        if compression not in L.SGILOG:
             _tfail(path, "TIFFRGBAImageOK: Sorry, LogLuv data must have "
                          "Compression=34676 or 34677")
         if planar != 1:
@@ -902,14 +887,14 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
     elif photometric != 6:
         _tfail(path, "TIFFRGBAImageOK: Sorry, can not handle image with "
                      f"PhotometricInterpretation={photometric}")
-    if compression in _SGILOG:
-        img = _sgilog_samples(r, tags, W, H, photometric, compression, spp,
-                              path)
+    if compression in L.SGILOG:
+        img = L.sgilog_samples(r, tags, W, H, photometric, compression,
+                               spp, path, "OpenCV")
         # "the little white lie": 8-bit grey or RGB to the put routines
-        rgb = _tiff_rgba(img, tags, 1 if img.shape[-1] == 1 else 2, 8,
-                         img.shape[-1], [], path)
-        return orient(rgb, T._one(tags, _ORIENTATION, 1))
-    if compression in _FAX:
+        rgb = L.rgba(img, tags, 1 if img.shape[-1] == 1 else 2, 8,
+                     img.shape[-1], [], path, "OpenCV")
+        return orient(rgb, T._one(tags, L.ORIENTATION, 1))
+    if compression in L.FAX:
         if bits != 1:
             _tfail(path, "libtiff: Bits/sample must be 1 for Group 3/4 "
                          "encoding/decoding")
@@ -929,368 +914,11 @@ def _tiff(data: bytes, path: str) -> np.ndarray:
                                  (4, 2), (4, 4)):
         _tfail(path, f"libtiff: Sorry, can not handle image (YCbCr "
                      f"subsampling {sub})")
-    samples = _tiff_samples(r, tags, W, H, spp, bits, compression, planar,
-                            fmt, sub if kind == 6 else None,
-                            jpeg_rgb, path)
-    rgb = _tiff_rgba(samples, tags, kind, bits, spp, extra, path)
-    return orient(rgb, T._one(tags, _ORIENTATION, 1))
-
-
-def _directory_checks(tags, path: str) -> None:
-    """What makes libtiff's TIFFReadDirectory fail before OpenCV sees the
-    image: a SamplesPerPixel of 0 or past 16 bits, a RowsPerStrip of 0 or
-    past 32 bits, a PlanarConfiguration of another count than 1 or another
-    value than 1 or 2, no strip (or tile) offsets, and no byte counts for
-    more than one strip (one strip's libtiff estimates: ``_extent``)."""
-    for tag, name, top in ((T._SAMPLES, "SamplesPerPixel", 0xFFFF),
-                           (T._ROWS_PER_STRIP, "RowsPerStrip", 0xFFFFFFFF)):
-        value = T._one(tags, tag, 1)
-        if not 1 <= value <= top:
-            _tfail(path, f"libtiff: Bad value {value} for \"{name}\"")
-    planar = tags.get(T._PLANAR)
-    if planar is not None and len(planar) != 1:
-        _tfail(path, "libtiff: Incorrect count for \"PlanarConfiguration\"")
-    if planar is not None and planar[0] not in (1, 2):
-        _tfail(path, f"libtiff: Bad value {planar[0]} for "
-                     "\"PlanarConfiguration\" tag")
-    tiled = T._TILE_WIDTH in tags
-    offsets = tags.get(T._TILE_OFFSETS if tiled else T._STRIP_OFFSETS)
-    if offsets is None:
-        field = "TileOffsets" if tiled else "StripOffsets"
-        _tfail(path, f"libtiff: TIFF directory is missing required "
-                     f"\"{field}\" field")
-    if (T._TILE_COUNTS if tiled else T._STRIP_COUNTS) not in tags and \
-            len(offsets) > 1:
-        _tfail(path, "libtiff: TIFF directory is missing required "
-                     "\"StripByteCounts\" field")
-
-
-def _strip_bytes(r, i: int, tags, compression: int, need: int,
-                 path: str) -> np.ndarray:
-    """Strip or tile ``i``'s ``need`` bytes as libtiff's RGBA reader gets
-    them (before the predictor). It reads on past a decoding error
-    (TIFFReadRGBAStrip does not stop on one): LZW, Deflate and PackBits
-    data that fails or ends early gives the bytes decoded before, the rest
-    zero, as libtiff's decoders clear it; uncompressed data that ends
-    early is not copied, and the strip reads as zeros; a corrupt Deflate
-    stream leaves bytes that the file does not determine, and is
-    refused."""
-    tiled = T._TILE_WIDTH in tags
-    offsets = tags.get(T._TILE_OFFSETS if tiled else T._STRIP_OFFSETS)
-    counts = tags.get(T._TILE_COUNTS if tiled else T._STRIP_COUNTS)
-    if offsets is None or i >= len(offsets):
-        _tfail(path, f"no strip or tile {i}")
-    off = offsets[i]
-    cnt = counts[i] if counts is not None and i < len(counts) else need
-    if off + cnt > len(r.data):
-        _tfail(path, f"strip or tile {i} runs past the end of the file "
-                     "(libtiff: Read error on strip)")
-    raw = r.data[off:off + cnt]
-    if T._one(tags, T._FILLORDER, 1) == 2 and compression in (1, 5, 32773):
-        raw = T._REVERSED_BITS[np.frombuffer(raw, np.uint8)].tobytes()
-    if compression == 1:
-        out = np.frombuffer(raw, np.uint8)
-        return out[:need] if out.size >= need else np.zeros(need, np.uint8)
-    if compression == 5:
-        out, _ = native.tiff_unlzw_libtiff(raw, need)
-    elif compression == 32773:
-        out = native.packbits(raw, need)
-    else:
-        try:
-            out = np.frombuffer(zlib.decompressobj().decompress(raw, need),
-                                np.uint8)
-        except zlib.error as e:
-            _tfail(path, f"strip or tile {i}: Deflate: {e} (libtiff: "
-                         "Decoding error)")
-    full = np.zeros(need, np.uint8)
-    full[:out.size] = out[:need]
-    return full
-
-
-def _jpeg_strip(r, i: int, tags, path: str) -> np.ndarray:
-    """A JPEG-compressed strip or tile: the JPEGTables stream's tables,
-    then the strip's own stream, decoded by libjpeg with no colour
-    conversion but YCbCr to RGB."""
-    off, cnt = _extent(r, tags, i, path)
-    raw = r.data[off:off + cnt]
-    tables = tags.get(_JPEG_TABLES)
-    if tables is not None:
-        tables = bytes(tables)
-        if tables.endswith(b"\xff\xd9") and raw.startswith(b"\xff\xd8"):
-            raw = tables[:-2] + raw[2:]
-    try:
-        return native.jpeg_decode(raw, whole=True)
-    except ValueError as e:
-        _tfail(path, f"JPEG strip or tile {i}: {e}")
-
-
-def _tiff_samples(r, tags, W, H, spp, bits, compression, planar, fmt,
-                  sub, jpeg_rgb, path):
-    """The first image's samples as libtiff's RGBA reader gets them:
-    (H, W, spp) uint8 or native uint16 (1-, 2- and 4-bit levels unpacked),
-    or, for sub-sampled YCbCr, (H, W, 3) with chroma replicated."""
-    order = r.order
-    predictor = T._one(tags, T._PREDICTOR, 1) \
-        if compression in (5, 8, 32946) else 1
-    if predictor == 2 and bits not in (8, 16, 32, 64):
-        _tfail(path, "libtiff: Horizontal differencing \"Predictor\" not "
-                     f"supported with {bits}-bit samples")
-    if predictor == 3 and fmt != 3:
-        _tfail(path, "libtiff: Floating point \"Predictor\" not supported "
-                     f"with {fmt} data format")
-    if predictor not in (1, 2, 3):
-        _tfail(path, f"libtiff: \"Predictor\" value {predictor} not "
-                     "supported")
-    planes = spp if planar == 2 else 1
-    contig = 1 if planar == 2 else spp
-    dtype = np.dtype(order + "u2") if bits == 16 else np.dtype(np.uint8)
-    blocks = _blocks(tags, W, H, planes, path)
-    if sub is not None and sub != (1, 1):
-        return _ycbcr_blocks(r, tags, blocks, W, H, sub, compression, path)
-    fax = _fax_blocks(r, tags, blocks, compression, path) \
-        if compression in _FAX else None
-    out = np.zeros((planes, H, W, contig), np.uint16 if bits == 16 else
-                   np.uint8)
-    for k, (i, p, y, x, rows, run, depth) in enumerate(blocks):
-        if jpeg_rgb or compression == 7:
-            block = _jpeg_strip(r, i, tags, path)
-            block = block[:rows, :run].reshape(-1)
-            rows_here = min(rows, block.size // max(1, run * contig))
-            block = block[:rows_here * run * contig].reshape(rows_here, run,
-                                                             contig)
-        else:
-            row_bytes = (run * contig * bits + 7) // 8
-            buf = fax[k] if fax is not None else _strip_bytes(
-                r, i, tags, compression, depth * rows * row_bytes, path)
-            buf = buf[:rows * row_bytes]
-            if bits < 8:
-                block = T._unpack_bits(buf, rows, run * contig, bits).reshape(
-                    rows, run, contig)
-            else:
-                block = np.frombuffer(buf.tobytes(), dtype).astype(
-                    out.dtype).reshape(rows, run, contig)
-            if predictor == 2:
-                block = np.cumsum(block, axis=1, dtype=out.dtype)
-        h, w = min(block.shape[0], H - y), min(block.shape[1], W - x)
-        out[p, y:y + h, x:x + w] = block[:h, :w]
-    return out[0] if planar == 1 else out[..., 0].transpose(1, 2, 0)
-
-
-def _blocks(tags, W, H, planes, path):
-    """The strips or tiles of the first image in the order OpenCV's RGBA
-    reads take them: (index, plane, y, x, rows, row pixels, depth)."""
-    if T._TILE_WIDTH in tags:
-        tw, tl = T._one(tags, T._TILE_WIDTH, 0), T._one(tags, T._TILE_LENGTH,
-                                                        0)
-        td = max(1, T._one(tags, T._TILE_DEPTH, 1))
-        D = max(1, T._one(tags, T._IMAGE_DEPTH, 1))
-        if not tw or not tl:
-            _tfail(path, f"tiles of {tw} x {tl} pixels")
-        across, down = -(-W // tw), -(-H // tl)
-        per_plane = across * down * -(-D // td)
-        return [(p * per_plane + ty * across + tx, p, ty * tl, tx * tw, tl,
-                 tw, td) for p in range(planes) for ty in range(down)
-                for tx in range(across)]
-    rps = T._one(tags, T._ROWS_PER_STRIP, H) or H
-    rps = min(rps, H)
-    per_plane = -(-H // rps)
-    return [(p * per_plane + y // rps, p, y, 0, min(rps, H - y), W, 1)
-            for p in range(planes) for y in range(0, H, rps)]
-
-
-def _extent(r, tags, i: int, path: str) -> tuple[int, int]:
-    """Block ``i``'s (offset, byte count) in the file. A lone strip without
-    a byte count runs to the end of the file (libtiff estimates it from
-    the file's size); a block that is empty or runs past the end of the
-    file fails the read, as libtiff's TIFFFillStrip fails it."""
-    tiled = T._TILE_WIDTH in tags
-    offsets = tags[T._TILE_OFFSETS if tiled else T._STRIP_OFFSETS]
-    counts = tags.get(T._TILE_COUNTS if tiled else T._STRIP_COUNTS)
-    if i >= len(offsets):
-        _tfail(path, f"no strip or tile {i}")
-    if counts is None:
-        counts = (max(0, len(r.data) - offsets[0]),)
-    if i >= len(counts):
-        _tfail(path, f"no byte count of strip or tile {i}")
-    if counts[i] == 0:
-        _tfail(path, f"libtiff: Invalid strip byte count 0, strip {i}")
-    if offsets[i] + counts[i] > len(r.data):
-        _tfail(path, f"strip or tile {i} runs past the end of the file "
-                     "(libtiff: Read error on strip)")
-    return offsets[i], counts[i]
-
-
-def _fax_blocks(r, tags, blocks, compression, path):
-    """Each block's packed 1-bit rows (1 black), decoded by libtiff's fax
-    codec in OpenCV's order, the codec's run arrays passed from block to
-    block."""
-    ext = [_extent(r, tags, i, path) for i, *_ in blocks]
-    rows = [b[4] * b[6] for b in blocks]
-    run = blocks[0][5]
-    options = T._one(tags, _T4_OPTIONS, 0) if compression == 3 else 0
-    rowbytes = (run + 7) // 8
-    out = native.fax_decode(r.data, [e[0] for e in ext],
-                            [e[1] for e in ext], rows, run, rowbytes,
-                            compression, options,
-                            T._one(tags, T._FILLORDER, 1))
-    ends = np.cumsum([0] + rows) * rowbytes
-    return [out[a:b] for a, b in zip(ends[:-1], ends[1:])]
-
-
-def _sgilog_samples(r, tags, W, H, photometric, compression, spp, path):
-    """An SGILog image's (H, W, 1) grey or (H, W, 3) RGB samples as the
-    codec gives them to libtiff's RGBA reader (SGILOGDATAFMT_8BIT)."""
-    if photometric == 32844 and spp != 1:
-        _tfail(path, "libtiff: Sorry, can not handle LogL image with "
-                     f"Samples/pixel={spp}")
-    kind = native.SGILOG_KINDS.get((photometric, compression))
-    if kind is None:
-        _tfail(path, f"libtiff: Inappropriate photometric interpretation "
-                     f"{photometric} for SGILog compression; must be either "
-                     "LogLUV or LogL")
-    channels = 1 if kind == 0 else 3
-    blocks = _blocks(tags, W, H, 1, path)
-    ext = [_extent(r, tags, i, path) for i, *_ in blocks]
-    rows = [b[4] * b[6] for b in blocks]
-    run = blocks[0][5]
-    flat = native.sgilog_decode(r.data, [e[0] for e in ext],
-                                [e[1] for e in ext], rows, run, kind,
-                                T._one(tags, T._FILLORDER, 1))
-    out = np.zeros((H, W, channels), np.uint8)
-    at = 0
-    for (_, _, y, x, rows_here, run_here, _), n in zip(blocks, rows):
-        block = flat[at:at + n * run_here * channels].reshape(
-            n, run_here, channels)
-        at += n * run_here * channels
-        h, w = min(rows_here, H - y), min(run_here, W - x)
-        out[y:y + h, x:x + w] = block[:h, :w]
-    return out
-
-
-def _ycbcr_blocks(r, tags, blocks, W, H, sub, compression, path):
-    """Sub-sampled YCbCr data units (hs x vs luma, then Cb and Cr) ->
-    (H, W, 3), each unit's chroma replicated over it
-    (putcontig8bitYCbCr*tile)."""
-    hs, vs = sub
-    out = np.zeros((H, W, 3), np.uint8)
-    for i, _, y, x, rows, run, _ in blocks:
-        ux, uy = -(-run // hs), -(-rows // vs)
-        unit = hs * vs + 2
-        buf = _strip_bytes(r, i, tags, compression, ux * uy * unit, path)
-        u = buf.reshape(uy, ux, unit)
-        luma = u[..., :hs * vs].reshape(uy, ux, vs, hs).transpose(
-            0, 2, 1, 3).reshape(uy * vs, ux * hs)
-        cb = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1)
-        cr = np.repeat(np.repeat(u[..., -1], vs, 0), hs, 1)
-        block = np.stack([luma, cb, cr], -1)
-        h, w = min(rows, H - y), min(run, W - x)
-        out[y:y + h, x:x + w] = block[:h, :w]
-    return out
-
-
-def _tiff_rgba(img, tags, kind, bits, spp, extra, path) -> np.ndarray:
-    """libtiff's put routines over the samples -> (H, W, 3) uint8 RGB
-    (OpenCV drops the alpha of the RGBA raster)."""
-    def scale16(v):          # Bitdepth16To8
-        return ((v.astype(np.uint32) + 128) // 257).astype(np.uint8)
-
-    if kind in (0, 1):
-        v = img[..., 0]
-        if bits == 16:
-            v = (v >> 8).astype(np.uint8)
-            top = 255
-        else:
-            top = (1 << bits) - 1
-            v = (v.astype(np.int32) * 255 // top).astype(np.uint8) \
-                if bits < 8 else v.astype(np.uint8)
-        if kind == 0:
-            v = 255 - v
-        return np.repeat(v[..., None], 3, -1)
-    if kind == 3:
-        cmap = np.asarray(tags[T._COLORMAP], np.int64)
-        n = 1 << bits
-        if len(cmap) < 3 * n:
-            _tfail(path, "libtiff: a Colormap shorter than 3 x 2^bits")
-        cmap = cmap[:3 * n].reshape(3, n).T
-        if (cmap >= 256).any():
-            cmap = cmap >> 8
-        return (cmap & 255).astype(np.uint8)[img[..., 0]]
-    if kind == 2:
-        c = img[..., :3]
-        alpha = img[..., 3] if spp >= 4 else None
-        unassoc = extra[:1] == [2] and alpha is not None
-        if bits == 16:
-            c = scale16(c)
-            alpha = scale16(alpha) if alpha is not None else None
-        c = c.astype(np.uint8)
-        if unassoc:
-            a = alpha.astype(np.int32)[..., None]
-            c = ((c.astype(np.int32) * a + 127) // 255).astype(np.uint8)
-        return np.ascontiguousarray(c)
-    if kind == 5:
-        c = img.astype(np.int32)
-        k = 255 - c[..., 3:4]
-        return (k * (255 - c[..., :3]) // 255).astype(np.uint8)
-    if kind == 6:
-        return T._ycbcr_to_rgb(img[..., :3], tags)
-    return _lab_to_rgb(img, tags, bits)
-
-
-def _lab_to_rgb(img, tags, bits) -> np.ndarray:
-    """libtiff's CIELab conversion (tif_color.c) in float32, as C computes
-    it: TIFFCIELabToXYZ (8-bit L* scaled by 257 and a*, b* by 256) against
-    the reference white of the WhitePoint tag (default D50), then
-    TIFFXYZToRGB through the sRGB display of tif_getimage.c (its matrix,
-    gamma 2.4, 1500-step tables)."""
-    f = np.float32
-    wp = tags.get(_WHITE_POINT)
-    if wp is not None and len(wp) >= 4 and wp[1] and wp[3]:
-        wx, wy = f(f(wp[0]) / f(wp[1])), f(f(wp[2]) / f(wp[3]))
-    else:
-        tot = f(f(96.4250) + f(100.0)) + f(82.4680)
-        wx, wy = f(f(96.4250) / tot), f(f(100.0) / tot)
-    if wy == 0:
-        raise ValueError("TIFF (OpenCV): libtiff: Invalid value for "
-                         "WhitePoint tag")
-    y0 = f(100)
-    x0 = f(wx / wy * y0)
-    z0 = f(f(f(f(1) - wx) - wy) / wy * y0)
-    if bits == 8:
-        L = img[..., 0].astype(np.int64) * 257
-        a = img[..., 1].astype(np.int8).astype(np.int64) * 256
-        b = img[..., 2].astype(np.int8).astype(np.int64) * 256
-    else:
-        L = img[..., 0].astype(np.int64)
-        a = img[..., 1].astype(np.int16).astype(np.int64)
-        b = img[..., 2].astype(np.int16).astype(np.int64)
-    Lf = L.astype(f) * f(100) / f(65535)
-    small = Lf < f(8.856)
-    Y = np.where(small, Lf * y0 / f(903.292), f(0))
-    cby = np.where(small, f(7.787) * (Y / y0) + f(16) / f(116),
-                   (Lf + f(16)) / f(116))
-    Y = np.where(small, Y, y0 * cby * cby * cby).astype(f)
-
-    def cube(t, w0):
-        return np.where(t < f(0.2069), w0 * (t - f(0.13793)) / f(7.787),
-                        w0 * t * t * t).astype(f)
-
-    X = cube(a.astype(f) / f(256) / f(500) + cby, x0)
-    Z = cube(cby - b.astype(f) / f(256) / f(200), z0)
-    mat = ((3.2410, -1.5374, -0.4986), (-0.9692, 1.8760, 0.0416),
-           (0.0556, -0.2040, 1.0570))
-    steps = 1500
-    step = f(f(100) - f(1)) / f(steps)
-    table = (f(255) * np.power(np.arange(steps + 1) / steps,
-                               1.0 / float(f(2.4))).astype(f)).astype(f)
-    out = []
-    for row in mat:
-        yc = f(row[0]) * X + f(row[1]) * Y
-        yc = (yc + f(row[2]) * Z).astype(f)
-        yc = np.minimum(np.maximum(yc, f(1)), f(100))
-        i = np.minimum(((yc - f(1)) / step).astype(np.int64), steps)
-        v = (table[i].astype(np.float64) + 0.5).astype(np.int64)
-        out.append(np.minimum(v, 255))
-    return np.stack(out, -1).astype(np.uint8)
+    samples = L.rgba_samples(r, tags, W, H, spp, bits, compression,
+                             planar, fmt, sub if kind == 6 else None,
+                             jpeg_rgb, path, "OpenCV")
+    rgb = L.rgba(samples, tags, kind, bits, spp, extra, path, "OpenCV")
+    return orient(rgb, T._one(tags, L.ORIENTATION, 1))
 
 
 # -------------------------------------------------------------- any format

@@ -34,6 +34,8 @@ import struct
 
 import numpy as np
 
+from .pixels import check_pixels
+
 SUN_MAGIC = b"\x59\xa6\x6a\x95"
 # OpenCV's validateInputImageSize
 _CV_MAX_SIDE, _CV_MAX_PIXELS = 1 << 20, 1 << 30
@@ -95,7 +97,6 @@ def decode_sun_pillow(data: bytes, path: str = "") -> np.ndarray:
     """A Sun raster file as Pillow reads it and imageio gives it (see the
     module docstring): (H, W, 1) uint8 grey or bitmap, or (H, W, 3) uint8
     RGB (a colour map's colours)."""
-    from .image_files import check_pixels   # image_files imports this
     _, W, H, depth, _, kind, map_type, map_len = _header(data, path)
     if depth not in (1, 4, 8, 24, 32):
         _fail(path, f"depth {depth} (Pillow: Unsupported Mode/Bit Depth)")

@@ -53,6 +53,7 @@ import struct
 import numpy as np
 
 from ..data import native
+from .pixels import check_pixels
 from .tiff import cmyk_to_rgb
 
 # ------------------------------------------------------------------- DDS
@@ -90,7 +91,6 @@ def _mask_channel(px: np.ndarray, mask: int) -> np.ndarray:
 def decode_dds(data: bytes, path: str = "") -> np.ndarray:
     """A DDS file's first surface as (H, W, C) uint8: C = 3 RGB, 4 RGBA, 1
     grey, 2 grey + alpha (see the module docstring)."""
-    from .image_files import check_pixels   # image_files imports this
     if len(data) < 128 or data[:4] != b"DDS " or \
             struct.unpack_from("<I", data, 4)[0] != 124:
         _fail(path, "DDS: not a DDS file with a 124-byte header")
@@ -164,7 +164,6 @@ def _raw(data: bytes, offset: int, shape, path: str) -> np.ndarray:
 def decode_qoi(data: bytes, path: str = "") -> np.ndarray:
     """A QOI file as (H, W, 3) or (H, W, 4) uint8 (any channels byte but 3
     reads as RGBA, as Pillow reads it)."""
-    from .image_files import check_pixels
     if len(data) < 14 or data[:4] != b"qoif":
         _fail(path, "QOI: not a QOI file")
     width, height = struct.unpack_from(">II", data, 4)
@@ -253,7 +252,6 @@ def _plain_tokens(body: bytes) -> bytes:
 
 
 def _pnm_pillow(data: bytes, path: str) -> np.ndarray:
-    from .image_files import check_pixels
     h = _Header(data, path)
     magic = h.magic()
     mode = _PNM_MODES.get(magic)

@@ -127,11 +127,33 @@ def _fail(path: str, what: str):
     raise ValueError(f"{path}: TIFF: {what}")
 
 
-class _Reader:
-    """The header and the first IFD of a TIFF file."""
+# the tags without which libtiff's TIFFReadDirectory fails where their
+# values cannot be read (the others it ignores, "tag ignored")
+_LIBTIFF_NEEDS = {_WIDTH, _LENGTH, _BITS, _COMPRESSION, _SAMPLES,
+                  _ROWS_PER_STRIP, _PLANAR, _TILE_WIDTH, _TILE_LENGTH, _EXTRA,
+                  _SAMPLE_FORMAT, _IMAGE_DEPTH, _TILE_DEPTH, _STRIP_OFFSETS,
+                  _TILE_OFFSETS}
 
-    def __init__(self, data: bytes, path: str):
-        self.data, self.path = data, path
+
+# the field types libtiff reads an integer tag from, and the tags it reads
+# one value of
+_LIBTIFF_INTEGER_TYPES = (1, 3, 4, 6, 8, 9, 13, 16, 17, 18)
+_LIBTIFF_ARRAYS = {_STRIP_OFFSETS, _STRIP_COUNTS, _TILE_OFFSETS, _TILE_COUNTS}
+_LIBTIFF_SCALAR = {_WIDTH, _LENGTH, _PHOTOMETRIC, _FILLORDER, _SAMPLES,
+                   _ROWS_PER_STRIP, _PREDICTOR, _TILE_WIDTH, _TILE_LENGTH,
+                   _INKSET, _IMAGE_DEPTH, _TILE_DEPTH, 274}
+
+
+class _Reader:
+    """The header and the first IFD of a TIFF file. ``libtiff``: a tag
+    whose values run past the end of the file, an integer tag of another
+    field type, or one of the tags libtiff reads one value of with more
+    or fewer, is dropped as libtiff's TIFFReadDirectory drops it ("tag
+    ignored"), unless libtiff cannot do without it and fails
+    (tifffile fails on the first two and reads the rest)."""
+
+    def __init__(self, data: bytes, path: str, libtiff: bool = False):
+        self.data, self.path, self.libtiff = data, path, libtiff
         if len(data) < 8 or data[:2] not in (b"II", b"MM"):
             _fail(path, "not a TIFF file")
         self.order = "<" if data[:2] == b"II" else ">"
@@ -158,22 +180,49 @@ class _Reader:
             _fail(self.path, f"suspicious number of tags ({n})")
         entry, inline = (20, 8) if self.big else (12, 4)
         pos += 8 if self.big else 2
+        self.ifd_end = pos + n * entry      # where the entries end
+        # the bytes of the header, the IFD and its values stored apart
+        # (libtiff's EstimateStripByteCounts)
+        self.meta_bytes = (24 if self.big else 10) + n * entry + (
+            8 if self.big else 4)
         tags = {}
         for i in range(n):
             at = pos + i * entry
             code, kind = self.unpack("HH", at)
             count = self.unpack("Q" if self.big else "I", at + 4)[0]
+            if _TYPES.get(kind, ("", 0))[1] * count > inline:
+                self.meta_bytes += _TYPES[kind][1] * count
+            dropped = self.libtiff and code not in _LIBTIFF_NEEDS
+            if self.libtiff and code in _INTEGER_TAGS | _LIBTIFF_NEEDS and (
+                    kind not in _LIBTIFF_INTEGER_TYPES
+                    or code in _LIBTIFF_SCALAR and count != 1):
+                if dropped:
+                    continue
+                _fail(self.path, f"libtiff: Incompatible type or count for "
+                                 f"tag {code}")
             if kind not in _TYPES:
                 continue           # tifffile warns and skips the tag
             fmt, size = _TYPES[kind]
             if kind in (11, 12) and code in _INTEGER_TAGS:
+                if dropped:
+                    continue
                 _fail(self.path, f"tag {code} holds floating-point values")
             nbytes = size * count
             where = at + (12 if self.big else 8)
             if nbytes > inline:
                 where = self.unpack("Q" if self.big else "I", where)[0]
             if nbytes > len(self.data) or where + nbytes > len(self.data):
-                _fail(self.path, f"tag {code} runs past the end of the file")
+                if self.libtiff and code in _LIBTIFF_ARRAYS:
+                    # libtiff reads the values it needs (one a strip or
+                    # tile) from where the count puts them: those the file
+                    # holds
+                    count = max(0, len(self.data) - where) // size
+                    nbytes, where = size * count, min(where, len(self.data))
+                elif dropped:
+                    continue
+                else:
+                    _fail(self.path, f"tag {code} runs past the end of the "
+                                     "file")
             if kind == 2:
                 value = self.data[where:where + count]
             else:   # a rational is two values

@@ -4,10 +4,10 @@ the five host libraries (``csrc/nm_host.cpp``, ``csrc/nm_webp.cpp``,
 under AddressSanitizer and UndefinedBehaviorSanitizer: every decoder of
 them, the JPEG processes (Huffman, arithmetic, lossless, block smoothing),
 WebP, BCn, QOI and JPEG 2000, the expansions of GIF, TIFF, BMP and TGA,
-and TIFF's CCITT fax and SGILog codecs.
+and TIFF's CCITT fax, SGILog, ThunderScan and Zstandard codecs.
 
     python tests/torch_textures/asan_mutants.py [--per 1000] [--seed 2024]
-        [--formats JPEG2000,...] [--as .pbm]
+        [--formats JPEG2000,...] [--as .pbm | .png]
 
 Builds the libraries with ``g++ -fsanitize=address,undefined
 -fno-sanitize-recover=undefined`` into a temporary directory, then runs
@@ -15,13 +15,17 @@ itself again with the sanitizer runtimes preloaded. Each small fixture that
 the port reads (``MANIFEST.json``: its ``files`` and its Radiance HDR and
 Sun raster ``route_files``; with ``--as``, also the fixtures the port
 refuses under their own names and reads under that one, the CCITT and
-SGILog TIFFs among them; ``--formats`` picks by ``image_format``'s
-names, in any case) gives ``--per`` mutants, in turn: 1-4
-bytes set anywhere; 1-2 bytes set in its first 64; bytes set then the file
-cut; the file cut. Every mutant goes through ``decode_image`` and
+SGILog TIFFs among them, and with ``.png`` the ThunderScan and Zstandard
+TIFFs, as ``MANIFEST.json`` records imageio's reads
+under ``.pbm``, ``.hdr`` and, for TIFF, ``.png``; ``--formats`` picks by
+``image_format``'s names, in any case) gives ``--per`` mutants, in turn:
+1-4 bytes set anywhere; 1-2 bytes set in its first 64; bytes set then the
+file cut; the file cut. Every mutant goes through ``decode_image`` and
 ``texture_rgb``, named as its fixture or, with ``--as``, with that
-extension instead (``.pbm``: the OpenCV route of ``viz/opencv_read.py``):
-it must raise ``ValueError`` or give a well-formed finite texture. A
+extension instead (``.pbm``: the OpenCV route of ``viz/opencv_read.py``;
+``.png``: a TIFF through Pillow's route, ``viz/tiff_pillow.py``, and
+OpenCV's where Pillow declines it): it must raise ``ValueError`` or give a
+well-formed finite texture. A
 sanitizer report ends the process with a nonzero code. Prints one JSON
 line: mutants run, read and raised per format, and seconds.
 Needs ``g++`` with its sanitizer runtimes; no imaging library.
@@ -66,9 +70,13 @@ def run(lib_dir: Path, per: int, seed: int, formats: str = "",
     from neural_marionette_tpu_torch.apps.retarget import texture_rgb
     from neural_marionette_tpu_torch.viz import image_files as F
     manifest = json.loads((HERE / "MANIFEST.json").read_text())
+
+    def reads(e):        # what imageio gives under the suffix, recorded
+        return {**e.get("opencv_route", {}),
+                ".png": e.get("pillow_route", {})}.get(suffix, {})
+
     names = [e["file"] for e in manifest["files"] + manifest["route_files"]
-             if ("raises" not in e or "sha256" in e.get(
-                 "opencv_route", {}).get(suffix, {}))
+             if ("raises" not in e or "sha256" in reads(e))
              and "sha256" not in e and not e.get("large")
              and not e["facts"].get("large")]
     if formats:

@@ -44,8 +44,14 @@ imageio's array, or its refusal. ``route_files`` are the Radiance HDR and
 Sun raster fixtures (``route_cases``: Radiance files written with
 ``cv2.imwrite`` and by hand, Sun raster files by hand), each with what
 imageio gives under its own name and under the other names of
-``ROUTE_NAMES``.
-Deterministic: a second run writes the same bytes.
+``ROUTE_NAMES``. Every TIFF also records in ``pillow_route`` what imageio
+gives for a copy named ``.png``, which Pillow opens first
+(``pillow_read``): the plugin that opened it (``pillow``, or ``opencv``
+where Pillow's TIFF plugin declines it) and imageio's array, or the
+refusal.
+Deterministic: a second run writes the same bytes (the LogLuv files
+OpenCV encodes, which it does not write the same twice, are kept as they
+are once written: ``kept``).
 """
 from __future__ import annotations
 
@@ -81,12 +87,13 @@ def textured(H, W, seed):
     return img
 
 
-def big(n=1024):
-    """The 1024 x 1024 smooth texture of the decode-time fixtures."""
-    y, x = np.mgrid[0:n, 0:n].astype(np.float64)
+def big(n=1024, wave=1.0):
+    """The 1024 x 1024 smooth texture of the decode-time fixtures (its
+    wavelengths ``wave`` times as long)."""
+    y, x = np.mgrid[0:n, 0:n].astype(np.float64) / wave
     r = 127 + 120 * np.sin(x / 37.0) * np.cos(y / 23.0)
     g = 127 + 100 * np.sin((x + 2 * y) / 51.0)
-    b = 127 + 120 * np.cos(np.hypot(x - 500, y - 400) / 29.0)
+    b = 127 + 120 * np.cos(np.hypot(x - 500 / wave, y - 400 / wave) / 29.0)
     return np.stack([r, g, b], -1).clip(0, 255).astype(np.uint8)
 
 
@@ -615,6 +622,38 @@ def fax_2d(row, ref):
     return "".join(out)
 
 
+def thunder_encode(rows) -> bytes:
+    """ThunderScan codes (compression 32809) of (h, w) 4-bit samples, row
+    by row: a run of the last pixel from an even pixel on (libtiff's run
+    from an odd one repeats the last two pixels), three 2-bit or two 3-bit
+    deltas from the last pixel, else a raw pixel."""
+    two, three = {0: 0, 1: 1, -1: 3}, {0: 0, 1: 1, 2: 2, 3: 3, -3: 5,
+                                        -2: 6, -1: 7}
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            n = 0
+            while i % 2 == 0 and i + n < w and n < 63 and row[i + n] == last:
+                n += 1
+            if n >= 2:
+                out.append(n)
+                i += n
+                continue
+            for k, table, shifts, code in ((3, two, (4, 2, 0), 0x40),
+                                           (2, three, (3, 0), 0x80)):
+                d = np.diff(np.concatenate([[last], row[i:i + k]]))
+                if i + k <= w and all(int(v) in table for v in d):
+                    out.append(code | sum(table[int(v)] << s
+                                          for v, s in zip(d, shifts)))
+                    i, last = i + k, row[i + k - 1]
+                    break
+            else:
+                out.append(0xC0 | int(row[i]))
+                i, last = i + 1, row[i]
+    return bytes(out)
+
+
 def fax_encode(rows, compression, t4=0, eol=True, lsb_first=False):
     """(h, w) 0/1 rows (1 black) as CCITT data: compression 2 (rows
     byte-aligned), 3 (an EOL before each row; ``t4`` bit 0: 2-D coding,
@@ -673,7 +712,41 @@ def sgilog_planes(words, nbytes):
     return bytes(out)
 
 
+def zstd_compress(data: bytes, level: int = 9, checksum: bool = False,
+                  content_size: bool = False, window_log: int = 0) -> bytes:
+    """One Zstandard frame of ``data`` from Pillow's own libzstd (the one
+    its libtiff writes compression 50000 with), through ctypes, with the
+    frame parameters libtiff leaves at their defaults: the level (negative
+    ones too), a content checksum, the content size in the header, the
+    window (``window_log``, 0 for the level's)."""
+    import ctypes as C
+    import glob
+    import PIL
+    libs = Path(PIL.__file__).resolve().parent.parent / "pillow.libs"
+    lib = C.CDLL(sorted(glob.glob(str(libs / "libzstd-*.so*")))[0])
+    lib.ZSTD_createCCtx.restype = C.c_void_p
+    lib.ZSTD_freeCCtx.argtypes = [C.c_void_p]
+    lib.ZSTD_CCtx_setParameter.argtypes = [C.c_void_p, C.c_int, C.c_int]
+    lib.ZSTD_compress2.restype = C.c_size_t
+    lib.ZSTD_compress2.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t,
+                                   C.c_char_p, C.c_size_t]
+    lib.ZSTD_isError.argtypes = [C.c_size_t]
+    ctx = lib.ZSTD_createCCtx()
+    # ZSTD_c_compressionLevel, ZSTD_c_contentSizeFlag, ZSTD_c_checksumFlag,
+    # ZSTD_c_windowLog
+    for key, value in ((100, level), (200, int(content_size)),
+                       (201, int(checksum)), (101, window_log)):
+        lib.ZSTD_CCtx_setParameter(ctx, key, value)
+    out = C.create_string_buffer(2 * len(data) + 1024)
+    n = lib.ZSTD_compress2(ctx, out, len(out), data, len(data))
+    lib.ZSTD_freeCCtx(ctx)
+    assert not lib.ZSTD_isError(n)
+    return out.raw[:n]
+
+
 TIFF_COMPRESS = {1: lambda b: b, 5: lzw_tiff, 8: lambda b: zlib.compress(b, 9),
+                 50000: zstd_compress,
+                 32946: lambda b: zlib.compress(b, 9),
                  32773: packbits, 34925: lambda b: __import__("lzma").compress(
                      b, format=__import__("lzma").FORMAT_XZ)}
 
@@ -691,7 +764,9 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
     ``fax_encode`` (its keywords; compression 2, 3, 4 or 32771, the
     Group3Options tag from ``t4``). ``sgilog``: the samples are LogL16
     (``"l16"``) or LogLuv32 (``"luv32"``) words, coded by
-    ``sgilog_planes``, or LogLuv24 words (``"luv24"``, three bytes each)."""
+    ``sgilog_planes``, or LogLuv24 words (``"luv24"``, three bytes each).
+    Compression 32809: one 4-bit sample a pixel, coded by
+    ``thunder_encode``."""
     H, W, S = samples.shape
     dt = samples.dtype
     bits = bits or dt.itemsize * 8
@@ -706,7 +781,9 @@ def tiff_file(samples, photometric, order="<", big=False, compression=1,
             d = block.astype(dt)
             d[:, 1:] = block[:, 1:] - block[:, :-1]
             block = d
-        if sgilog == "luv24":
+        if compression == 32809:      # 4-bit samples, one a pixel
+            raw = thunder_encode(block[..., 0])
+        elif sgilog == "luv24":
             v = block[..., 0].astype(np.uint32)
             raw = np.stack([v >> 16, v >> 8, v], -1).astype(
                 np.uint8).tobytes()
@@ -842,6 +919,17 @@ QT_ANNEX_K = np.array([
     [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
      24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
     + [99] * 32])
+
+
+def restriped(data: bytes, stream: bytes, compression: int) -> bytes:
+    """A one-strip little-endian TIFF ``data`` with its strip replaced by
+    ``stream`` (appended) under ``compression``."""
+    at = data.index(struct.pack("<HHI", 259, 3, 1))
+    data = data[:at + 8] + struct.pack("<H", compression) + data[at + 10:]
+    for tag, value in ((273, len(data)), (279, len(stream))):
+        at = data.index(struct.pack("<HHI", tag, 4, 1))
+        data = data[:at + 8] + struct.pack("<I", value) + data[at + 12:]
+    return data + stream
 
 
 def jpeg_quant(quality):
@@ -3354,7 +3442,8 @@ def tiff_codec_cases(add):
         ok, enc = cv2.imencode(".tif", hdr[..., ::-1], [
             cv2.IMWRITE_TIFF_COMPRESSION, compression])
         assert ok
-        add(f"tiff_logluv{name}_opencv.tif", enc.tobytes(),
+        add(f"tiff_logluv{name}_opencv.tif", kept(
+            f"tiff_logluv{name}_opencv.tif", enc.tobytes()),
             writer="cv2.imencode", coding=f"LogLuv{name}",
             raises="SGI LogLuv")
     l16 = (smooth(29, 37, 52)[..., 0].astype(np.int64) * 40 + 12000
@@ -3393,8 +3482,42 @@ def tiff_codec_cases(add):
     ok, enc = cv2.imencode(".tif", blocky[..., ::-1], [
         cv2.IMWRITE_TIFF_COMPRESSION, 34676])
     assert ok
-    add("tiff_1024_logluv32.tif", enc.tobytes(), writer="cv2.imencode",
+    add("tiff_1024_logluv32.tif", kept("tiff_1024_logluv32.tif",
+                                       enc.tobytes()), writer="cv2.imencode",
         coding="LogLuv32", large=True, raises="SGI LogLuv")
+    # the decode-time fixture of the Pillow route: 16-bit RGB that Pillow
+    # reads as its high bytes (tifffile as uint16), through libtiff's LZW
+    # and horizontal predictor, big-endian samples made native; the high
+    # bytes a smooth field, the low bytes a diagonal ramp, so that the two
+    # bytes of almost every sample differ (a reader taking the wrong byte,
+    # or the wrong byte order, shows) and the file stays under 1 MB
+    y, x = np.mgrid[0:n, 0:n]
+    ramp = (3 * x[..., None] + 5 * y[..., None] + 85 * np.arange(3)) & 255
+    rgb16 = (big(n, wave=2.0).astype(np.uint16) << 8 | ramp).astype(np.uint16)
+    add("tiff_1024_rgb16_lzw_predictor.tif", tiff_file(
+        rgb16, 2, order=">", compression=5, predictor=2, rows_per_strip=64),
+        depth=16, predictor=2, large=True)
+    # ThunderScan (32809), which tifffile refuses and OpenCV's libtiff is
+    # built without, and Pillow's libtiff reads: 4-bit grey in strips
+    add("tiff_thunderscan.tif", tiff_file(
+        (smooth(29, 37, 52)[..., :1] // 16).astype(np.uint8), 1, bits=4,
+        compression=32809, rows_per_strip=8), writer="thunder_encode",
+        depth=4, raises="ThunderScan")
+    # Zstandard (50000) as Pillow's libtiff writes it, which imageio's
+    # tifffile cannot decompress here (no imagecodecs) and OpenCV's libtiff
+    # is built without
+    add("tiff_zstd.tif", pil_bytes(smooth(29, 37, 53), "TIFF",
+                                   compression="zstd"),
+        writer="Pillow", raises="Zstandard")
+
+
+def kept(name: str, data: bytes) -> bytes:
+    """The fixture already written under ``name``, else ``data``: OpenCV's
+    LogLuv encoder (libtiff's, which dithers) does not write the same
+    bytes twice, so a file it wrote is kept once it is in the
+    repository."""
+    path = HERE / name
+    return path.read_bytes() if path.exists() else data
 
 
 def tiff_page(path):
@@ -3732,6 +3855,42 @@ def route_reads(data, names):
     return out
 
 
+def pillow_read(data, ext=".png"):
+    """What imageio gives for a TIFF named with Pillow's ``ext``: the plugin
+    that opened it (``pillow``, with the mode of Pillow's image, or
+    ``opencv`` where Pillow declines it) and its array (shape, type,
+    SHA-256), or the refusal."""
+    import tempfile
+
+    import imageio.v2 as imageio
+    from imageio.core.imopen import imopen
+    names = {"PillowPlugin": "pillow", "OpenCVPlugin": "opencv",
+             "TifffilePlugin": "tifffile"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / ("texture" + ext)
+        path.write_bytes(data)
+        read = {}
+        try:
+            with imopen(path, "ri", legacy_mode=True) as f:
+                read["plugin"] = names.get(type(f).__name__, type(f).__name__)
+                if read["plugin"] == "pillow":
+                    read["mode"] = f._image.mode
+        except Exception:
+            read["plugin"] = None
+        try:
+            arr = np.asarray(imageio.imread(path))
+        except Exception as e:
+            read["raises"] = f"{type(e).__name__}: {e}".replace(
+                f"{tmp}/", "")
+        else:
+            read.update(shape=list(arr.shape), dtype=str(arr.dtype),
+                        sha256=hashlib.sha256(arr.tobytes()).hexdigest())
+    return read
+
+
+TIFF_MAGIC = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
+
+
 def versions() -> dict:
     import cv2
     import imageio
@@ -3757,6 +3916,8 @@ def main() -> int:
                 (name, data[24], data[25])
         entry = dict(file=name, facts=facts,
                      opencv_route=route_reads(data, (".pbm", ".hdr")))
+        if data.startswith(TIFF_MAGIC):
+            entry["pillow_route"] = pillow_read(data)
         if "raises" in facts:
             entry["raises"] = facts.pop("raises")
             try:
